@@ -1,0 +1,72 @@
+"""The port stands alone: no file of ``src/repro_torch/`` nor
+``chip_smoke.py`` imports ``jax`` or anything of ``repro``; its entry
+points default to the card; and ``chip_smoke.py`` fails, printing no
+result, where there is no card or no repository around it."""
+
+import ast
+import inspect
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_no_jax_or_reference_imports(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {mod}"
+
+
+def test_port_files_found():
+    names = {p.name for p in PORT_FILES}
+    assert {"graph.py", "quant.py", "executor.py", "ops.py", "ref.py",
+            "imc_mvm.py", "conv2d.py", "_build.py", "weights.py",
+            "chip_smoke.py"} <= names
+
+
+def test_entry_points_default_to_cuda():
+    from repro_torch import weights
+    from repro_torch.models.cnn import layers, resnet
+    for fn in (resnet.init, weights.from_jax_params, layers.conv_init,
+               layers.dense_init):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+
+
+def _run_smoke(cwd):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_chip_smoke_fails_without_a_card():
+    res = _run_smoke(ROOT)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    res = _run_smoke(tmp_path)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
