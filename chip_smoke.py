@@ -19,7 +19,24 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
    ResNet-8 once the same way;
 4. timings with CUDA events at the path's shapes (kernel, plain version,
    bound), end-to-end frames/s and request latency, and the device's
-   busy share over one request from ``torch.profiler``.
+   busy share over one request from ``torch.profiler``;
+5. the flash-attention kernel against its plain version: gemma3-1b's
+   prefill shapes (B=4, H=4, MQA, S=2048, hd=288) in bf16 and f32, with
+   the 512 window and global, and ragged shapes (S = 1000, 100, 1; hd
+   16/64/128/288; softcap; non-causal; GQA);
+6. gemma3-1b at full width and one window period of depth (6 layers: 5
+   local, 1 global), bf16 weights from a CPU generator seeded 0: prefill
+   of a 640-token prompt and 4 greedy decode steps on the card against the
+   same port on the CPU (the plain path);
+7. the LM main path: 26-layer gemma3-1b (random bf16 weights, seed 0, on
+   the card) serving 8 requests of 1024-2048 prompt tokens, 32 new tokens
+   each, through the port's ``Server``; the flash launch counter must read
+   26 per prefill; prefill and decode rates, time to first token and
+   decode-step latency;
+8. the flash kernel's time per prefill of (4, 2048) summed over the 26
+   layers at their windows, beside its bound, its plain version and
+   ``scaled_dot_product_attention`` (the yardstick only), and the device
+   busy share over one prefill and one decode step.
 
 Detail goes to ``chiprun_out/chip_smoke.json``.  The line before the last
 is ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
@@ -102,6 +119,288 @@ def to_cpu(tree):
     if isinstance(tree, list):
         return [to_cpu(v) for v in tree]
     return tree.cpu()
+
+
+# ---------------------------------------------------------------------------
+# LM serving path (gemma3-1b) and its flash-attention kernel
+# ---------------------------------------------------------------------------
+
+BF16_FLOPS_PER_S = 989e12
+FLASH_F32_TOL = 2e-4   # f32 inputs, and bf16 inputs against the f32 upcast
+FLASH_BF16_TOL = 2e-2  # bf16 inputs against the plain version in bf16
+# Card against CPU at full width: both run the port in bf16, but the card's
+# kernel keeps the logits and probabilities in f32 where the CPU's plain
+# version rounds the logits to bf16, and cuBLAS and the CPU sum the bf16
+# products in other orders.  Each layer moves the logits by a few bf16 ulps
+# (2^-8 relative); over 6 layers that stays within 5% of max |logit|.
+LM_LOGIT_TOL = 5e-2
+LM_PROMPT = 640        # > 512: the local layers' window bites
+LM_DECODE_STEPS = 4
+SERVE_REQUESTS = 8
+SERVE_LENS = (1024, 2048)
+SERVE_MAX_NEW = 32
+SERVE_MAX_BATCH = 4
+PATH_B, PATH_S = 4, 2048
+
+
+def with_layers(cfg, n):
+    """``cfg`` with its one segment cut to ``n`` layers (widths kept)."""
+    import dataclasses
+    seg = dataclasses.replace(cfg.segments[0], n=n)
+    return dataclasses.replace(cfg, segments=(seg,))
+
+
+def flash_inputs(gen, dev, B, H, KV, S, hd, dtype, path_layout, scale=1.0):
+    """Random q (B,H,S,hd) and k/v (B,KV,S,hd).  With ``path_layout`` they
+    are transposed views of (B,S,heads,hd) tensors, as attention.forward
+    passes its projections."""
+    import torch
+
+    def make(heads):
+        shape = (B, S, heads, hd) if path_layout else (B, heads, S, hd)
+        t = scale * torch.randn(shape, generator=gen, device=dev)
+        t = t.to(dtype)
+        return t.transpose(1, 2) if path_layout else t
+
+    return make(H), make(KV), make(KV)
+
+
+def flash_check(q, k, v, causal, window, softcap, label):
+    """Kernel against its plain version on the same inputs; returns the
+    tight error (f32 inputs, or bf16 against the f32 upcast)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    got = flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    f32 = [t.float() for t in (q, k, v)]
+    want = ref.flash_attention_ref(*f32, causal=causal, window=window,
+                                   softcap=softcap)
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"flash_attention {label}: bad output")
+    err = (got - want).abs().max().item()
+    if err > FLASH_F32_TOL:
+        raise AssertionError(f"flash_attention {label}: max |d| {err:.3e} > "
+                             f"{FLASH_F32_TOL} against the f32 plain version")
+    line = f"check flash_attention {label}: max |d| {err:.2e} (f32 plain)"
+    if q.dtype == torch.bfloat16:
+        want16 = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                         softcap=softcap)
+        err16 = (got - want16).abs().max().item()
+        if err16 > FLASH_BF16_TOL:
+            raise AssertionError(f"flash_attention {label}: max |d| {err16:.3e}"
+                                 f" > {FLASH_BF16_TOL} against the bf16 plain")
+        line += f", {err16:.2e} (bf16 plain)"
+    log(line)
+    return err
+
+
+def flash_checks(dev, hd_path, local_window):
+    """Phase 5: the flash kernel against its plain version at the serving
+    path's shapes (both dtypes, window and global) and at ragged ones."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(7)
+    err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for window in (local_window, None):
+            qkv = flash_inputs(gen, dev, PATH_B, 4, 1, PATH_S, hd_path, dtype,
+                               path_layout=True)
+            err = max(err, flash_check(*qkv, True, window, None,
+                                       f"path {str(dtype)[6:]} window {window}"))
+    ragged = [  # B, H, KV, S, hd, dtype, causal, window, softcap, scale
+        (1, 3, 3, 1000, 64, torch.float32, True, None, None, 1.0),
+        (3, 5, 5, 100, 16, torch.bfloat16, True, None, None, 1.0),
+        (2, 6, 2, 1000, 128, torch.bfloat16, True, 256, None, 1.0),
+        (1, 7, 1, 1000, 288, torch.bfloat16, True, 512, None, 1.0),
+        (2, 3, 1, 1000, 288, torch.float32, True, 512, None, 1.0),
+        (2, 3, 3, 100, 64, torch.float32, False, None, None, 1.0),
+        (1, 2, 2, 1000, 128, torch.float32, True, None, 50.0, 3.0),
+        (2, 2, 1, 100, 16, torch.float32, False, 32, 50.0, 3.0),
+        (1, 1, 1, 1, 16, torch.float32, True, None, None, 1.0),
+    ]
+    for B, H, KV, S, hd, dtype, causal, window, softcap, scale in ragged:
+        qkv = flash_inputs(gen, dev, B, H, KV, S, hd, dtype, path_layout=False,
+                           scale=scale)
+        label = (f"({B},{H},{KV},{S},{hd}) {str(dtype)[6:]} causal={causal} "
+                 f"window={window} softcap={softcap}")
+        err = max(err, flash_check(*qkv, causal, window, softcap, label))
+    return err
+
+
+def lm_card_vs_cpu(cfg, dev, prompt_len, steps):
+    """Phase 6: ``cfg`` (full width, cut depth) with bf16 weights from a CPU
+    generator seeded 0, copied to ``dev``; prefill and ``steps`` decode
+    steps on both, the CPU's greedy tokens fed to both.  Returns the worst
+    max |d| / max |logit| and the number of tokens compared."""
+    import torch
+    from repro_torch.models.lm import transformer
+    params_cpu = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                         device="cpu")
+    params_dev = transformer.tree_map(lambda t: t.to(dev), params_cpu)
+    toks = torch.randint(0, cfg.vocab, (1, prompt_len),
+                         generator=torch.Generator().manual_seed(1))
+    s_max = prompt_len + steps
+    t = time.perf_counter()
+    log_cpu, cache_cpu = transformer.prefill(cfg, params_cpu, toks, s_max)
+    cpu_s = time.perf_counter() - t
+    log_dev, cache_dev = transformer.prefill(cfg, params_dev, toks.to(dev), s_max)
+    worst, compared = 0.0, 0
+    for step in range(steps + 1):
+        a, b = log_cpu[:, -1].float(), log_dev[:, -1].float().cpu()
+        if not torch.isfinite(b).all():
+            raise AssertionError(f"lm: non-finite card logits at step {step}")
+        lmax = a.abs().max().item()
+        rel = (a - b).abs().max().item() / lmax
+        top2 = a.topk(2, dim=-1).values[0]
+        margin = (top2[0] - top2[1]).item()
+        same = bool(a.argmax(-1) == b.argmax(-1))
+        log(f"lm card vs cpu step {step}: max |d| / max |logit| {rel:.3e} "
+            f"(max |logit| {lmax:.3f}), top-2 margin {margin:.4f}, "
+            f"tokens equal {same}")
+        if rel > LM_LOGIT_TOL:
+            raise AssertionError(f"lm: card logits differ from the CPU by "
+                                 f"{rel:.3e} of max |logit| > {LM_LOGIT_TOL}")
+        if margin > 2 * LM_LOGIT_TOL * lmax:
+            compared += 1
+            if not same:
+                raise AssertionError(f"lm: greedy token differs at step {step}")
+        worst = max(worst, rel)
+        if step == steps:
+            break
+        tok = a.argmax(-1, keepdim=True)
+        log_cpu, cache_cpu = transformer.decode(cfg, params_cpu, tok, cache_cpu)
+        log_dev, cache_dev = transformer.decode(cfg, params_dev, tok.to(dev),
+                                                cache_dev)
+    return {"worst_rel": worst, "tokens_compared": compared,
+            "cpu_prefill_s": cpu_s}
+
+
+def timed_steps(server, sync):
+    """Wrap a server's steps to time each call (host clock, ending in a
+    device synchronise) and check its logits; returns the record."""
+    import torch
+    rec = {"prefill": [], "decode": []}
+    pre, dec = server.prefill, server.decode
+
+    def timed(kind, fn, tokens_of):
+        def call(*args):
+            t = time.perf_counter()
+            out = fn(*args)
+            sync()
+            rec[kind].append((time.perf_counter() - t, tokens_of(*args)))
+            if not torch.isfinite(out[0]).all():
+                raise AssertionError(f"serve: non-finite logits in {kind}")
+            return out
+        return call
+
+    server.prefill = timed("prefill", pre, lambda p, b: b["tokens"].numel())
+    server.decode = timed("decode", dec, lambda p, tok, c: tok.numel())
+    return rec
+
+
+def lm_serve(cfg, dev, n_requests, lens, max_new, max_batch, sync):
+    """Phase 7: the main path.  ``cfg`` through the port's ``Server``, bf16
+    weights from a generator on ``dev`` seeded 0, prompts of seeded
+    lengths in ``lens``; returns the server (warmed up, steps timed by
+    ``timed_steps``), the requests and the timing record.  Serving them is
+    left to the caller, which resets the launch counts just before."""
+    import numpy as np
+    import torch
+    from repro_torch.models.lm import transformer
+    from repro_torch.runtime.serve_loop import Request, Server
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = transformer.init_params(cfg, gen, device=dev)
+    rng = np.random.default_rng(0)
+    s_max = lens[1] + max_new
+    server = Server(cfg, params, max_batch=max_batch, s_max=s_max)
+    # warm-up (library handles, allocator) before the counted run
+    server.serve([Request(-1, torch.arange(64), max_new=2)])
+    sync()
+    reqs = [Request(i, torch.from_numpy(rng.integers(0, cfg.vocab, int(n))),
+                    max_new=max_new)
+            for i, n in enumerate(rng.integers(lens[0], lens[1] + 1, n_requests))]
+    rec = timed_steps(server, sync)
+    return server, reqs, rec
+
+
+def flash_timings(dev, cfg):
+    """Phase 8: per prefill of (PATH_B, PATH_S), the kernel, its plain
+    version and SDPA (the yardstick; the port never calls it) at each
+    layer's window, summed over the layers; the bound from this run's
+    shapes and masks."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    gen = torch.Generator(device=dev).manual_seed(11)
+    q, k, v = flash_inputs(gen, dev, PATH_B, H, KV, PATH_S, hd, torch.bfloat16,
+                           path_layout=True)
+    qc = q.contiguous()
+    kx = k.repeat_interleave(H // KV, dim=1).contiguous()
+    vx = v.repeat_interleave(H // KV, dim=1).contiguous()
+    idx = torch.arange(PATH_S, device=dev)
+    d = idx[:, None] - idx[None, :]
+    windows = cfg.segments[0].windows()
+    rows = {}
+    for w in sorted(set(windows)):
+        window = None if w >= PATH_S else w
+        ms = cuda_time_ms(lambda: flash_attention(q, k, v, causal=True,
+                                                  window=window), 10)
+        plain_ms = cuda_time_ms(lambda: ref.flash_attention_ref(
+            q, k, v, causal=True, window=window), 5, warmup=1)
+        band = None if window is None else (d >= 0) & (d < window)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qc, kx, vx, attn_mask=band, is_causal=band is None)
+
+        library_ms = cuda_time_ms(sdpa, 10)
+        pairs = PATH_B * H * int(((d >= 0) & (d < (window or PATH_S + 1))).sum())
+        n_bytes = 2 * (q.numel() + k.numel() + v.numel()) + 4 * q.numel()
+        n_ops = 4 * hd * pairs
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = n_ops / BF16_FLOPS_PER_S * 1e3
+        n = windows.count(w)
+        rows[w] = {"window": window, "layers": n, "ms": ms, "plain_ms": plain_ms,
+                   "library_ms": library_ms, "pairs": pairs, "bytes": n_bytes,
+                   "flop": n_ops, "bytes_ms": t_bytes, "ops_ms": t_ops,
+                   "bound_ms": max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        log(f"  flash window {window} x{n}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+            f"{max(t_bytes, t_ops):.4f} ms ({rows[w]['bound_by']}; "
+            f"{pairs} pairs, {n_bytes / 1e6:.1f} MB)")
+    tot = {key: sum(r["layers"] * r[key] for r in rows.values())
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms",
+                       "ops_ms")}
+    tot["bound_by"] = "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations"
+    tot["per_window"] = list(rows.values())
+    log(f"per prefill ({PATH_B}, {PATH_S}), {len(windows)} layers: flash kernel "
+        f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, sdpa "
+        f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms "
+        f"({tot['bound_by']})")
+    return tot
+
+
+def profile_kernels(fn):
+    """Wall time and device kernel time of ``fn()`` under torch.profiler:
+    (wall ms, busy ms, top kernel rows)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows) / 1e3
+    return wall * 1e3, busy, [{"name": k[:80], "ms": v / 1e3, "calls": c}
+                              for k, v, c in rows[:12]]
 
 
 def main() -> int:
@@ -356,6 +655,98 @@ def main() -> int:
         f"{tot['bound_ms']:.4f} ms (bytes {tot['bytes_ms']:.4f} ms, ops "
         f"{tot['ops_ms']:.4f} ms)")
     detail["imc_conv2d_per_request"] = tot
+    # ---- 5. flash attention against its plain version --------------------
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.lm import transformer
+    log(f"torch.backends.cuda.matmul.allow_tf32 = "
+        f"{torch.backends.cuda.matmul.allow_tf32}")
+    gemma = get_config("gemma3-1b")
+    local_window = min(gemma.segments[0].window_pattern)
+    flash_err = flash_checks(dev, gemma.hd, local_window)
+
+    # ---- 6. full width, cut depth: card against the CPU plain path ---------
+    period = with_layers(gemma, len(gemma.segments[0].window_pattern))
+    detail["lm_card_vs_cpu"] = lm_card_vs_cpu(period, dev, LM_PROMPT,
+                                              LM_DECODE_STEPS)
+    log(f"gemma3-1b {period.n_layers} layers, full width: card vs cpu within "
+        f"{detail['lm_card_vs_cpu']['worst_rel']:.3e} of max |logit| (limit "
+        f"{LM_LOGIT_TOL}), {detail['lm_card_vs_cpu']['tokens_compared']} "
+        f"tokens compared; cpu prefill "
+        f"{detail['lm_card_vs_cpu']['cpu_prefill_s']:.1f} s")
+
+    # ---- 7. the LM main path: 26-layer gemma3-1b through Server ------------
+    server, reqs, rec = lm_serve(gemma, dev, SERVE_REQUESTS, SERVE_LENS,
+                                 SERVE_MAX_NEW, SERVE_MAX_BATCH,
+                                 torch.cuda.synchronize)
+    reset_counts()
+    flash_attention.launches = 0
+    stats = server.serve(reqs)
+    torch.cuda.synchronize()
+    flash_launches = flash_attention.launches
+    if stats.prefills == 0 or flash_launches != gemma.n_layers * stats.prefills:
+        raise AssertionError(f"serve: {flash_launches} flash launches for "
+                             f"{stats.prefills} prefills of {gemma.n_layers} layers")
+    if imc_conv2d.launches or imc_mvm.launches:
+        raise AssertionError("serve: the LM path launched an INT8 kernel")
+    for r in reqs:
+        if len(r.out_tokens) != SERVE_MAX_NEW or not all(
+                0 <= t < gemma.vocab for t in r.out_tokens):
+            raise AssertionError(f"serve: request {r.rid} got {r.out_tokens}")
+    pre_s = sum(t for t, _ in rec["prefill"])
+    pre_tok = sum(n for _, n in rec["prefill"])
+    dec = [t for t, _ in rec["decode"]]
+    dec_tok = sum(n for _, n in rec["decode"])
+    detail["serve"] = {
+        "requests": len(reqs), "prompt_lens": [int(r.prompt.numel()) for r in reqs],
+        "prefills": stats.prefills, "decode_steps": stats.decode_steps,
+        "flash_launches": flash_launches, "wall_s": stats.wall_seconds,
+        "prefill_tokens": pre_tok, "prefill_tok_per_s": pre_tok / pre_s,
+        "ttft_ms": [t * 1e3 for t, _ in rec["prefill"]],
+        "decode_tok_per_s": dec_tok / sum(dec),
+        "decode_step_ms_mean": sum(dec) / len(dec) * 1e3,
+        "decode_step_ms_max": max(dec) * 1e3}
+    sv = detail["serve"]
+    log(f"gemma3-1b serve: {sv['requests']} requests, {stats.prefills} prefills,"
+        f" {stats.decode_steps} decode steps, flash launches {flash_launches} "
+        f"({gemma.n_layers} per prefill), wall {stats.wall_seconds:.3f} s")
+    log(f"  prefill {sv['prefill_tok_per_s']:.1f} tok/s (padded tokens), time "
+        f"to first token {', '.join(f'{t:.1f}' for t in sv['ttft_ms'])} ms; "
+        f"decode {sv['decode_tok_per_s']:.1f} tok/s, step "
+        f"{sv['decode_step_ms_mean']:.3f} ms mean, "
+        f"{sv['decode_step_ms_max']:.3f} ms max")
+
+    # ---- 8. flash timings and the LM profile -------------------------------
+    flash_tot = flash_timings(dev, gemma)
+    detail["flash_attention"] = flash_tot
+    toks = torch.randint(0, gemma.vocab, (PATH_B, PATH_S), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(2))
+    params = server.params
+
+    def prefill_once():
+        return transformer.prefill(gemma, params, toks, PATH_S + 1)
+
+    cache = prefill_once()[1]
+
+    def decode_once():      # writes position PATH_S of the cache each time
+        return transformer.decode(gemma, params, toks[:, :1], cache)
+
+    for name, fn in (("prefill", prefill_once), ("decode", decode_once)):
+        fn()
+        torch.cuda.synchronize()
+        try:
+            wall, busy, top = profile_kernels(fn)
+        except Exception as exc:  # the profiler is optional here
+            detail[f"profile_{name}"] = f"not measured: {exc!r}"
+            log(f"profile one {name}: not measured ({exc!r})")
+            continue
+        detail[f"profile_{name}"] = {"wall_ms": wall, "device_busy_ms": busy,
+                                     "top": top}
+        log(f"profile one {name} ({PATH_B}, {PATH_S}): wall {wall:.3f} ms (under"
+            f" the profiler), kernels {busy:.3f} ms ({100 * busy / wall:.1f}%)")
+        for row in top[:6]:
+            log(f"  {row['ms']:9.3f} ms  x{row['calls']:<4d} {row['name'][:70]}")
+
     detail["card"] = card
     detail["device"] = torch.cuda.get_device_name(0)
     OUT_DIR.mkdir(exist_ok=True)
@@ -376,6 +767,13 @@ def main() -> int:
          "launches": counts18[1], "max_abs_err": err["imc_mvm"],
          "ms": mvm_ms, "plain_ms": mvm_plain_ms, "bound_ms": mvm_bound,
          "bound_by": mvm_by, "library_ms": mvm_library_ms},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:29",
+         "launches": flash_launches, "max_abs_err": flash_err,
+         "ms": flash_tot["ms"], "plain_ms": flash_tot["plain_ms"],
+         "bound_ms": flash_tot["bound_ms"], "bound_by": flash_tot["bound_by"],
+         "library_ms": flash_tot["library_ms"]},
     ]
     log(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,4 +1,4 @@
-"""Public wrappers around the INT8 kernels, dispatched by device.
+"""Public wrappers around the kernels, dispatched by device.
 
 Counterpart of ``repro.kernels.ops``.  A CUDA tensor launches the Hopper
 kernel (or raises); a CPU tensor takes the kernel's plain version in
@@ -16,6 +16,7 @@ import torch
 from ..models.cnn.layers import conv_pads
 from . import ref
 from .conv2d import imc_conv2d
+from .flash_attention import flash_attention
 from .imc_mvm import imc_mvm
 
 
@@ -35,3 +36,16 @@ def quantized_conv2d(qx: torch.Tensor, qw: torch.Tensor, sx, sw: torch.Tensor,
     if qx.device.type == "cpu":
         return ref.conv2d_ref(qx, qw, sx, sw, bias, stride=stride, pads=pads)
     return imc_conv2d(qx, qw, sx, sw, bias, stride=stride, pads=pads)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: Optional[int] = None,
+              softcap: Optional[float] = None) -> torch.Tensor:
+    """Flash attention (B,H,S,hd) -> (B,H,S,hd) f32.  k/v may carry fewer
+    heads (B,KV,S,hd), KV dividing H: head h attends with KV head
+    ``h // (H // KV)``.  ``window`` None and ``GLOBAL_WINDOW`` agree."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       softcap=softcap)
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           softcap=softcap)

@@ -1,7 +1,8 @@
-"""Plain PyTorch versions of the INT8 kernels.
+"""Plain PyTorch versions of the kernels.
 
 Counterpart of ``repro.kernels.ref``.  The CPU path of ``ops`` runs these,
-and the card's kernels are held against them bit for bit.
+and the card's kernels are held against them: the INT8 kernels bit for
+bit, flash attention within the reference's float tolerances.
 
 PyTorch has no int32 ``conv2d`` or ``matmul`` on CUDA, so the integer
 accumulators are computed in float64 and cast to int32.  That is exact:
@@ -15,6 +16,7 @@ round each step the same way.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -66,3 +68,29 @@ def conv2d_ref(qx: torch.Tensor, qw: torch.Tensor, sx, sw: torch.Tensor,
     if pads is None:
         pads = conv_pads(qx.shape[1], qx.shape[2], qw.shape[0], stride, "SAME")
     return requant(conv2d_acc(qx, qw, stride, pads), sx, sw, bias)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: Optional[int] = None,
+                        softcap: Optional[float] = None) -> torch.Tensor:
+    """Plain softmax attention; q (B, H, S, hd), k/v (B, KV, S, hd) with KV
+    dividing H; f32 result.  As in the reference, the logits' einsum runs
+    in the inputs' dtype before the f32 cast, and the rest in f32."""
+    B, H, S, hd = q.shape
+    if k.shape[1] != H:     # head h reads KV head h // (H // KV)
+        k = torch.repeat_interleave(k, H // k.shape[1], dim=1)
+        v = torch.repeat_interleave(v, H // v.shape[1], dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, k).to(torch.float32)
+    logits = logits / math.sqrt(hd)
+    if softcap is not None:
+        logits = torch.tanh(logits / softcap) * softcap
+    idx = torch.arange(S, device=q.device)
+    d = idx[:, None] - idx[None, :]
+    ok = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= d >= 0
+    if window is not None:
+        ok &= d < window
+    logits = torch.where(ok[None, None], logits, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, v.to(torch.float32))

@@ -42,15 +42,36 @@ def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"graph.py", "quant.py", "executor.py", "ops.py", "ref.py",
             "imc_mvm.py", "conv2d.py", "_build.py", "weights.py",
-            "chip_smoke.py"} <= names
+            "chip_smoke.py", "flash_attention.py", "attention.py",
+            "transformer.py", "serve_loop.py"} <= names
 
 
 def test_entry_points_default_to_cuda():
     from repro_torch import weights
     from repro_torch.models.cnn import layers, resnet
+    from repro_torch.models.lm import attention, mlp, transformer
     for fn in (resnet.init, weights.from_jax_params, layers.conv_init,
-               layers.dense_init):
+               layers.dense_init, transformer.init_params, transformer.init_segment,
+               transformer.init_block, attention.init, attention.init_cache,
+               mlp.init_gated, mlp.init_plain, mlp.normal):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+
+
+def test_server_and_attention_follow_their_tensors():
+    """``Server`` has no device of its own: it serves where the parameters
+    are (the card, by ``init_params``' default).  ``ops.attention`` takes
+    the plain path only for CPU tensors: any other device goes to the
+    kernel's wrapper, which launches on CUDA tensors or raises."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import transformer
+    from repro_torch.runtime.serve_loop import Server
+    cfg = get_config("gemma3-1b").smoke()
+    params = transformer.init_params(cfg, torch.Generator(), device="meta")
+    assert Server(cfg, params).device == torch.device("meta")
+    q = torch.empty((1, 1, 8, 16), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.attention(q, q, q)
 
 
 def _run_smoke(cwd):

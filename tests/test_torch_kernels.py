@@ -155,7 +155,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
 
 def test_build_flags_target_sm90a():
-    assert _build.sources() == ["imc_conv2d", "imc_mvm"]
+    assert _build.sources() == ["flash_attention", "imc_conv2d", "imc_mvm"]
     flags = " ".join(_build.NVCC_FLAGS)
     assert "-gencode arch=compute_90a,code=sm_90a" in flags
     for f in ("-std=c++17", "-O3", "-shared", "-Xcompiler -fPIC"):
@@ -173,8 +173,11 @@ def test_import_and_cpu_path_never_call_nvcc(tmp_path):
         "    raise AssertionError('a process was started')\n"
         "subprocess.Popen = subprocess.run = boom\n"
         "import torch\n"
-        "from repro_torch.kernels import _build, conv2d, imc_mvm, ops, ref\n"
+        "from repro_torch.kernels import _build, conv2d, flash_attention, imc_mvm, ops, ref\n"
         "from repro_torch.models.cnn import executor\n"
+        "from repro_torch.runtime import serve_loop\n"
+        "x = torch.ones((1, 2, 8, 16))\n"
+        "ops.attention(x, x[:, :1], x[:, :1], window=4)\n"
         "q = torch.ones((2, 4, 4, 4), dtype=torch.int8)\n"
         "w = torch.ones((3, 3, 4, 2), dtype=torch.int8)\n"
         "ops.quantized_conv2d(q, w, 0.1, torch.ones(2))\n"
