@@ -7,7 +7,9 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
 
 1. the card's name and power limit; build every kernel in
    ``src/repro_torch/csrc`` with nvcc (one process per source, in
-   parallel) and print the build time and ptxas resource lines;
+   parallel) and print the build time and ptxas resource lines, and the
+   registers and spill bytes of each flash tensor-core instance (the
+   serving path's must not spill);
 2. hold each kernel against its plain PyTorch version on the card with
    ``torch.equal``: every ResNet-18-CIFAR conv shape at batch 256, the fc
    shape, and ragged shapes;
@@ -22,8 +24,11 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
    busy share over one request from ``torch.profiler``;
 5. the flash-attention kernel against its plain version: gemma3-1b's
    prefill shapes (B=4, H=4, MQA, S=2048, hd=288) in bf16 and f32, with
-   the 512 window and global, and ragged shapes (S = 1000, 100, 1; hd
-   16/64/128/288; softcap; non-causal; GQA);
+   the 512 window and global, and ragged shapes (S = 1000, 300, 100, 1;
+   hd 16/64/100/128/288/320; softcap; non-causal; GQA); each check logs
+   the instance that ran it (bf16 within the register plan on the tensor
+   cores, f32 and wider bf16 on the CUDA cores), and the Python mirror of
+   the dispatch rule is held against the C entry's;
 6. gemma3-1b at full width and one window period of depth (6 layers: 5
    local, 1 global), bf16 weights from a CPU generator seeded 0: prefill
    of a 640-token prompt and 4 greedy decode steps on the card against the
@@ -31,8 +36,8 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
 7. the LM main path: 26-layer gemma3-1b (random bf16 weights, seed 0, on
    the card) serving 8 requests of 1024-2048 prompt tokens, 32 new tokens
    each, through the port's ``Server``; the flash launch counter must read
-   26 per prefill; prefill and decode rates, time to first token and
-   decode-step latency;
+   26 per prefill, all on the tensor-core instance; prefill and decode
+   rates, time to first token and decode-step latency;
 8. the flash kernel's time per prefill of (4, 2048) summed over the 26
    layers at their windows, beside its bound, its plain version and
    ``scaled_dot_product_attention`` (the yardstick only), and the device
@@ -46,6 +51,7 @@ either it exits nonzero and prints no result.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import subprocess
 import sys
@@ -73,6 +79,31 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def ptxas_report(text: str) -> dict:
+    """Per kernel function in an ``nvcc -Xptxas -v`` log: registers,
+    stack frame, spill stores and spill loads (bytes)."""
+    import re
+    out, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?([\w$]+)'?", line)
+        if m:
+            fn = m.group(1)
+            out.setdefault(fn, {})
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[fn].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[fn]["registers"] = int(m.group(1))
+    return out
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -167,12 +198,23 @@ def flash_inputs(gen, dev, B, H, KV, S, hd, dtype, path_layout, scale=1.0):
 
 def flash_check(q, k, v, causal, window, softcap, label):
     """Kernel against its plain version on the same inputs; returns the
-    tight error (f32 inputs, or bf16 against the f32 upcast)."""
+    tight error (f32 inputs, or bf16 against the f32 upcast).  The
+    instance that ran (by its launch count) must be the one the dispatch
+    rule names."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels import flash_attention as fa
+    flash_attention = fa.flash_attention
+    before = dict(flash_attention.instance_launches)
     got = flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
     torch.cuda.synchronize()
+    ran = [n for n, c in flash_attention.instance_launches.items()
+           if c != before[n]]
+    want_inst = (fa.TENSOR_CORE if fa.uses_tensor_cores(q.dtype, q.shape[3])
+                 else fa.CUDA_CORE)
+    if ran != [want_inst]:
+        raise AssertionError(f"flash_attention {label}: ran {ran}, the rule "
+                             f"names {want_inst}")
     f32 = [t.float() for t in (q, k, v)]
     want = ref.flash_attention_ref(*f32, causal=causal, window=window,
                                    softcap=softcap)
@@ -182,7 +224,8 @@ def flash_check(q, k, v, causal, window, softcap, label):
     if err > FLASH_F32_TOL:
         raise AssertionError(f"flash_attention {label}: max |d| {err:.3e} > "
                              f"{FLASH_F32_TOL} against the f32 plain version")
-    line = f"check flash_attention {label}: max |d| {err:.2e} (f32 plain)"
+    line = (f"check flash_attention {label} [{ran[0]}]: max |d| {err:.2e} "
+            f"(f32 plain)")
     if q.dtype == torch.bfloat16:
         want16 = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                          softcap=softcap)
@@ -199,6 +242,16 @@ def flash_checks(dev, hd_path, local_window):
     """Phase 5: the flash kernel against its plain version at the serving
     path's shapes (both dtypes, window and global) and at ragged ones."""
     import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    rule = _build.load("flash_attention", "flash_attention_instance",
+                       [ctypes.c_int, ctypes.c_int])
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for hd in (8, 16, 64, 100, 128, 256, 288, 289, 320, 512):
+            if rule(code, hd) != int(fa.uses_tensor_cores(dtype, hd)):
+                raise AssertionError(f"flash dispatch: the C rule and "
+                                     f"uses_tensor_cores differ at {dtype} {hd}")
+    log("check flash dispatch: uses_tensor_cores agrees with the C rule")
     gen = torch.Generator(device=dev).manual_seed(7)
     err = 0.0
     for dtype in (torch.bfloat16, torch.float32):
@@ -217,6 +270,14 @@ def flash_checks(dev, hd_path, local_window):
         (1, 2, 2, 1000, 128, torch.float32, True, None, 50.0, 3.0),
         (2, 2, 1, 100, 16, torch.float32, False, 32, 50.0, 3.0),
         (1, 1, 1, 1, 16, torch.float32, True, None, None, 1.0),
+        # bf16 on the tensor cores: stablelm-1.6b's width with GQA, hd 288
+        # with softcap, rows that are not 16-byte aligned (hd 100), S = 1;
+        # bf16 wider than the register plan, on the CUDA cores
+        (2, 8, 2, 1000, 64, torch.bfloat16, True, None, None, 1.0),
+        (1, 4, 1, 1000, 288, torch.bfloat16, True, 512, 2.0, 1.0),
+        (1, 2, 2, 300, 100, torch.bfloat16, False, None, None, 1.0),
+        (1, 2, 1, 1, 288, torch.bfloat16, True, None, None, 1.0),
+        (1, 2, 1, 300, 320, torch.bfloat16, True, 128, None, 1.0),
     ]
     for B, H, KV, S, hd, dtype, causal, window, softcap, scale in ragged:
         qkv = flash_inputs(gen, dev, B, H, KV, S, hd, dtype, path_layout=False,
@@ -367,7 +428,8 @@ def flash_timings(dev, cfg):
                    "flop": n_ops, "bytes_ms": t_bytes, "ops_ms": t_ops,
                    "bound_ms": max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-        log(f"  flash window {window} x{n}: kernel {ms:.4f} ms, plain "
+        log(f"  flash window {window} x{n}: kernel {ms:.4f} ms "
+            f"({n_ops / ms / 1e9:.1f} useful TFLOP/s), plain "
             f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
             f"{max(t_bytes, t_ops):.4f} ms ({rows[w]['bound_by']}; "
             f"{pairs} pairs, {n_bytes / 1e6:.1f} MB)")
@@ -436,6 +498,25 @@ def main() -> int:
         for line in lines:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    flash_log = Path(f"{libs['flash_attention']}.log")
+    tc_ptxas = {fn: r for fn, r in ptxas_report(flash_log.read_text()).items()
+                if "flash_tc_kernel" in fn}
+    if not tc_ptxas:
+        raise AssertionError("ptxas reported no flash tensor-core instance")
+    detail["flash_tc_ptxas"] = tc_ptxas
+    for fn, r in sorted(tc_ptxas.items()):
+        log(f"ptxas flash tensor-core instance {fn}: {r.get('registers')} "
+            f"registers, {r.get('spill_stores')} bytes spill stores, "
+            f"{r.get('spill_loads')} bytes spill loads")
+    # the serving path's instance: hd 288, staged by cp.async
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    path_tag = f"ILi{fa.tc_steps(get_config('gemma3-1b').hd)}ELb1E"
+    path_inst = [r for fn, r in tc_ptxas.items() if path_tag in fn]
+    if len(path_inst) != 1 or path_inst[0].get("spill_stores") != 0 \
+            or path_inst[0].get("spill_loads") != 0:
+        raise AssertionError(f"ptxas: the serving path's flash instance "
+                             f"{path_tag} spills or is missing: {path_inst}")
 
     gen = torch.Generator(device=dev).manual_seed(1234)
 
@@ -551,31 +632,13 @@ def main() -> int:
     serve(resnet.RESNET8, graphs.resnet8_graph(), 1, "resnet8")
 
     # device busy share over one request
-    try:
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            executor.execute(g18, params, xs[0], mode="int8", act_scales=scales)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t
-        # kernel rows only: operator rows repeat their kernels' time
-        rows = [(e.key, e.self_device_time_total, e.count)
-                for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and e.self_device_time_total > 0]
-        busy = sum(r[1] for r in rows) / 1e3
-        rows.sort(key=lambda r: -r[1])
-        detail["profile"] = {"wall_ms": wall * 1e3, "device_busy_ms": busy,
-                             "top": [{"name": k[:80], "ms": v / 1e3, "calls": c}
-                                     for k, v, c in rows[:15]]}
-        log(f"profile of one request: wall {wall * 1e3:.3f} ms (under the "
-            f"profiler), kernels {busy:.3f} ms, {len(rows)} kernel names")
-        for k, v, c in rows[:8]:
-            log(f"  {v / 1e3:9.3f} ms  x{c:<4d} {k[:70]}")
-    except Exception as exc:  # the profiler is optional here
-        detail["profile"] = f"not measured: {exc!r}"
-        log(f"profile: not measured ({exc!r})")
+    wall, busy, top = profile_kernels(lambda: executor.execute(
+        g18, params, xs[0], mode="int8", act_scales=scales))
+    detail["profile"] = {"wall_ms": wall, "device_busy_ms": busy, "top": top}
+    log(f"profile of one request: wall {wall:.3f} ms (under the profiler), "
+        f"kernels {busy:.3f} ms")
+    for row in top[:8]:
+        log(f"  {row['ms']:9.3f} ms  x{row['calls']:<4d} {row['name'][:70]}")
 
     # ---- 4. kernel timings at the path's shapes ----------------------------
     conv_fn = _build.load("imc_conv2d", "imc_conv2d_launch", conv2d._ARGTYPES)
@@ -656,7 +719,6 @@ def main() -> int:
         f"{tot['ops_ms']:.4f} ms)")
     detail["imc_conv2d_per_request"] = tot
     # ---- 5. flash attention against its plain version --------------------
-    from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models.lm import transformer
     log(f"torch.backends.cuda.matmul.allow_tf32 = "
@@ -681,12 +743,18 @@ def main() -> int:
                                  torch.cuda.synchronize)
     reset_counts()
     flash_attention.launches = 0
+    flash_attention.instance_launches = dict.fromkeys(
+        flash_attention.instance_launches, 0)
     stats = server.serve(reqs)
     torch.cuda.synchronize()
     flash_launches = flash_attention.launches
+    flash_instances = dict(flash_attention.instance_launches)
     if stats.prefills == 0 or flash_launches != gemma.n_layers * stats.prefills:
         raise AssertionError(f"serve: {flash_launches} flash launches for "
                              f"{stats.prefills} prefills of {gemma.n_layers} layers")
+    if flash_instances[fa.TENSOR_CORE] != flash_launches:
+        raise AssertionError(f"serve: flash launches by instance "
+                             f"{flash_instances}, not all on the tensor cores")
     if imc_conv2d.launches or imc_mvm.launches:
         raise AssertionError("serve: the LM path launched an INT8 kernel")
     for r in reqs:
@@ -700,7 +768,8 @@ def main() -> int:
     detail["serve"] = {
         "requests": len(reqs), "prompt_lens": [int(r.prompt.numel()) for r in reqs],
         "prefills": stats.prefills, "decode_steps": stats.decode_steps,
-        "flash_launches": flash_launches, "wall_s": stats.wall_seconds,
+        "flash_launches": flash_launches, "flash_instances": flash_instances,
+        "wall_s": stats.wall_seconds,
         "prefill_tokens": pre_tok, "prefill_tok_per_s": pre_tok / pre_s,
         "ttft_ms": [t * 1e3 for t, _ in rec["prefill"]],
         "decode_tok_per_s": dec_tok / sum(dec),
@@ -709,7 +778,8 @@ def main() -> int:
     sv = detail["serve"]
     log(f"gemma3-1b serve: {sv['requests']} requests, {stats.prefills} prefills,"
         f" {stats.decode_steps} decode steps, flash launches {flash_launches} "
-        f"({gemma.n_layers} per prefill), wall {stats.wall_seconds:.3f} s")
+        f"({gemma.n_layers} per prefill; by instance {flash_instances}), wall "
+        f"{stats.wall_seconds:.3f} s")
     log(f"  prefill {sv['prefill_tok_per_s']:.1f} tok/s (padded tokens), time "
         f"to first token {', '.join(f'{t:.1f}' for t in sv['ttft_ms'])} ms; "
         f"decode {sv['decode_tok_per_s']:.1f} tok/s, step "
@@ -734,12 +804,7 @@ def main() -> int:
     for name, fn in (("prefill", prefill_once), ("decode", decode_once)):
         fn()
         torch.cuda.synchronize()
-        try:
-            wall, busy, top = profile_kernels(fn)
-        except Exception as exc:  # the profiler is optional here
-            detail[f"profile_{name}"] = f"not measured: {exc!r}"
-            log(f"profile one {name}: not measured ({exc!r})")
-            continue
+        wall, busy, top = profile_kernels(fn)
         detail[f"profile_{name}"] = {"wall_ms": wall, "device_busy_ms": busy,
                                      "top": top}
         log(f"profile one {name} ({PATH_B}, {PATH_S}): wall {wall:.3f} ms (under"

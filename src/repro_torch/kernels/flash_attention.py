@@ -15,7 +15,15 @@ bounds it and how it is laid out); its plain version is
 only; ``ops.attention`` sends CPU tensors to the plain version.  Inputs
 may be strided views (a (B, S, H, hd) projection transposed to
 (B, H, S, hd)) as long as the head dimension is contiguous.
-``flash_attention.launches`` counts the kernel's launches.
+
+The source holds two instances of the function.  bfloat16 inputs with
+``hd <= TC_MAX_HEAD_DIM`` go to the tensor-core instance (``TC_*`` and
+``tc_*`` below describe it); float32 inputs and wider bfloat16 go to the
+CUDA-core instance (``BQ``, ``BK``, ``smem_stride``, ``smem_bytes``).
+The rule is the C entry ``flash_attention_instance``;
+``uses_tensor_cores`` mirrors it (``chip_smoke.py`` holds the two
+together on the card).  ``flash_attention.launches`` counts every launch
+and ``flash_attention.instance_launches`` counts them per instance.
 """
 
 from __future__ import annotations
@@ -32,9 +40,9 @@ _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                 ctypes.c_void_p])
 
-#: tile sizes of ``csrc/flash_attention.cu`` (query rows, key rows)
+#: CUDA-core instance's tile sizes (query rows, key rows)
 BQ, BK = 64, 32
-#: largest head dimension the kernel is instantiated for
+#: largest head dimension the CUDA-core instance is instantiated for
 MAX_HEAD_DIM = 512
 #: dynamic shared memory a block may use on the H100 (227 KB)
 MAX_SMEM_BYTES = 232_448
@@ -42,6 +50,13 @@ MAX_SMEM_BYTES = 232_448
 NO_WINDOW = 1 << 30
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: tensor-core instance: query rows per block (4 warps x 16), key rows per
+#: tile, and the widest head dimension of its register plan
+TC_BQ, TC_BK = 64, 32
+TC_MAX_HEAD_DIM = 288
+#: instance names, as counted in ``flash_attention.instance_launches``
+TENSOR_CORE, CUDA_CORE = "tensor_core", "cuda_core"
 
 
 def smem_stride(hd: int, elem_bytes: int) -> int:
@@ -59,6 +74,38 @@ def smem_bytes(hd: int, elem_bytes: int) -> int:
     dtype and the f32 probability tile."""
     return (BQ + 2 * BK) * smem_stride(hd, elem_bytes) * elem_bytes \
         + BQ * (BK + 1) * 4
+
+
+def uses_tensor_cores(dtype: torch.dtype, hd: int) -> bool:
+    """Whether (dtype, hd) goes to the tensor-core instance: bfloat16 with
+    hd within its register plan.  Mirrors ``flash_attention_instance`` in
+    the CUDA source."""
+    return dtype == torch.bfloat16 and 0 < hd <= TC_MAX_HEAD_DIM
+
+
+def tc_steps(hd: int) -> int:
+    """16-column steps of the tensor-core instance serving ``hd`` (its
+    padded head width is 16 times this).  Must agree with ``tc_steps`` in
+    the CUDA source."""
+    ks = (hd + 15) // 16
+    for steps in (2, 4, 8, 16):
+        if ks <= steps:
+            return steps
+    return 18
+
+
+def tc_smem_stride(hd: int) -> int:
+    """Tensor-core instance's shared-memory row stride (bf16 elements):
+    the padded width in 16-byte chunks plus one, an odd count, so rows are
+    16-byte aligned for ``ldmatrix`` and the 8 rows of one of its phases
+    fall in 8 distinct 16-byte bank groups."""
+    return (2 * tc_steps(hd) + 1) * 8
+
+
+def tc_smem_bytes(hd: int) -> int:
+    """Tensor-core instance's dynamic shared memory: one Q, one K and one V
+    tile in bf16."""
+    return (TC_BQ + 2 * TC_BK) * tc_smem_stride(hd) * 2
 
 
 def _check(t: torch.Tensor, name: str) -> None:
@@ -92,12 +139,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"window must be >= 1, got {window}")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"softcap must be > 0, got {softcap}")
-    elem = q.element_size()
-    if hd > MAX_HEAD_DIM or smem_bytes(hd, elem) > MAX_SMEM_BYTES:
-        raise ValueError(f"head_dim {hd} in {q.dtype} exceeds the kernel's "
-                         f"shared memory")
-    if B * H > 65_535:
-        raise ValueError(f"B*H = {B * H} exceeds the grid's y extent")
+    tensor_cores = uses_tensor_cores(q.dtype, hd)
+    if tensor_cores:
+        if -(-S // TC_BQ) > 65_535:
+            raise ValueError(f"S = {S} exceeds the grid's y extent")
+    else:
+        elem = q.element_size()
+        if hd > MAX_HEAD_DIM or smem_bytes(hd, elem) > MAX_SMEM_BYTES:
+            raise ValueError(f"head_dim {hd} in {q.dtype} exceeds the "
+                             f"kernel's shared memory")
+        if B * H > 65_535:
+            raise ValueError(f"B*H = {B * H} exceeds the grid's y extent")
     dev = q.device
     out = torch.empty((B, H, S, hd), dtype=torch.float32, device=dev)
     if out.numel() == 0:
@@ -113,7 +165,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 0.0 if softcap is None else float(softcap), stream)
     _build.check(rc, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.instance_launches[
+        TENSOR_CORE if tensor_cores else CUDA_CORE] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.instance_launches = {TENSOR_CORE: 0, CUDA_CORE: 0}

@@ -3,15 +3,21 @@
 against the Pallas kernel in interpret mode, at ``tests/test_kernels.py``'s
 shapes, windows, softcap, padding and dtypes plus gemma3-1b's head
 dimension (288); a Python model of the CUDA kernel's tiling (key-tile
-skipping, -1e30 masking, online softmax) against the plain version; and
-the wrapper's checks.  The CUDA kernel itself runs only on the card, where
-``chip_smoke.py`` holds it against the plain version.
+skipping, -1e30 masking, online softmax) against the plain version; a
+numpy model of the tensor-core instance's arithmetic (bf16 products, P
+split into two bf16 terms, f32 sums, its tiles) against the plain version,
+and why P is split; the shared-memory layouts and the dispatch rule of the
+two instances; and the wrapper's checks.  The CUDA kernel itself runs only
+on the card, where ``chip_smoke.py`` holds it against the plain version.
 
 Tolerances are ``tests/test_kernels.py``'s: 2e-4 for float32 inputs (the
 same math summed in another order), 2e-2 for bfloat16 inputs where one
 side rounds the logits to bfloat16 and the other does not."""
 
+import ast
 import math
+import re
+from pathlib import Path
 
 import pytest
 
@@ -225,3 +231,160 @@ def test_shared_memory_layout(hd):
         assert (stride * elem // 4) % 2 == 1, (hd, elem, stride)
     assert fa.smem_bytes(288, 4) <= fa.MAX_SMEM_BYTES
     assert fa.smem_bytes(288, 2) <= fa.MAX_SMEM_BYTES // 2
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core instance: its arithmetic modelled in numpy, its layout and
+# the dispatch rule
+# ---------------------------------------------------------------------------
+
+CU_SOURCE = Path(fa.__file__).resolve().parents[1] / "csrc" / "flash_attention.cu"
+
+
+def _bf16(x):
+    """float32 -> the nearest bfloat16 value (ties to even), as float32."""
+    b = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    b = (b + 0x7FFF + ((b >> 16) & 1)) & 0xFFFF0000
+    return b.astype(np.uint32).view(np.float32)
+
+
+def _tc_model(q, k, v, causal, window, softcap, split=True):
+    """The tensor-core instance's loop in float32 numpy on bf16-valued
+    inputs: TC_BQ-row query tiles, TC_BK-row key tiles from ``k_begin``
+    (rounded down to a tile) to ``k_end``, logits as f32 sums of exact
+    bf16 products, masked logits -1e30, online softmax in f32, and P.V as
+    hi.V + lo.V with hi = bf16(p), lo = bf16(p - hi) (only hi.V when not
+    ``split``), denominator clamped at 1e-30."""
+    B, H, S, hd = q.shape
+    group = H // k.shape[1]
+    win = fa.NO_WINDOW if window is None else window
+    scale = np.float32(1.0 / math.sqrt(hd))
+    neg = np.float32(-1e30)
+    out = np.zeros(q.shape, np.float32)
+    for b in range(B):
+        for h in range(H):
+            kb, vb = k[b, h // group], v[b, h // group]
+            for q0 in range(0, S, fa.TC_BQ):
+                rows = np.arange(q0, min(q0 + fa.TC_BQ, S))
+                k_end = rows[-1] + 1 if causal else S
+                k_begin = max(0, q0 - win + 1)
+                m = np.full(len(rows), neg, np.float32)
+                l = np.zeros(len(rows), np.float32)
+                acc = np.zeros((len(rows), hd), np.float32)
+                for k0 in range(k_begin // fa.TC_BK * fa.TC_BK, k_end, fa.TC_BK):
+                    cols = np.arange(k0, k0 + fa.TC_BK)
+                    pad = (cols < S)[:, None]
+                    kt = np.where(pad, kb[np.minimum(cols, S - 1)], 0).astype(np.float32)
+                    vt = np.where(pad, vb[np.minimum(cols, S - 1)], 0).astype(np.float32)
+                    s = (q[b, h, rows] @ kt.T) * scale
+                    if softcap is not None:
+                        sc = np.float32(softcap)
+                        s = np.tanh(s / sc) * sc
+                    d = rows[:, None] - cols[None, :]
+                    ok = (cols < S)[None, :] & (d < win)
+                    if causal:
+                        ok &= d >= 0
+                    s = np.where(ok, s, neg).astype(np.float32)
+                    m_new = np.maximum(m, s.max(axis=1))
+                    p = np.exp(s - m_new[:, None])
+                    corr = np.exp(m - m_new)
+                    l = l * corr + p.sum(axis=1, dtype=np.float32)
+                    hi = _bf16(p)
+                    pv = hi @ vt
+                    if split:
+                        pv = pv + _bf16(p - hi) @ vt
+                    acc = acc * corr[:, None] + pv
+                    m = m_new
+                out[b, h, rows] = acc / np.maximum(l, np.float32(1e-30))[:, None]
+    return out
+
+
+def _bf16_qkv(shape, seed, kv_heads, scale=1.0):
+    return [_bf16(a) for a in _qkv(shape, seed, scale, kv_heads=kv_heads)]
+
+
+def _plain_f32(q, k, v, **kw):
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    return ref.flash_attention_ref(tq, tk, tv, **kw).numpy()
+
+
+@pytest.mark.parametrize("shape,kv,causal,window,softcap,scale", [
+    ((1, 2, 160, 288), 2, True, 64, None, 1.0),   # gemma3-1b's hd, window
+    ((1, 4, 150, 288), 1, True, None, None, 1.0),  # MQA, ragged S
+    ((1, 2, 97, 288), 1, True, 64, 50.0, 3.0),     # softcap, ragged S
+    ((2, 4, 70, 64), 2, False, None, None, 1.0),   # GQA, non-causal, pads
+    ((1, 2, 130, 128), 1, False, 40, 2.0, 1.0),    # non-causal window
+])
+def test_tensor_core_model(shape, kv, causal, window, softcap, scale):
+    q, k, v = _bf16_qkv(shape, 31, kv, scale)
+    got = _tc_model(q, k, v, causal, window, softcap)
+    want = _plain_f32(q, k, v, causal=causal, window=window, softcap=softcap)
+    np.testing.assert_allclose(got, want, rtol=F32_TOL, atol=F32_TOL)
+
+
+def test_split_probabilities_are_needed():
+    """At hd 288 a single bf16 term for P misses the 2e-4 check against
+    the f32 plain version (bf16 keeps 8 significant bits of p); hi + lo
+    holds it.  This is why the kernel runs two mma for P.V."""
+    q, k, v = _bf16_qkv((1, 2, 128, 288), 41, 1)
+    want = _plain_f32(q, k, v, causal=True)
+    single = np.abs(_tc_model(q, k, v, True, None, None, split=False) - want).max()
+    split = np.abs(_tc_model(q, k, v, True, None, None) - want).max()
+    assert single > F32_TOL, single
+    assert split <= F32_TOL / 10, split
+
+
+@pytest.mark.parametrize("hd", [8, 16, 17, 32, 64, 100, 128, 256, 288])
+def test_tc_shared_memory_layout(hd):
+    """Rows of the tensor-core instance are 16-byte aligned for ldmatrix,
+    an odd number of 16-byte chunks long, so the 8 rows one ldmatrix phase
+    reads at a column fall in 8 distinct 16-byte bank groups (of the 8 in
+    a 128-byte bank row); gemma3-1b's hd fits in a block's shared
+    memory."""
+    stride = fa.tc_smem_stride(hd)
+    width = 16 * fa.tc_steps(hd)
+    assert width >= hd and stride >= width
+    assert (stride * 2) % 16 == 0
+    chunks = stride * 2 // 16
+    assert chunks % 2 == 1
+    for col_chunk in range(width // 8):
+        groups = {(r * chunks + col_chunk) % 8 for r in range(8)}
+        assert len(groups) == 8, (hd, col_chunk)
+    assert fa.tc_smem_bytes(288) <= fa.MAX_SMEM_BYTES
+
+
+def _cu_int(name):
+    m = re.search(rf"constexpr int {name} = (\d+);", CU_SOURCE.read_text())
+    assert m, name
+    return int(m.group(1))
+
+
+def test_dispatch_rule_and_mirror():
+    """bf16 within the register plan goes to the tensor cores, f32 and
+    wider bf16 to the CUDA cores; the Python constants mirror the CUDA
+    source's, and the choice depends on dtype and hd only: no ``try`` in
+    the wrapper or in ``ops`` gives way to another instance or the plain
+    version."""
+    for hd in (64, 128, 288, 16, 100):
+        assert fa.uses_tensor_cores(torch.bfloat16, hd)
+    for hd in (16, 64, 128, 288, 512):
+        assert not fa.uses_tensor_cores(torch.float32, hd)
+    for hd in (289, 320, 512):
+        assert not fa.uses_tensor_cores(torch.bfloat16, hd)
+    assert not fa.uses_tensor_cores(torch.float16, 64)
+    assert _cu_int("kTcMaxHeadDim") == fa.TC_MAX_HEAD_DIM
+    assert (_cu_int("kTcBQ"), _cu_int("kTcBK")) == (fa.TC_BQ, fa.TC_BK)
+    assert (_cu_int("kBQ"), _cu_int("kBK")) == (fa.BQ, fa.BK)
+    src = CU_SOURCE.read_text()
+    body = src[src.index("inline int tc_steps(int hd)"):]
+    body = body[:body.index("}")]
+    steps = [int(x) for x in re.findall(r"\? (\d+)", body)]
+    steps.append(int(re.search(r": (\d+);", body).group(1)))
+    for hd in range(1, fa.TC_MAX_HEAD_DIM + 1):
+        ks = -(-hd // 16)
+        assert fa.tc_steps(hd) == next(s for s in steps if ks <= s), hd
+    for mod in (fa, ops):
+        tree = ast.parse(Path(mod.__file__).read_text())
+        assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), mod
+    assert set(fa.flash_attention.instance_launches) == {fa.TENSOR_CORE,
+                                                         fa.CUDA_CORE}
