@@ -8,20 +8,27 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
 1. the card's name and power limit; build every kernel in
    ``src/repro_torch/csrc`` with nvcc (one process per source, in
    parallel) and print the build time and ptxas resource lines, and the
-   registers and spill bytes of each flash tensor-core instance (the
-   serving path's must not spill);
-2. hold each kernel against its plain PyTorch version on the card with
+   registers and spill bytes of each flash tensor-core instance and of
+   each INT8 instance (the serving path's flash instance and the ResNet
+   path's INT8 instances must not spill);
+2. hold the INT8 kernels' C dispatch rules against their Python mirrors,
+   then each kernel against its plain PyTorch version on the card with
    ``torch.equal``: every ResNet-18-CIFAR conv shape at batch 256, the fc
-   shape, and ragged shapes;
+   shape, ragged shapes, Cin 16, 24 and 48, Cout 130, an input 1 byte off
+   16-byte alignment, and all-+-127 operands at K = 2,304; each check
+   logs the instance that ran it, which must be the one the rule names;
 3. the main path: ResNet-18-CIFAR at full width (random parameters from
    seed 0), calibrated, serving 8 requests of 256 frames of 32x32x3
    through ``executor.execute(..., mode="int8")``; the launch counters
-   must read 20 conv and 1 mvm launches per request, and the logits must
-   match the same executor run on CPU copies (the plain path); then
-   ResNet-8 once the same way;
-4. timings with CUDA events at the path's shapes (kernel, plain version,
-   bound), end-to-end frames/s and request latency, and the device's
-   busy share over one request from ``torch.profiler``;
+   must read 20 conv and 1 mvm launches per request, by instance 19 on
+   the conv's cp.async staging and 1 (the stem) on its gather staging,
+   and the logits must match the same executor run on CPU copies (the
+   plain path); then ResNet-8 once the same way;
+4. timings with CUDA events at the path's shapes (kernel launched back to
+   back from the host, the same launches replayed from a CUDA graph,
+   wrapper, plain version, bound), end-to-end frames/s and request
+   latency, and the device's busy share over one request from
+   ``torch.profiler``;
 5. the flash-attention kernel against its plain version: gemma3-1b's
    prefill shapes (B=4, H=4, MQA, S=2048, hd=288) in bf16 and f32, with
    the 512 window and global, and ragged shapes (S = 1000, 300, 100, 1;
@@ -125,6 +132,99 @@ def bound_ms(n_bytes: float, n_ops: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / INT8_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def graph_time_ms(fn, launches: int = 20) -> float:
+    """Device time of one ``fn(stream)`` (a launch on the CUDA stream handle
+    it is given) from a CUDA graph of ``launches`` calls: no host gaps."""
+    import torch
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        st = torch.cuda.current_stream().cuda_stream
+        for _ in range(launches):
+            fn(st)
+    return cuda_time_ms(g.replay, 5) / launches
+
+
+def int8_ptxas(libs, path_instances):
+    """Registers and spill bytes of every INT8 instance from the build
+    logs; an instance on the ResNet path must not spill."""
+    from repro_torch.kernels import conv2d, imc_mvm as mvm_mod
+    rows = {}
+    for name, kernel, insts in (
+            ("imc_conv2d", "imc_conv2d_kernel", conv2d.INSTANCES),
+            ("imc_mvm", "imc_mvm_kernel", mvm_mod.INSTANCES)):
+        report = ptxas_report(Path(f"{libs[name]}.log").read_text())
+        for inst in insts:
+            vec = int(inst.startswith("cp_async"))
+            tag = (f"ILi{inst.split('_n')[1]}ELb{vec}E" if "_n" in inst
+                   else f"ILb{vec}E")
+            found = [r for fn, r in report.items() if kernel in fn and tag in fn]
+            key = f"{name}/{inst}"
+            if len(found) != 1:
+                raise AssertionError(f"ptxas: no single entry for {key}: {found}")
+            r = rows[key] = found[0]
+            spills = r.get("spill_stores", 0) + r.get("spill_loads", 0)
+            on_path = key in path_instances
+            log(f"ptxas INT8 instance {key}{' (path)' if on_path else ''}: "
+                f"{r.get('registers')} registers, {r.get('spill_stores')} bytes "
+                f"spill stores, {r.get('spill_loads')} bytes spill loads")
+            if on_path and spills:
+                raise AssertionError(f"ptxas: the path's instance {key} spills")
+    return rows
+
+
+def int8_rule_checks():
+    """The C dispatch rules of the INT8 kernels against their mirrors."""
+    from repro_torch.kernels import _build, conv2d, imc_mvm as mvm_mod
+    conv_rule = _build.load("imc_conv2d", "imc_conv2d_instance",
+                            [ctypes.c_int] * 3)
+    for cin in (1, 3, 5, 8, 16, 24, 32, 48, 64, 128, 256):
+        for cout in (1, 10, 32, 33, 64, 65, 128, 130, 256):
+            for aligned in (0, 1):
+                want = conv2d.INSTANCES.index(
+                    conv2d.conv_instance(cin, cout, bool(aligned)))
+                if conv_rule(cin, cout, aligned) != want:
+                    raise AssertionError(f"conv dispatch: C rule and mirror "
+                                         f"differ at {(cin, cout, aligned)}")
+    mvm_rule = _build.load("imc_mvm", "imc_mvm_instance", [ctypes.c_int] * 2)
+    for k in (1, 8, 15, 16, 24, 32, 129, 256, 512):
+        for aligned in (0, 1):
+            want = mvm_mod.INSTANCES.index(mvm_mod.mvm_instance(k, bool(aligned)))
+            if mvm_rule(k, aligned) != want:
+                raise AssertionError(f"mvm dispatch: C rule and mirror differ "
+                                     f"at {(k, aligned)}")
+    log("check INT8 dispatch: conv_instance and mvm_instance agree with the C "
+        "rules")
+
+
+def conv_check(qx, qw, sx, sw, bias, stride, pads, label, err):
+    """The conv kernel against its plain version with ``torch.equal``; the
+    instance that ran must be the one the rule names.  Folds the measured
+    max |kernel - plain| into ``err["imc_conv2d"]`` and returns the
+    instance."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.conv2d import conv_instance, imc_conv2d
+    before = dict(imc_conv2d.launches_by_instance)
+    got = imc_conv2d(qx, qw, sx, sw, bias, stride=stride, pads=pads)
+    want = ref.conv2d_ref(qx, qw, sx, sw, bias, stride=stride, pads=pads)
+    torch.cuda.synchronize()
+    ran = [n for n, c in imc_conv2d.launches_by_instance.items()
+           if c != before[n]]
+    rule = conv_instance(qx.shape[3], qw.shape[3], qx.data_ptr() % 16 == 0)
+    if ran != [rule]:
+        raise AssertionError(f"imc_conv2d {label}: ran {ran}, the rule names "
+                             f"{rule}")
+    if got.shape != want.shape:
+        raise AssertionError(f"imc_conv2d {label}: shape {tuple(got.shape)}, "
+                             f"plain {tuple(want.shape)}")
+    d = (got - want).abs().max().item()
+    if not torch.equal(got, want):
+        raise AssertionError(f"imc_conv2d != plain at {label}: max |d| {d}")
+    err["imc_conv2d"] = max(err["imc_conv2d"], d)
+    log(f"check imc_conv2d {label} [{rule}]: torch.equal")
+    return rule
 
 
 def conv_shapes(g, batch):
@@ -517,6 +617,12 @@ def main() -> int:
             or path_inst[0].get("spill_loads") != 0:
         raise AssertionError(f"ptxas: the serving path's flash instance "
                              f"{path_tag} spills or is missing: {path_inst}")
+    g18 = graphs.resnet18_graph()
+    path_convs = conv_shapes(g18, BATCH)
+    path_instances = {f"imc_conv2d/{conv2d.conv_instance(c[3], c[4], True)}"
+                      for c in path_convs}
+    path_instances.add(f"imc_mvm/{mvm_mod.mvm_instance(256, True)}")
+    detail["int8_ptxas"] = int8_ptxas(libs, path_instances)
 
     gen = torch.Generator(device=dev).manual_seed(1234)
 
@@ -528,14 +634,19 @@ def main() -> int:
         return torch.rand((n,), generator=gen, device=dev) * 0.1 + 1e-3
 
     # ---- 2. kernels against their plain versions -------------------------
-    g18 = graphs.resnet18_graph()
-    path_convs = conv_shapes(g18, BATCH)
+    int8_rule_checks()
     distinct = sorted(set(path_convs), key=path_convs.index)
     ragged_convs = [(2, 12, 12, 8, 130, 5, 1, "SAME"),
                     (2, 9, 9, 3, 6, 3, 2, "SAME"),
                     (2, 10, 10, 5, 7, 1, 1, "SAME"),
                     (3, 11, 13, 3, 130, 3, 2, "SAME"),
-                    (2, 9, 9, 4, 6, 3, 2, "VALID")]
+                    (2, 9, 9, 4, 6, 3, 2, "VALID"),
+                    # Cin 16 and 48 (16-byte pieces, not 32), Cin 24 (only
+                    # a multiple of 8: gathered), Cout 130 on cp.async
+                    (4, 10, 10, 16, 40, 3, 1, "SAME"),
+                    (4, 10, 10, 48, 96, 3, 2, "SAME"),
+                    (4, 10, 10, 24, 64, 3, 1, "SAME"),
+                    (4, 8, 8, 64, 130, 3, 1, "SAME")]
     err = {"imc_conv2d": 0.0, "imc_mvm": 0.0}
     conv_inputs = {}
     for shape in distinct + ragged_convs:
@@ -545,17 +656,33 @@ def main() -> int:
                                                   device=dev)
         sx = torch.full((), 0.04, device=dev)
         pads = layers.conv_pads(H, W, k, s, padding)
-        got = imc_conv2d(qx, qw, sx, sw, bias, stride=s, pads=pads)
-        want = ref.conv2d_ref(qx, qw, sx, sw, bias, stride=s, pads=pads)
-        torch.cuda.synchronize()
-        if got.shape != want.shape or not torch.equal(got, want):
-            raise AssertionError(f"imc_conv2d != plain at {shape}: max |d| "
-                                 f"{(got - want).abs().max().item()}")
-        err["imc_conv2d"] = max(err["imc_conv2d"],
-                                (got - want).abs().max().item())
-        conv_inputs[shape] = (qx, qw, sx, sw, bias, pads)
+        inst = conv_check(qx, qw, sx, sw, bias, s, pads, str(shape), err)
+        conv_inputs[shape] = (qx, qw, sx, sw, bias, pads, inst)
+    # x one byte off 16-byte alignment at a stage-1 shape: the gather
+    # staging at path width
+    B, H, W, cin, cout, k, s, padding = distinct[1]
+    buf = rand_int8((B * H * W * cin + 1,))
+    qx = buf[1:].view(B, H, W, cin)
+    qw = rand_int8((k, k, cin, cout))
+    conv_check(qx, qw, torch.full((), 0.04, device=dev), rand_scales(cout),
+               torch.randn((cout,), generator=gen, device=dev), s,
+               layers.conv_pads(H, W, k, s, padding),
+               f"{distinct[1]} x at 16-byte offset 1", err)
+    # all-+-127 operands at stage 4's K = 2,304: |acc| = 127^2 * 2304 at
+    # interior pixels, exact in int32 and in the kernel
+    qx = torch.full((BATCH, 4, 4, 256), 127, dtype=torch.int8, device=dev)
+    qw = torch.full((3, 3, 256, 256), 127, dtype=torch.int8, device=dev)
+    qw[..., 1::2] = -127
+    acc = ref.conv2d_acc(qx, qw, 1, (1, 1, 1, 1))
+    if acc.abs().max().item() != 127 * 127 * 2304:
+        raise AssertionError("extreme conv: the interior sum is not 127^2 * 2304")
+    conv_check(qx, qw, torch.full((), 1e-6, device=dev), rand_scales(256),
+               torch.randn((256,), generator=gen, device=dev), 1, (1, 1, 1, 1),
+               f"({BATCH},4,4,256->256) all +-127, |acc| max "
+               f"{acc.abs().max().item()}", err)
     log(f"check imc_conv2d: torch.equal at {len(distinct)} path shapes "
-        f"(batch {BATCH}) and {len(ragged_convs)} ragged shapes")
+        f"(batch {BATCH}), {len(ragged_convs)} ragged shapes, an unaligned x "
+        f"and all-+-127 operands")
 
     fc_shape = (BATCH, 256, 10)
     mvm_inputs = {}
@@ -563,20 +690,29 @@ def main() -> int:
         qx, qw = rand_int8((M, K)), rand_int8((K, N))
         sw, bias = rand_scales(N), torch.randn((N,), generator=gen, device=dev)
         sx = torch.full((), 0.02, device=dev)
+        before = dict(imc_mvm.launches_by_instance)
         got = imc_mvm(qx, qw, sx, sw, bias)
         want = ref.imc_mvm_ref(qx, qw, sx, sw, bias)
         torch.cuda.synchronize()
+        ran = [n for n, c in imc_mvm.launches_by_instance.items()
+               if c != before[n]]
+        rule = mvm_mod.mvm_instance(K, qx.data_ptr() % 16 == 0)
+        if ran != [rule]:
+            raise AssertionError(f"imc_mvm {(M, K, N)}: ran {ran}, the rule "
+                                 f"names {rule}")
         if not torch.equal(got, want):
             raise AssertionError(f"imc_mvm != plain at {(M, K, N)}: max |d| "
                                  f"{(got - want).abs().max().item()}")
         err["imc_mvm"] = max(err["imc_mvm"], (got - want).abs().max().item())
         mvm_inputs[(M, K, N)] = (qx, qw, sx, sw, bias)
-    log("check imc_mvm: torch.equal at (256,256,10), (257,129,65), (1,512,512)")
+        log(f"check imc_mvm {(M, K, N)} [{rule}]: torch.equal")
 
     # ---- 3. main path ------------------------------------------------------
     def reset_counts():
         imc_conv2d.launches = 0
         imc_mvm.launches = 0
+        for fn in (imc_conv2d, imc_mvm):
+            fn.launches_by_instance = dict.fromkeys(fn.launches_by_instance, 0)
 
     def serve(cfg, g, n_requests, label):
         params = resnet.init(torch.Generator().manual_seed(0), cfg, device=dev)
@@ -602,8 +738,20 @@ def main() -> int:
         if counts != (n_conv * n_requests, n_mvm * n_requests):
             raise AssertionError(f"{label}: launches {counts}, expected "
                                  f"{(n_conv * n_requests, n_mvm * n_requests)}")
+        by_inst = dict(imc_conv2d.launches_by_instance)
+        want_inst = dict.fromkeys(by_inst, 0)
+        for c in conv_shapes(g, BATCH):
+            want_inst[conv2d.conv_instance(c[3], c[4], True)] += n_requests
+        if by_inst != want_inst:
+            raise AssertionError(f"{label}: conv launches by instance {by_inst}"
+                                 f", the rule names {want_inst}")
+        staging = {st: sum(v for k, v in by_inst.items() if k.startswith(st))
+                   for st in ("cp_async", "gather")}
         log(f"{label}: {n_requests} requests x {BATCH} frames; launches "
-            f"conv {counts[0]} mvm {counts[1]} ({n_conv} + {n_mvm} per request)")
+            f"conv {counts[0]} mvm {counts[1]} ({n_conv} + {n_mvm} per request)"
+            f"; conv by instance {by_inst} (cp.async {staging['cp_async']}, "
+            f"gather {staging['gather']}); mvm by instance "
+            f"{imc_mvm.launches_by_instance}")
         for y in outs:
             if y.shape != (BATCH, cfg["num_classes"]) or not torch.isfinite(y).all():
                 raise AssertionError(f"{label}: bad logits {tuple(y.shape)}")
@@ -623,6 +771,12 @@ def main() -> int:
     reset_counts()
     params, scales, xs, lat, total, counts18 = serve(
         resnet.RESNET18_CIFAR, g18, REQUESTS, "resnet18_cifar")
+    cp_async = sum(v for k, v in imc_conv2d.launches_by_instance.items()
+                   if k.startswith("cp_async"))
+    if (cp_async, counts18[0] - cp_async) != (19 * REQUESTS, REQUESTS):
+        raise AssertionError(f"resnet18_cifar: {cp_async} cp.async conv "
+                             f"launches of {counts18[0]}; want 19 and 1 a "
+                             f"request")
     fps = REQUESTS * BATCH / total
     detail["e2e"] = {"frames_per_s": fps, "requests": REQUESTS, "batch": BATCH,
                      "latency_ms": [t * 1e3 for t in lat]}
@@ -655,18 +809,23 @@ def main() -> int:
         args = (qx.data_ptr(), wp.data_ptr(), sx.data_ptr(), sw.data_ptr(),
                 bias.data_ptr(), out.data_ptr(), B, H, W, cin, ho, wo, cout, k,
                 s, pads[0], pads[2], k * k * cin, wp.shape[1],
-                int(cin % 4 == 0 and qx.data_ptr() % 4 == 0), stream)
-        return lambda: _build.check(conv_fn(*args), "imc_conv2d")
+                int(qx.data_ptr() % 16 == 0))
+
+        def launch(st, keep=(wp, out)):   # keep: the buffers outlive it
+            _build.check(conv_fn(*args, st), "imc_conv2d")
+        return launch
 
     conv_rows = []
-    tot = {"ms": 0.0, "plain_ms": 0.0, "wrapper_ms": 0.0, "bytes_ms": 0.0,
-           "ops_ms": 0.0, "bound_ms": 0.0}
+    tot = {"ms": 0.0, "graph_ms": 0.0, "plain_ms": 0.0, "wrapper_ms": 0.0,
+           "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0}
     for shape in distinct:
         B, H, W, cin, cout, k, s, padding = shape
-        qx, qw, sx, sw, bias, pads = conv_inputs[shape]
+        qx, qw, sx, sw, bias, pads, inst = conv_inputs[shape]
         n = path_convs.count(shape)
         ho, wo = layers.conv_out_hw(H, W, k, s, padding)
-        ms = cuda_time_ms(conv_launcher(qx, qw, sx, sw, bias, s, pads), 20)
+        launch = conv_launcher(qx, qw, sx, sw, bias, s, pads)
+        ms = cuda_time_ms(lambda: launch(stream), 20)
+        graph_ms = graph_time_ms(launch)
         wrapper_ms = cuda_time_ms(lambda: imc_conv2d(
             qx, qw, sx, sw, bias, stride=s, pads=pads), 20)
         plain_ms = cuda_time_ms(lambda: ref.conv2d_ref(
@@ -675,17 +834,21 @@ def main() -> int:
                    + 4 * B * ho * wo * cout)
         n_ops = 2 * B * ho * wo * k * k * cin * cout
         b_ms, b_by = bound_ms(n_bytes, n_ops)
-        conv_rows.append({"shape": list(shape), "per_request": n, "ms": ms,
+        conv_rows.append({"shape": list(shape), "instance": inst,
+                          "per_request": n, "ms": ms, "graph_ms": graph_ms,
                           "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
                           "bound_ms": b_ms, "bound_by": b_by,
                           "bytes": n_bytes, "ops": n_ops})
         tot["ms"] += n * ms
+        tot["graph_ms"] += n * graph_ms
         tot["wrapper_ms"] += n * wrapper_ms
         tot["plain_ms"] += n * plain_ms
         tot["bound_ms"] += n * b_ms
         tot["bytes_ms"] += n * n_bytes / HBM_BYTES_PER_S * 1e3
         tot["ops_ms"] += n * n_ops / INT8_OPS_PER_S * 1e3
-        log(f"  conv {shape} x{n}: kernel {ms:.4f} ms, wrapper {wrapper_ms:.4f}"
+        log(f"  conv {shape} x{n} [{inst}]: kernel {ms:.4f} ms (graph "
+            f"{graph_ms:.4f} ms, {n_ops / graph_ms / 1e9:.0f} TOP/s, "
+            f"{n_bytes / graph_ms / 1e6:.0f} GB/s), wrapper {wrapper_ms:.4f}"
             f" ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     detail["imc_conv2d"] = conv_rows
 
@@ -693,9 +856,13 @@ def main() -> int:
     qx, qw, sx, sw, bias = mvm_inputs[fc_shape]
     out = torch.empty((M, N), device=dev)
     mvm_args = (qx.data_ptr(), qw.data_ptr(), sx.data_ptr(), sw.data_ptr(),
-                bias.data_ptr(), out.data_ptr(), M, K, N, stream)
-    mvm_ms = cuda_time_ms(lambda: _build.check(mvm_fn(*mvm_args), "imc_mvm"),
-                          50)
+                bias.data_ptr(), out.data_ptr(), M, K, N)
+
+    def mvm_launch(st):
+        _build.check(mvm_fn(*mvm_args, st), "imc_mvm")
+
+    mvm_ms = cuda_time_ms(lambda: mvm_launch(stream), 50)
+    mvm_graph_ms = graph_time_ms(mvm_launch)
     mvm_wrapper_ms = cuda_time_ms(lambda: imc_mvm(qx, qw, sx, sw, bias), 50)
     mvm_plain_ms = cuda_time_ms(lambda: ref.imc_mvm_ref(qx, qw, sx, sw, bias),
                                 20)
@@ -707,13 +874,16 @@ def main() -> int:
     mvm_bound, mvm_by = bound_ms(M * K + K * N + 4 + 8 * N + 4 * M * N,
                                  2 * M * N * K)
     detail["imc_mvm"] = {"shape": list(fc_shape), "ms": mvm_ms,
+                         "graph_ms": mvm_graph_ms,
                          "wrapper_ms": mvm_wrapper_ms, "plain_ms": mvm_plain_ms,
                          "bound_ms": mvm_bound, "bound_by": mvm_by,
                          "library_ms": mvm_library_ms}
-    log(f"  mvm {fc_shape} x1: kernel {mvm_ms:.4f} ms, wrapper "
+    log(f"  mvm {fc_shape} x1: kernel {mvm_ms:.4f} ms (graph "
+        f"{mvm_graph_ms:.4f} ms), wrapper "
         f"{mvm_wrapper_ms:.4f} ms, plain {mvm_plain_ms:.4f} ms, bound "
         f"{mvm_bound:.6f} ms ({mvm_by}), library {mvm_library_ms}")
-    log(f"per request: imc_conv2d kernels {tot['ms']:.4f} ms (wrappers "
+    log(f"per request: imc_conv2d kernels {tot['ms']:.4f} ms (graph "
+        f"{tot['graph_ms']:.4f} ms, wrappers "
         f"{tot['wrapper_ms']:.4f} ms), plain {tot['plain_ms']:.4f} ms, bound "
         f"{tot['bound_ms']:.4f} ms (bytes {tot['bytes_ms']:.4f} ms, ops "
         f"{tot['ops_ms']:.4f} ms)")

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, on first use, into
 ``_build/`` beside this package (listed in ``.gitignore``).  The library's
-file name carries a hash of its source and flags, so an edited source is
-rebuilt and a stale library is never loaded.  Only sources in the package
+file name carries a hash of its source, of every header ``csrc/*.cuh``
+and of the flags, so an edited source or header is rebuilt and a stale
+library is never loaded.  Only sources in the package
 are built.  Nothing here runs at import time.
 
 Every C entry point launches on the stream it is given, allocates nothing
@@ -49,8 +50,13 @@ def sources() -> List[str]:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """``_build/<name>-<hash>.so``, the hash over ``csrc/<name>.cu``, every
+    ``csrc/*.cuh`` (sorted by name; a source may include any of them) and
+    the flags."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -82,9 +88,12 @@ def build(names: Iterable[str] = ()) -> Dict[str, Path]:
         if rc == 0:
             os.replace(tmp, lib)
         else:
-            failed.append(f"{n} (nvcc exit {rc}, see {lib}.log)")
+            errors = [line for line in Path(f"{lib}.log").read_text().splitlines()
+                      if "error" in line]
+            failed.append(f"{n} (nvcc exit {rc}, see {lib}.log):\n"
+                          + "\n".join(errors[:20]))
     if failed:
-        raise RuntimeError("kernel build failed: " + ", ".join(failed))
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return libs
 
 

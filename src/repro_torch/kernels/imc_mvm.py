@@ -2,13 +2,17 @@
 
 Counterpart of ``repro.kernels.imc_mvm``: (M, K) int8 x (K, N) int8 ->
 (M, N) f32, ``(acc * sx) * sw[n] + bias[n]`` with exact int32
-accumulation.  The kernel is ``csrc/imc_mvm.cu`` (a tiled ``__dp4a`` GEMM;
-its source note says what bounds it and how it is laid out); its plain
-version is ``ref.imc_mvm_ref``.
+accumulation.  The kernel is ``csrc/imc_mvm.cu`` (``mma.sync`` m16n8k32
+on the s8 tensor cores, split K inside a block; its source note says what
+bounds it and how it is laid out); its plain version is
+``ref.imc_mvm_ref``.  Two instances, by how qx rows are staged: 16-byte
+``cp.async`` where K % 16 == 0 and qx is 16-byte aligned, byte by byte
+otherwise.  The rule is the C entry ``imc_mvm_instance``;
+``mvm_instance`` mirrors it.
 
 ``imc_mvm`` takes CUDA tensors only.  ``ops.quantized_matmul`` sends CPU
 tensors to the plain version.  ``imc_mvm.launches`` counts the kernel's
-launches.
+launches and ``imc_mvm.launches_by_instance`` counts them per instance.
 """
 
 from __future__ import annotations
@@ -21,6 +25,17 @@ import torch
 from . import _build
 
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+#: instance names in the C rule's order (``imc_mvm_instance``'s value)
+INSTANCES = ("cp_async", "gather")
+
+
+def mvm_instance(k: int, aligned: bool) -> str:
+    """The instance that serves depth K and a 16-byte aligned (or not) qx:
+    mirrors the C entry ``imc_mvm_instance``."""
+    if k <= 0:
+        raise ValueError(f"bad depth K={k}")
+    return INSTANCES[0 if aligned and k % 16 == 0 else 1]
 
 
 def device_scalar(s, device) -> torch.Tensor:
@@ -75,7 +90,9 @@ def imc_mvm(qx: torch.Tensor, qw: torch.Tensor, sx, sw: torch.Tensor,
                 b_t.data_ptr(), out.data_ptr(), M, K, N, stream)
     _build.check(rc, "imc_mvm")
     imc_mvm.launches += 1
+    imc_mvm.launches_by_instance[mvm_instance(K, qx.data_ptr() % 16 == 0)] += 1
     return out
 
 
 imc_mvm.launches = 0
+imc_mvm.launches_by_instance = dict.fromkeys(INSTANCES, 0)
