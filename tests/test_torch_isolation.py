@@ -43,7 +43,35 @@ def test_port_files_found():
     assert {"graph.py", "quant.py", "executor.py", "ops.py", "ref.py",
             "imc_mvm.py", "conv2d.py", "_build.py", "weights.py",
             "chip_smoke.py", "flash_attention.py", "attention.py",
-            "transformer.py", "serve_loop.py"} <= names
+            "transformer.py", "serve_loop.py", "cost.py", "simcontext.py",
+            "simulator.py", "_sim_reference.py", "metrics.py", "base.py",
+            "lblp.py", "wb.py", "rr.py", "rd.py", "heft.py", "lblp_x.py",
+            "optimal.py", "lblp_mt.py", "lblp_r.py"} <= names
+
+
+CORE_FILES = sorted((ROOT / "src" / "repro_torch" / "core").rglob("*.py"))
+
+
+@pytest.mark.parametrize("path", CORE_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in CORE_FILES])
+def test_core_is_plain_python(path):
+    """The scheduler and simulator hold no tensors and take no device:
+    ``repro_torch.core`` imports the standard library (and numpy, which
+    the simulator's optional vectorised path uses) and nothing else."""
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top in sys.stdlib_module_names or top == "numpy", \
+            f"{path}: imports {mod}"
+
+
+def test_core_exports_the_reference_core():
+    import repro.core as jcore
+    import repro_torch.core as core
+    serving = {"SLO", "Decision", "ServingControlPlane", "SLOReport",
+               "TraceEvent", "aggregate_goodput", "dump_trace", "load_trace"}
+    assert set(jcore.__all__) - serving <= set(core.__all__)
+    for name in core.__all__:
+        assert hasattr(core, name), name
 
 
 def test_entry_points_default_to_cuda():

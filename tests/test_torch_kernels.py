@@ -443,3 +443,48 @@ def test_import_and_cpu_path_never_call_nvcc(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+def test_refuse_grad_raises_only_where_a_gradient_is_asked_for():
+    w = torch.ones(3, requires_grad=True)
+    q = torch.ones(3, dtype=torch.int8)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.refuse_grad("quantized_matmul", q, w, None)
+    with torch.no_grad():
+        ops.refuse_grad("quantized_matmul", q, w, None)
+    ops.refuse_grad("attention", q, torch.ones(3), None)
+
+
+@pytest.mark.parametrize("route", ["quantized_matmul", "quantized_conv2d",
+                                   "attention"])
+def test_kernel_routes_refuse_grad_before_launching(route):
+    """Off the CPU every op checks for gradients before its wrapper: a
+    meta tensor that requires grad stops at the guard, not at the
+    wrapper's device check."""
+    dev = torch.device("meta")
+    f = torch.ones(4, device=dev, requires_grad=True)
+    q8 = torch.ones((2, 4), dtype=torch.int8, device=dev)
+    calls = {
+        "quantized_matmul": lambda: ops.quantized_matmul(q8, q8.T, 0.1, f),
+        "quantized_conv2d": lambda: ops.quantized_conv2d(
+            q8.view(1, 2, 4, 1), torch.ones((1, 1, 1, 4), dtype=torch.int8,
+                                             device=dev), 0.1, f),
+        "attention": lambda: ops.attention(*(torch.ones(
+            (1, 1, 2, 4), device=dev, requires_grad=True),) * 3),
+    }
+    with pytest.raises(RuntimeError, match="no backward"):
+        calls[route]()
+
+
+def test_cpu_routes_stay_differentiable():
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn((1, 2, 5, 8), generator=gen, requires_grad=True)
+               for _ in range(3))
+    out = ops.attention(q, k, v, window=3, softcap=20.0)
+    assert out.grad_fn is not None
+    out.sum().backward()
+    assert q.grad is not None and torch.isfinite(q.grad).all()
+    qx = torch.randint(-127, 128, (4, 6), generator=gen, dtype=torch.int8)
+    qw = torch.randint(-127, 128, (6, 3), generator=gen, dtype=torch.int8)
+    sw = torch.rand(3, generator=gen).requires_grad_()
+    assert ops.quantized_matmul(qx, qw, 0.1, sw).grad_fn is not None
