@@ -25,7 +25,17 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
    ``exact`` and ``periodic`` engines (rate, latency, mean utilization,
    host seconds); LBLP must have the best rate and latency within 0.1%.
    Then lblp-r replicates ResNet-8 on 12 + 6 PUs and lblp-mt co-places
-   ResNet-8 and ResNet-18 at the README's open-loop rates (printed);
+   ResNet-8 and ResNet-18 at the README's open-loop rates (printed).
+   Then the rest of the paper's tier, all on the host: the YOLOv8n graph
+   (built by the port) placed by the same four schedulers on 16 IMC + 8
+   DPU PUs, 48 simulated frames under both engines, LBLP's rate at least
+   WB's; an ``ElasticSession`` on ResNet-18 over 8 + 4 PUs losing two IMC
+   PUs and getting one back (the degradation curve), and an ``lblp-r``
+   session on ResNet-8 over 12 + 6 PUs losing a PU that holds only
+   replicas, which must recover by ``replica-absorb``; the serving control
+   plane playing the README's trace twice under each engine, whose two
+   audits must be equal (sha256 printed); and gemma3-1b split into 4
+   pipeline stages (boundaries and imbalance);
 4. the main path: ResNet-18-CIFAR at full width (random parameters from
    seed 0), calibrated, serving 8 requests of 256 frames of 32x32x3
    through ``executor.execute(..., mode="int8")``; the launch counters
@@ -38,6 +48,13 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
    wrapper, plain version, bound), end-to-end frames/s and request
    latency, and the device's busy share over one request from
    ``torch.profiler``;
+5b. YOLOv8n at full width and 640x640 in float (parameters from a CPU
+   generator seeded 0, TF32 off): 2 frames on the card against CPU copies
+   (the plain path), raw and decoded, max |d| <= 1e-3 of max |raw| on the
+   raw outputs; then 8 requests of 16 frames (frames/s, request latency
+   on the host clock ending in a synchronise), one request under
+   ``torch.profiler`` (busy share, top rows) and the request's bound (its
+   conv FLOPs at the f32 peak);
 6. the flash-attention kernel against its plain version: gemma3-1b's
    prefill shapes (B=4, H=4, MQA, S=2048, hd=288) in bf16 and f32, with
    the 512 window and global, and ragged shapes (S = 1000, 300, 100, 1;
@@ -290,12 +307,13 @@ def conv_shapes(g, batch):
     return out
 
 
-def to_cpu(tree):
+def to_device(tree, dev):
+    """A parameter tree of dicts and lists with its tensors on ``dev``."""
     if isinstance(tree, dict):
-        return {k: to_cpu(v) for k, v in tree.items()}
+        return {k: to_device(v, dev) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [to_cpu(v) for v in tree]
-    return tree.cpu()
+        return [to_device(v, dev) for v in tree]
+    return tree.to(dev)
 
 
 def host_cpu() -> str:
@@ -410,6 +428,284 @@ def schedule_and_simulate(g18):
     if not all(math.isfinite(x) and x > 0 for x in nums):
         raise AssertionError(f"place: non-finite or non-positive figures {nums}")
     return assignments["lblp"], rec
+
+
+YOLO_FLEET = (16, 8)            # the paper's §V.C fleet
+YOLO_FRAMES = 48
+ELASTIC_FLEET = (8, 4)
+ELASTIC_FAILS = (1, 2)          # two IMC PUs fail, then the first rejoins
+ABSORB_FLEET = (12, 6)
+SERVING_FLEET = (8, 4)
+PARTITION_ARCH, PARTITION_STAGES = "gemma3-1b", 4
+
+
+def place_yolov8n():
+    """Phase 3: the YOLOv8n graph, built by the port, placed by the four
+    paper schedulers on 16 IMC + 8 DPU PUs and 48 frames of each simulated
+    on the IMCE model under ``exact`` and ``periodic``.  The gate is the
+    paper's claim for this model: LBLP's rate at least WB's.  Returns the
+    record (IMCE figures; host seconds)."""
+    from repro_torch.core import CostModel, get_scheduler, make_pus, make_simulator
+    from repro_torch.models.cnn import graphs
+    cm = CostModel()
+    t = time.perf_counter()
+    g = graphs.yolov8n_graph()
+    rec = {"nodes": len(g), "fleet": list(YOLO_FLEET), "frames": YOLO_FRAMES,
+           "build_host_s": time.perf_counter() - t, "schedulers": {}}
+    for alg in PLACE_ALGS:
+        t = time.perf_counter()
+        a = get_scheduler(alg, cm).schedule(g, make_pus(*YOLO_FLEET))
+        row = {"schedule_host_s": time.perf_counter() - t}
+        for engine in ("exact", "periodic"):
+            t = time.perf_counter()
+            res = make_simulator(g, cm, engine=engine).run(a, frames=YOLO_FRAMES)
+            row[engine] = {"rate": res.rate, "latency": res.latency,
+                           "mean_utilization": res.mean_utilization,
+                           "host_s": time.perf_counter() - t}
+        rec["schedulers"][alg] = row
+        ex, pe = row["exact"], row["periodic"]
+        log(f"place yolov8n {alg} on {YOLO_FLEET[0]}+{YOLO_FLEET[1]} PUs: "
+            f"simulated (IMCE model) rate {ex['rate']:.3f} fps, latency "
+            f"{ex['latency'] * 1e3:.4f} ms, mean utilization "
+            f"{ex['mean_utilization'] * 100:.1f}% (periodic: {pe['rate']:.3f} "
+            f"fps, {pe['latency'] * 1e3:.4f} ms); host s: schedule "
+            f"{row['schedule_host_s']:.4f}, exact {ex['host_s']:.4f}, "
+            f"periodic {pe['host_s']:.4f}")
+    for engine in ("exact", "periodic"):
+        lblp = rec["schedulers"]["lblp"][engine]["rate"]
+        wb = rec["schedulers"]["wb"][engine]["rate"]
+        if not lblp >= wb:
+            raise AssertionError(f"place yolov8n: LBLP rate {lblp} < WB rate "
+                                 f"{wb} under {engine}")
+    ratio = (rec["schedulers"]["lblp"]["exact"]["rate"]
+             / rec["schedulers"]["wb"]["exact"]["rate"])
+    log(f"place yolov8n: LBLP rate >= WB rate under both engines (LBLP / WB "
+        f"{ratio:.3f})")
+    return rec
+
+
+def elastic_sessions():
+    """Phase 3: an ``ElasticSession`` on ResNet-18 over 8 + 4 PUs loses
+    two IMC PUs and gets the first back (the degradation curve); an
+    ``lblp-r`` session on ResNet-8 over 12 + 6 PUs loses a PU that holds
+    only replicas and must recover by replica absorption.  Returns the
+    record (IMCE figures)."""
+    from repro_torch.core import make_pus
+    from repro_torch.core.elastic import ElasticSession
+    from repro_torch.models.cnn import graphs
+    t = time.perf_counter()
+    fleet = make_pus(*ELASTIC_FLEET)
+    sess = ElasticSession(graphs.resnet18_graph(), fleet)
+    for pu in ELASTIC_FAILS:
+        sess.fail(pu)
+    sess.join(next(p for p in fleet if p.pu_id == ELASTIC_FAILS[0]))
+    curve = sess.degradation_curve()
+    rec = {"fleet": list(ELASTIC_FLEET), "fails": list(ELASTIC_FAILS),
+           "curve": [list(c) for c in curve],
+           "recovery": [e.recovery for e in sess.history]}
+    steps = (["start"] + [f"fail {pu}" for pu in ELASTIC_FAILS]
+             + [f"join {ELASTIC_FAILS[0]}"])
+    for step, (n, rate, lat), e in zip(steps, curve, sess.history):
+        log(f"elastic resnet18 {step}: {n} PUs, simulated (IMCE model) rate "
+            f"{rate:.3f} fps, latency {lat * 1e3:.4f} ms ({e.recovery})")
+
+    sess = ElasticSession(graphs.resnet8_graph(), make_pus(*ABSORB_FLEET),
+                          algorithm="lblp-r")
+    mapping = dict(sess.assignment.mapping)
+    replicas = {m for ms in sess.serving_graph.replica_groups().values()
+                for m in ms}
+    only_replicas = [pid for pid in sorted(set(mapping.values()))
+                     if all(n in replicas for n, p in mapping.items() if p == pid)]
+    if not only_replicas:
+        raise AssertionError("elastic: no PU of the lblp-r session holds only "
+                             "replicas")
+    before = sess.history[-1]
+    ev = sess.fail(only_replicas[0])
+    if ev.recovery != "replica-absorb":
+        raise AssertionError(f"elastic: failing PU {only_replicas[0]} gave "
+                             f"{ev.recovery!r}, not 'replica-absorb'")
+    if any(ev.mapping[n] != mapping[n] for n in ev.mapping):
+        raise AssertionError("elastic: replica absorption moved a node")
+    rec["absorb"] = {"fleet": list(ABSORB_FLEET), "only_replicas": only_replicas,
+                     "failed_pu": only_replicas[0], "recovery": ev.recovery,
+                     "rate_before": before.rate, "rate": ev.rate,
+                     "latency": ev.latency}
+    rec["host_s"] = time.perf_counter() - t
+    log(f"elastic resnet8 lblp-r on {ABSORB_FLEET[0]}+{ABSORB_FLEET[1]} PUs: "
+        f"PUs holding only replicas {only_replicas}; fail {only_replicas[0]} -> "
+        f"{ev.recovery}, simulated rate {before.rate:.3f} -> {ev.rate:.3f} "
+        f"fps (both sessions: host {rec['host_s']:.3f} s)")
+    return rec
+
+
+def readme_trace():
+    """The README's three-event serving trace."""
+    from repro_torch.core import SLO, TraceEvent
+    return [
+        TraceEvent("arrive", tenant="cam-0", model="resnet8",
+                   slo=SLO(min_rate=300.0, max_latency=0.05)),
+        TraceEvent("arrive", tenant="bulk-0", model="resnet18",
+                   slo=SLO(min_rate=400.0), weight=2.0),
+        TraceEvent("fail", pu_id=3),
+    ]
+
+
+def serving_plane():
+    """Phase 3: the serving control plane plays the README's trace on
+    8 + 4 PUs twice under each engine; the two audits of one engine must
+    be equal as strings.  Returns the record (decisions, audit hashes)."""
+    import hashlib
+    from repro_torch.core import ServingControlPlane, make_pus
+    from repro_torch.models.cnn import graphs
+    models = {"resnet8": graphs.resnet8_graph(),
+              "resnet18": graphs.resnet18_graph()}
+    rec = {}
+    for engine in ("exact", "periodic"):
+        audits = []
+        for _ in range(2):
+            t = time.perf_counter()
+            plane = ServingControlPlane(make_pus(*SERVING_FLEET), models,
+                                        engine=engine)
+            plane.play(readme_trace())
+            audits.append(plane.audit_json())
+            host_s = time.perf_counter() - t
+        if audits[0] != audits[1]:
+            raise AssertionError(f"serving: two audits under {engine} differ")
+        sha = hashlib.sha256(audits[0].encode()).hexdigest()
+        rec[engine] = {"sha256": sha, "host_s": host_s, "probes": plane.probes,
+                       "decisions": [(d.index, d.event, d.action, d.reason)
+                                     for d in plane.decisions]}
+        for d in plane.decisions:
+            log(f"serving {engine} {d.index} {d.event} {d.action}: {d.reason}")
+        log(f"serving {engine}: audits equal, sha256 {sha}, {plane.probes} "
+            f"probes, host {host_s:.3f} s a play")
+    return rec
+
+
+def stage_partition():
+    """Phase 3: the LM pipeline-stage partitioner on gemma3-1b over 4
+    H100 stages.  Returns the record."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline_partition import partition
+    plan = partition(get_config(PARTITION_ARCH), PARTITION_STAGES)
+    rec = {"arch": PARTITION_ARCH, "stages": PARTITION_STAGES,
+           "boundaries": plan.boundaries, "imbalance": plan.imbalance,
+           "loads_s": plan.loads, "lblp_bottleneck_s": plan.lblp_bottleneck}
+    log(f"partition {PARTITION_ARCH} into {PARTITION_STAGES} stages: "
+        f"boundaries {plan.boundaries}, imbalance {plan.imbalance:.6f}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# YOLOv8n in float on the card (the paper's §V.C model)
+# ---------------------------------------------------------------------------
+
+F32_FLOPS_PER_S = 67e12   # H100 SXM dense f32 peak, CUDA cores (no TF32)
+YOLO_HW = 640
+YOLO_CHECK_FRAMES = 2
+YOLO_REQUESTS = 8
+YOLO_BATCH = 16
+YOLO_RTOL = 1e-3       # max |card - cpu| <= YOLO_RTOL * max |raw|
+
+
+def yolo_card_vs_cpu(dev, hw, frames):
+    """Phase 5b: YOLOv8n at full width (parameters from a CPU generator
+    seeded 0, moved to ``dev``) on ``frames`` images of ``hw`` x ``hw``,
+    raw and decoded, on ``dev`` against CPU copies (the plain path).  The
+    gate is max |d| <= YOLO_RTOL * max |raw| over the raw outputs.
+    Returns ``(parameters on dev, record)``."""
+    import torch
+    from repro_torch.models.cnn import yolo
+    params_cpu = yolo.init(torch.Generator().manual_seed(0), device="cpu")
+    params = to_device(params_cpu, dev)
+    x = torch.randn((frames, hw, hw, 3), generator=torch.Generator().manual_seed(1))
+    t = time.perf_counter()
+    raw_cpu = yolo.forward(params_cpu, x, decode=False)
+    dec_cpu = yolo.forward(params_cpu, x)
+    cpu_s = time.perf_counter() - t
+    raw = yolo.forward(params, x.to(dev), decode=False)
+    dec = yolo.forward(params, x.to(dev))
+    anchors = sum((hw // s) ** 2 for s in yolo.STRIDES)
+    want = [(frames, hw // s, hw // s, 4 * yolo.REG_MAX + yolo.NC)
+            for s in yolo.STRIDES]
+    for out in raw + [dec]:
+        if out.device.type != torch.device(dev).type or not torch.isfinite(out).all():
+            raise AssertionError(f"yolov8n: output on {out.device} or not finite")
+    if [tuple(r.shape) for r in raw] != want or tuple(dec.shape) != (
+            frames, anchors, 4 + yolo.NC):
+        raise AssertionError(f"yolov8n: shapes {[tuple(r.shape) for r in raw]}, "
+                             f"{tuple(dec.shape)}")
+    d_raw = max((r.cpu() - c).abs().max().item() for r, c in zip(raw, raw_cpu))
+    m_raw = max(c.abs().max().item() for c in raw_cpu)
+    d_dec = (dec.cpu() - dec_cpu).abs().max().item()
+    m_dec = dec_cpu.abs().max().item()
+    log(f"yolov8n {hw}x{hw} x{frames} card vs cpu plain path: raw max |d| "
+        f"{d_raw:.3e} (max |raw| {m_raw:.4f}, {d_raw / m_raw:.3e} of it; limit "
+        f"{YOLO_RTOL}), decoded max |d| {d_dec:.3e} (max |out| {m_dec:.3f}); "
+        f"cpu forward {cpu_s:.2f} s")
+    if d_raw > YOLO_RTOL * m_raw:
+        raise AssertionError(f"yolov8n: raw outputs differ from the CPU by "
+                             f"{d_raw:.3e} > {YOLO_RTOL} x {m_raw:.4f}")
+    return params, {"hw": hw, "frames": frames, "raw_max_abs_d": d_raw,
+                    "raw_max_abs": m_raw, "decoded_max_abs_d": d_dec,
+                    "decoded_max_abs": m_dec, "cpu_forward_s": cpu_s}
+
+
+def yolo_bound_ms(hw, batch):
+    """Least device time of one request: the conv FLOPs of the port's
+    deployment graph at ``hw`` over the f32 peak, or the input, output
+    and parameter bytes over HBM, whichever is larger."""
+    from repro_torch.core.graph import OpKind
+    from repro_torch.models.cnn import graphs, yolo
+    g = graphs.build_yolov8n_graph({**yolo.YOLOV8N, "image_hw": (hw, hw)})
+    convs = [n for n in g.nodes.values() if n.kind == OpKind.CONV]
+    flops = batch * sum(n.flops for n in convs)
+    anchors = sum((hw // s) ** 2 for s in yolo.STRIDES)
+    # a conv node's weight_bytes is its parameter count (1 byte each in
+    # the INT8 deployment); the model's parameters are all conv parameters
+    n_bytes = 4 * (batch * hw * hw * 3 + batch * anchors * (4 + yolo.NC)
+                   + sum(n.weight_bytes for n in convs))
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    return {"flops": flops, "bytes": n_bytes, "ops_ms": t_ops,
+            "bytes_ms": t_bytes, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def yolo_serve(params, dev, hw, n_requests, batch, sync):
+    """Phase 5b: serve ``n_requests`` requests of ``batch`` frames through
+    ``yolo.forward`` on ``dev`` (decoded output), the host clock around
+    each forward ending in ``sync()``.  Returns the record."""
+    import torch
+    from repro_torch.models.cnn import yolo
+    xs = torch.randn((n_requests, batch, hw, hw, 3), device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(2))
+    yolo.forward(params, xs[0])          # warm-up: library handles, allocator
+    sync()
+    outs, lat = [], []
+    t_all = time.perf_counter()
+    for r in range(n_requests):
+        t = time.perf_counter()
+        outs.append(yolo.forward(params, xs[r]))
+        sync()
+        lat.append(time.perf_counter() - t)
+    total = time.perf_counter() - t_all
+    for y in outs:
+        if y.device.type != torch.device(dev).type or not torch.isfinite(y).all():
+            raise AssertionError("yolov8n serve: output off the device or "
+                                 "not finite")
+    rec = {"hw": hw, "requests": n_requests, "batch": batch,
+           "frames_per_s": n_requests * batch / total,
+           "latency_ms": [t * 1e3 for t in lat],
+           "latency_ms_mean": sum(lat) / len(lat) * 1e3,
+           "latency_ms_max": max(lat) * 1e3, **yolo_bound_ms(hw, batch)}
+    log(f"yolov8n {hw}x{hw} serve: {n_requests} requests x {batch} frames, "
+        f"{rec['frames_per_s']:.1f} frames/s, request latency mean "
+        f"{rec['latency_ms_mean']:.3f} ms, max {rec['latency_ms_max']:.3f} ms; "
+        f"bound {rec['bound_ms']:.4f} ms a request ({rec['bound_by']}: "
+        f"{rec['flops'] / 1e9:.3f} GFLOP at {F32_FLOPS_PER_S / 1e12:.0f} "
+        f"TFLOP/s f32)")
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -881,6 +1177,10 @@ def main() -> int:
     lblp, detail["placement"] = schedule_and_simulate(g18)
     if set(lblp.mapping) != set(g18.nodes):
         raise AssertionError("place: the LBLP mapping does not cover the graph")
+    detail["placement"]["yolov8n"] = place_yolov8n()
+    detail["elastic"] = elastic_sessions()
+    detail["serving"] = serving_plane()
+    detail["partition"] = stage_partition()
 
     # ---- 4. main path ------------------------------------------------------
     def reset_counts():
@@ -931,8 +1231,8 @@ def main() -> int:
             if y.shape != (BATCH, cfg["num_classes"]) or not torch.isfinite(y).all():
                 raise AssertionError(f"{label}: bad logits {tuple(y.shape)}")
         # the plain path: the same executor on CPU copies
-        y_cpu = executor.execute(g, to_cpu(params), xs[0].cpu(), mode="int8",
-                                 act_scales=scales)
+        y_cpu = executor.execute(g, to_device(params, "cpu"), xs[0].cpu(),
+                                 mode="int8", act_scales=scales)
         y_dev = outs[0].cpu()
         dmax = (y_dev - y_cpu).abs().max().item()
         lmax = y_cpu.abs().max().item()
@@ -1065,6 +1365,30 @@ def main() -> int:
         f"{tot['bound_ms']:.4f} ms (bytes {tot['bytes_ms']:.4f} ms, ops "
         f"{tot['ops_ms']:.4f} ms)")
     detail["imc_conv2d_per_request"] = tot
+
+    # ---- 5b. YOLOv8n at 640x640 in float on the card ------------------------
+    log(f"torch.backends.cudnn.allow_tf32 = {torch.backends.cudnn.allow_tf32}")
+    yolo_params, detail["yolov8n_card_vs_cpu"] = yolo_card_vs_cpu(
+        dev, YOLO_HW, YOLO_CHECK_FRAMES)
+    detail["yolov8n_serve"] = yolo_serve(yolo_params, dev, YOLO_HW,
+                                         YOLO_REQUESTS, YOLO_BATCH,
+                                         torch.cuda.synchronize)
+    from repro_torch.models.cnn import yolo
+    x_yolo = torch.randn((YOLO_BATCH, YOLO_HW, YOLO_HW, 3), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(3))
+    wall, busy, top = profile_kernels(lambda: yolo.forward(yolo_params, x_yolo))
+    detail["yolov8n_profile"] = {"wall_ms": wall, "device_busy_ms": busy,
+                                 "top": top}
+    yb = detail["yolov8n_serve"]
+    log(f"profile of one yolov8n request ({YOLO_BATCH} frames): wall "
+        f"{wall:.3f} ms (under the profiler), kernels {busy:.3f} ms "
+        f"({100 * busy / wall:.1f}% busy); bound {yb['bound_ms']:.4f} ms, "
+        f"measured request latency mean {yb['latency_ms_mean']:.3f} ms")
+    for row in top[:8]:
+        log(f"  {row['ms']:9.3f} ms  x{row['calls']:<4d} {row['name'][:70]}")
+    del yolo_params, x_yolo
+    torch.cuda.empty_cache()
+
     # ---- 6. flash attention against its plain version --------------------
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models.lm import transformer

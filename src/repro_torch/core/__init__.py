@@ -5,8 +5,10 @@ The port's copy of ``repro.core``: the same module paths, names, structure
 and float arithmetic, in plain stdlib Python (no tensors, no device), so
 that every assignment and ``SimResult`` equals the reference's field for
 field.  The simulator keeps the reference's optional ``numpy`` import: its
-scalar fallback is bit-equal.  The serving control plane, the elastic
-tier and the LM pipeline partitioner are not part of this package yet.
+scalar fallback is bit-equal.  The elastic tier (``elastic``), the
+serving control plane (``serving``) and the LM pipeline-stage partitioner
+(``pipeline_partition``) are copies too: their events, audits and stage
+boundaries equal the reference's.
 """
 
 from .cost import (
@@ -58,6 +60,18 @@ def make_simulator(graph, cost_model=None, engine: str = "exact",
     return cls(graph, cost_model, max_in_flight, mode=engine)
 
 
+# imported after make_simulator exists: serving builds on the factory
+from .serving import (  # noqa: E402  (deliberate late import)
+    SLO,
+    Decision,
+    ServingControlPlane,
+    SLOReport,
+    TraceEvent,
+    aggregate_goodput,
+    dump_trace,
+    load_trace,
+)
+
 __all__ = [
     "CostModel",
     "HardwareProfile",
@@ -90,4 +104,12 @@ __all__ = [
     "SimContext",
     "TIME_SCALE",
     "make_simulator",
+    "SLO",
+    "Decision",
+    "ServingControlPlane",
+    "SLOReport",
+    "TraceEvent",
+    "aggregate_goodput",
+    "dump_trace",
+    "load_trace",
 ]

@@ -87,6 +87,38 @@ def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     return x.double().mean(dim=(1, 2)).to(x.dtype)
 
 
+def max_pool(x: torch.Tensor, k: int, stride: Optional[int] = None,
+             padding: str = "SAME") -> torch.Tensor:
+    """NHWC max pool.  SAME pads with -inf, split floor/ceil as
+    ``lax.reduce_window`` does, so a padded cell never wins."""
+    stride = stride or k
+    top, bottom, left, right = conv_pads(x.shape[1], x.shape[2], k, stride,
+                                         padding)
+    xn = F.pad(x.permute(0, 3, 1, 2), (left, right, top, bottom),
+               value=-math.inf)
+    return F.max_pool2d(xn, k, stride).permute(0, 2, 3, 1)
+
+
+def avg_pool(x: torch.Tensor, k: int, stride: Optional[int] = None,
+             padding: str = "VALID") -> torch.Tensor:
+    """NHWC average pool.  SAME pads with zeros and still divides by
+    ``k * k``, as the reference's window sum over ``k * k`` does."""
+    stride = stride or k
+    top, bottom, left, right = conv_pads(x.shape[1], x.shape[2], k, stride,
+                                         padding)
+    xn = F.pad(x.permute(0, 3, 1, 2), (left, right, top, bottom))
+    return F.avg_pool2d(xn, k, stride).permute(0, 2, 3, 1)
+
+
+def upsample_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
+    """NHWC nearest-neighbour upsampling by an integer factor."""
+    return x.repeat_interleave(factor, dim=1).repeat_interleave(factor, dim=2)
+
+
+def softmax(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    return torch.softmax(x, dim=axis)
+
+
 # ---------------------------------------------------------------------------
 # shape/cost bookkeeping shared with the deployment-graph builders
 # ---------------------------------------------------------------------------

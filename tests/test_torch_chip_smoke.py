@@ -1,7 +1,9 @@
 """The card-free phases of ``chip_smoke.py`` rehearsed on the CPU: the
-LM card-against-CPU gate with the CPU on both sides, and the placement
-phase (schedule and simulate the ResNet-18 graph the main path executes)
-against the reference's schedulers and simulator."""
+LM card-against-CPU gate and the YOLOv8n phase with the CPU on both
+sides, and the placement phase (schedule and simulate the ResNet-18
+graph the main path executes and the YOLOv8n graph; elastic sessions;
+the serving control plane; the stage partitioner) against the
+reference."""
 
 import sys
 from pathlib import Path
@@ -61,3 +63,141 @@ def test_placement_phase_equals_reference():
                 res.rate, res.latency, res.mean_utilization)
     assert rec["replicated"]["replicas"]
     assert set(rec["multi_tenant"]["tenants"]) == set(chip_smoke.MT_RATES)
+
+
+# ---------------------------------------------------------------------------
+# The rest of phase 3 (YOLOv8n placement, elastic sessions, the serving
+# control plane, the stage partitioner) and phase 5b (YOLOv8n in float)
+# ---------------------------------------------------------------------------
+
+import hashlib  # noqa: E402
+
+from repro.configs import get_config as jget_config  # noqa: E402
+from repro.core import elastic as jelastic  # noqa: E402
+from repro.core import pipeline_partition as jpp  # noqa: E402
+from repro.core import serving as jserving  # noqa: E402
+
+
+def test_yolov8n_placement_phase_equals_reference():
+    rec = chip_smoke.place_yolov8n()
+    assert rec["nodes"] == 233 and rec["fleet"] == [16, 8]
+    cm = jcore.CostModel()
+    rg = jgraphs.yolov8n_graph()
+    for alg in chip_smoke.PLACE_ALGS:
+        ra = jcore.get_scheduler(alg, cm).schedule(
+            rg, jcore.make_pus(*chip_smoke.YOLO_FLEET))
+        for engine in ("exact", "periodic"):
+            res = jcore.make_simulator(rg, cm, engine=engine).run(
+                ra, frames=chip_smoke.YOLO_FRAMES)
+            row = rec["schedulers"][alg][engine]
+            assert (row["rate"], row["latency"], row["mean_utilization"]) == (
+                res.rate, res.latency, res.mean_utilization)
+
+
+def test_yolov8n_placement_gate_fails_when_wb_wins(monkeypatch):
+    """The gate is live: with the LBLP and WB schedulers swapped, the row
+    named LBLP has WB's rate and the phase raises."""
+    import repro_torch.core as core
+    real = core.get_scheduler
+    monkeypatch.setattr(core, "get_scheduler", lambda name, *a, **kw: real(
+        {"lblp": "wb", "wb": "lblp"}.get(name, name), *a, **kw))
+    with pytest.raises(AssertionError, match="LBLP rate"):
+        chip_smoke.place_yolov8n()
+
+
+def test_elastic_phase_equals_reference():
+    rec = chip_smoke.elastic_sessions()
+    sess = jelastic.ElasticSession(jgraphs.resnet18_graph(),
+                                   jcore.make_pus(*chip_smoke.ELASTIC_FLEET))
+    fleet = jcore.make_pus(*chip_smoke.ELASTIC_FLEET)
+    for pu in chip_smoke.ELASTIC_FAILS:
+        sess.fail(pu)
+    sess.join(fleet[chip_smoke.ELASTIC_FAILS[0] - 1])
+    assert rec["curve"] == [list(c) for c in sess.degradation_curve()]
+    assert len(rec["curve"]) == 4
+    ab = rec["absorb"]
+    assert ab["only_replicas"] == [1, 2, 3, 9, 10, 11, 12]
+    assert ab["failed_pu"] == 1 and ab["recovery"] == "replica-absorb"
+    rsess = jelastic.ElasticSession(jgraphs.resnet8_graph(),
+                                    jcore.make_pus(*chip_smoke.ABSORB_FLEET),
+                                    algorithm="lblp-r")
+    ev = rsess.fail(1)
+    assert (ev.recovery, ev.rate, ev.latency) == (
+        "replica-absorb", ab["rate"], ab["latency"])
+
+
+def test_serving_phase_equals_reference():
+    rec = chip_smoke.serving_plane()
+    models = {"resnet8": jgraphs.resnet8_graph(),
+              "resnet18": jgraphs.resnet18_graph()}
+    trace = jserving.load_trace(jserving.dump_trace([
+        jserving.TraceEvent("arrive", tenant="cam-0", model="resnet8",
+                            slo=jserving.SLO(min_rate=300.0, max_latency=0.05)),
+        jserving.TraceEvent("arrive", tenant="bulk-0", model="resnet18",
+                            slo=jserving.SLO(min_rate=400.0), weight=2.0),
+        jserving.TraceEvent("fail", pu_id=3)]))
+    for engine in ("exact", "periodic"):
+        plane = jserving.ServingControlPlane(
+            jcore.make_pus(*chip_smoke.SERVING_FLEET), models, engine=engine)
+        plane.play(trace)
+        assert rec[engine]["sha256"] == hashlib.sha256(
+            plane.audit_json().encode()).hexdigest()
+        assert rec[engine]["decisions"] == [
+            (d.index, d.event, d.action, d.reason) for d in plane.decisions]
+
+
+def test_serving_phase_fails_on_unequal_audits(monkeypatch):
+    from repro_torch.core import serving
+    calls = iter(range(100))
+    real = serving.ServingControlPlane.audit_json
+    monkeypatch.setattr(serving.ServingControlPlane, "audit_json",
+                        lambda self: real(self) + str(next(calls)))
+    with pytest.raises(AssertionError, match="two audits"):
+        chip_smoke.serving_plane()
+
+
+def test_partition_phase_equals_reference():
+    rec = chip_smoke.stage_partition()
+    ref = jpp.partition(jget_config(chip_smoke.PARTITION_ARCH),
+                        chip_smoke.PARTITION_STAGES)
+    assert rec["boundaries"] == ref.boundaries == [0, 10, 18, 27]
+    assert rec["imbalance"] == pytest.approx(ref.imbalance, rel=1e-12)
+
+
+def test_yolo_phase_rehearsed_on_cpu():
+    """Phase 5b with the CPU on both sides at 64x64: the gate passes with
+    max |d| 0, and serving returns finite figures."""
+    dev = torch.device("cpu")
+    params, rec = chip_smoke.yolo_card_vs_cpu(dev, 64, 2)
+    assert rec["raw_max_abs_d"] == 0.0 and rec["decoded_max_abs_d"] == 0.0
+    assert rec["raw_max_abs"] > 0
+    out = chip_smoke.yolo_serve(params, dev, 64, 2, 2, lambda: None)
+    assert out["frames_per_s"] > 0 and len(out["latency_ms"]) == 2
+    assert out["flops"] == 2 * 8_742_912_000.0 / 100
+
+
+def test_yolo_gate_fails_on_a_wrong_card(monkeypatch):
+    """The card-against-CPU gate is live: a forward that is off by 1% on
+    the "card" side fails it."""
+    from repro_torch.models.cnn import yolo
+    real = yolo.forward
+    calls = []
+
+    def skewed(params, x, cfg=yolo.YOLOV8N, decode=True):
+        out = real(params, x, cfg, decode)
+        calls.append(1)
+        if len(calls) <= 2:                     # the CPU side runs first
+            return out
+        return [o * 1.01 for o in out] if not decode else out * 1.01
+
+    monkeypatch.setattr(yolo, "forward", skewed)
+    with pytest.raises(AssertionError, match="raw outputs differ"):
+        chip_smoke.yolo_card_vs_cpu(torch.device("cpu"), 64, 1)
+
+
+def test_yolo_bound_at_full_size():
+    b = chip_smoke.yolo_bound_ms(640, 16)
+    assert b["flops"] == 16 * 8_742_912_000.0
+    assert b["bound_by"] == "operations"
+    assert b["bound_ms"] == pytest.approx(16 * 8.742912e9 / 67e12 * 1e3)
+    assert 2.0 < b["bound_ms"] < 2.2

@@ -20,11 +20,12 @@ PROFILES = ["IMCE_DEFAULT", "IMCE_FAST_LINK"]
 
 
 def graph_pairs():
-    """(label, port graph, reference graph): the ResNets from each
-    package's builder, YOLOv8n, a replicated ResNet-18 and two random
-    graphs carried across as JSON."""
+    """(label, port graph, reference graph): the ResNets and YOLOv8n
+    (``yolov8n-port``) from each package's builder, YOLOv8n, a replicated
+    ResNet-18 and two random graphs carried across as JSON."""
     out = [("resnet8", graphs.resnet8_graph(), jgraphs.resnet8_graph()),
-           ("resnet18", graphs.resnet18_graph(), jgraphs.resnet18_graph())]
+           ("resnet18", graphs.resnet18_graph(), jgraphs.resnet18_graph()),
+           ("yolov8n-port", graphs.yolov8n_graph(), jgraphs.yolov8n_graph())]
     refs = [("yolov8n", jgraphs.yolov8n_graph()),
             ("resnet18-replicated",
              jgraphs.resnet18_graph().with_replicas({2: 3, 7: 2})),

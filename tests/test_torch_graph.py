@@ -1,5 +1,6 @@
-"""The port's graph IR and ResNet deployment graphs against the JAX
-package's: identical JSON, node counts and Table I ids."""
+"""The port's graph IR and CNN deployment graphs (ResNet-8/18 and
+YOLOv8n, each from the port's own builder) against the JAX package's:
+identical JSON, node counts and Table I ids."""
 
 import pytest
 
@@ -10,7 +11,8 @@ from repro_torch.core.graph import Graph, GraphError, OpKind, PUType
 from repro_torch.models.cnn import graphs, layers
 
 BUILDERS = {"resnet8": (graphs.resnet8_graph, jgraphs.resnet8_graph),
-            "resnet18": (graphs.resnet18_graph, jgraphs.resnet18_graph)}
+            "resnet18": (graphs.resnet18_graph, jgraphs.resnet18_graph),
+            "yolov8n-port": (graphs.yolov8n_graph, jgraphs.yolov8n_graph)}
 
 
 @pytest.mark.parametrize("name", sorted(BUILDERS))
@@ -83,9 +85,9 @@ RANDOM_SEEDS = range(5)
 
 
 def graph_pair(name):
-    """(port graph, reference graph) of the same network: ResNets from
-    each package's own builder, YOLOv8n and random graphs carried across
-    as JSON."""
+    """(port graph, reference graph) of the same network: ResNets and
+    ``yolov8n-port`` from each package's own builder, ``yolov8n`` and
+    random graphs carried across as JSON."""
     if name in BUILDERS:
         port, ref = BUILDERS[name]
         return port(), ref()

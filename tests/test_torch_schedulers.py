@@ -91,6 +91,14 @@ def test_yolov8n_equals_reference(alg):
     schedule_both(alg, Graph.from_json(rg.to_json()), rg, (8, 4))
 
 
+@pytest.mark.parametrize("fleet", [(8, 4), (16, 8)], ids=str)
+@pytest.mark.parametrize("alg", ["lblp", "wb", "rr", "rd", "lblp-r"])
+def test_port_built_yolov8n_equals_reference(alg, fleet):
+    """The YOLOv8n graph from the port's own builder, on the paper's
+    §V.C fleet (16 + 8) and on 8 + 4."""
+    schedule_both(alg, graphs.yolov8n_graph(), jgraphs.yolov8n_graph(), fleet)
+
+
 @pytest.mark.parametrize("seed", range(20))
 def test_random_graphs_equal_reference(seed):
     rg = build_random_graph(12, 0.3, seed)

@@ -75,6 +75,26 @@ def test_yolov8n_periodic_equals_reference(alg):
     sim_both(run_graph(a, g), run_graph(ra, rg), a, ra, "periodic", 32)
 
 
+@pytest.mark.parametrize("engine", ["exact", "periodic"])
+@pytest.mark.parametrize("alg", PAPER_ALGS + ["lblp-r"])
+def test_port_built_yolov8n_equals_reference(alg, engine):
+    """The YOLOv8n graph from the port's own builder on the paper's §V.C
+    fleet, 48 frames: the setting of ``chip_smoke.py``'s placement phase
+    and of the paper's claim (LBLP's rate at least WB's)."""
+    g, rg = graphs.yolov8n_graph(), jgraphs.yolov8n_graph()
+    a, ra = schedule_both(alg, g, rg, (16, 8))
+    sim_both(run_graph(a, g), run_graph(ra, rg), a, ra, engine, 48)
+
+
+@pytest.mark.parametrize("engine", ["exact", "periodic"])
+def test_port_built_yolov8n_lblp_beats_wb(engine):
+    g, cm = graphs.yolov8n_graph(), core.CostModel()
+    rate = {alg: core.make_simulator(g, cm, engine=engine).run(
+        core.get_scheduler(alg, cm).schedule(g, core.make_pus(16, 8)),
+        frames=48).rate for alg in ("lblp", "wb")}
+    assert rate["lblp"] >= rate["wb"]
+
+
 @pytest.mark.parametrize("engine", ENGINES)
 @pytest.mark.parametrize("seed", range(4))
 def test_random_graphs_equal_reference(seed, engine):
