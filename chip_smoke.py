@@ -76,7 +76,27 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
 9. the flash kernel's time per prefill of (4, 2048) summed over the 26
    layers at their windows, beside its bound, its plain version and
    ``scaled_dot_product_attention`` (the yardstick only), and the device
-   busy share over one prefill and one decode step.
+   busy share over one prefill and one decode step;
+10. (T1) one training step of gemma3-1b at full width cut to 2 layers
+   (one 512-window, one global), bf16 weights from a CPU generator seeded
+   0, one batch of 1 x 256 tokens from the data pipeline, on the card
+   against the same port on the CPU: loss, gradient global norm, each
+   leaf's max |dg| against its max |g|, and the parameters after one
+   ``adamw.apply``, each within its stated limit, all finite;
+11. (T2) gemma3-1b at full width and depth (26 layers, 1.009 B
+   parameters) through ``make_train_step``: sequence 4096, global batch
+   8 in 4 microbatches of 2, one warm step and 3 timed on one fixed batch
+   (host clock ending in a synchronise), tokens/s, MFU against 6 N tokens
+   at the bf16 peak, peak device memory, one step under
+   ``torch.profiler`` (device time by kernel class); finite losses, the
+   last below the first, and no kernel launched (the training path is
+   plain PyTorch, as in the reference);
+12. (T3) ``examples/train_lm.py``'s ~100M stablelm geometry through the
+   port's ``train()``: batch 8 x 256, 300 steps, checkpoints every 50
+   into a temporary directory (loss must fall), restore and save timed;
+   then an interrupted pair (150 steps, then 300), which must resume from
+   150 with its next loss within 10%; 0 retries and 0 rollbacks in every
+   run; then one step of that model under ``torch.profiler``.
 
 Detail goes to ``chiprun_out/chip_smoke.json``.  The line before the last
 is ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
@@ -1009,9 +1029,27 @@ def flash_timings(dev, cfg):
     return tot
 
 
-def profile_kernels(fn):
+KERNEL_CLASSES = (("gemm", ("nvjet", "gemm", "cutlass", "xmma")),
+                  ("softmax", ("SoftMax",)), ("copy/cast", ("copy",)),
+                  ("reduce", ("reduce_kernel",)))
+
+
+def kernel_classes(rows):
+    """Device ms summed by the class of kernel name (``KERNEL_CLASSES``;
+    the rest is "elementwise")."""
+    out = {name: 0.0 for name, _ in KERNEL_CLASSES}
+    out["elementwise"] = 0.0
+    for row in rows:
+        cls = next((name for name, keys in KERNEL_CLASSES
+                    if any(k in row["name"] for k in keys)), "elementwise")
+        out[cls] += row["ms"]
+    return out
+
+
+def profile_kernels(fn, top=12):
     """Wall time and device kernel time of ``fn()`` under torch.profiler:
-    (wall ms, busy ms, top kernel rows)."""
+    (wall ms, busy ms, the ``top`` kernel rows by time, all of them if
+    ``top`` is None)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1026,7 +1064,245 @@ def profile_kernels(fn):
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows) / 1e3
     return wall * 1e3, busy, [{"name": k[:80], "ms": v / 1e3, "calls": c}
-                              for k, v, c in rows[:12]]
+                              for k, v, c in rows[:top]]
+
+
+# ---------------------------------------------------------------------------
+# LM training: gemma3-1b steps, and the repo's ~100M training example
+# ---------------------------------------------------------------------------
+
+T1_SEQ = 256
+# T1, one training step at full width (2 layers), card against the CPU.
+# Both sides run the port in bf16 with f32 logits and f32 moments; they
+# round the same bf16 products summed in other orders (cuBLAS against the
+# CPU's GEMMs), an ulp or so (2^-8 relative) per op.  On the CPU the
+# port's bf16 gradients differ from the reference's by at most 2.2e-2 of a
+# leaf's max |g| on the smoke configs (tests/test_torch_train.py); the
+# card is held to 5e-2 per leaf, the forward's limit in phase 7.  The
+# loss is a mean over 255 tokens, whose errors average out: 1e-2.
+T1_LOSS_RTOL = 1e-2
+T1_GNORM_RTOL = 5e-2
+T1_GRAD_RTOL = 5e-2
+# T2, gemma3-1b at full depth: SHAPES["train_4k"]'s sequence, global batch
+# cut from 256 to 8 and microbatch from 64 to 2 (4 accumulation slices).
+T2_SEQ, T2_BATCH, T2_MICROBATCH = 4096, 8, 2
+T2_STEPS = 4           # one warm step, then 3 timed
+# T3, the repo's training example (examples/train_lm.py) on the card
+T3_STEPS, T3_BATCH, T3_SEQ, T3_CKPT_EVERY = 300, 8, 256, 50
+T3_RESUME_RTOL = 0.10  # loss at the first resumed step against the last one
+
+
+def stablelm_100m():
+    """``examples/train_lm.py``'s ~100M geometry (stablelm family, scaled
+    down), copied here."""
+    import dataclasses
+    from repro_torch.configs import Segment, get_config
+    return dataclasses.replace(
+        get_config("stablelm-1.6b"), name="stablelm-100m", d_model=640,
+        n_heads=10, n_kv_heads=10, head_dim=64, d_ff=1792, vocab=32768,
+        segments=(Segment("attn", 12),), microbatch=8)
+
+
+def train_card_vs_cpu(cfg, dev, seq):
+    """Phase T1: one batch of 1 x ``seq`` tokens through ``loss_and_grads``
+    and one ``adamw.apply`` (warmup 1: lr 3e-4 at step 1), bf16 weights
+    from a CPU generator seeded 0 copied to ``dev``, on both.  Compares the
+    loss, the gradients' global norm, each leaf's max |dg| against its max
+    |g|, and the parameters after the update: at step 1 the update is
+    lr * (m/sqrt(v) + wd p) with |m/sqrt(v)| <= 1, so a gradient whose sign
+    differs moves a parameter by at most 2 lr more, and the bf16 casts of
+    two f32 values that close differ by at most one ulp of the leaf's
+    largest |p| (2^-7 max |p|).  Any non-finite value fails."""
+    import math
+    import torch
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models.lm import model, transformer
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_flatten_with_names, tree_map
+    params_cpu = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                         device="cpu")
+    params_dev = tree_map(lambda t: t.to(dev), params_cpu)
+    batch = make_batch(cfg, ShapeSpec("t1", seq, 1, "train"), 0, device="cpu")
+    opt = adamw.AdamWConfig(warmup_steps=1)
+
+    def step(params, batch):
+        loss, grads = model.loss_and_grads(cfg, params, batch)
+        grads = tree_map(lambda g: g.to(torch.float32), grads)
+        new, _, metrics = adamw.apply(opt, params, adamw.init(params), grads)
+        return float(loss), grads, new, metrics
+
+    t = time.perf_counter()
+    cpu = step(params_cpu, batch)
+    cpu_s = time.perf_counter() - t
+    card = step(params_dev, {k: v.to(dev) for k, v in batch.items()})
+    lr = float(cpu[3]["lr"])
+    rec = {"loss_cpu": cpu[0], "loss_card": card[0], "cpu_s": cpu_s, "lr": lr,
+           "grad_norm_cpu": float(cpu[3]["grad_norm"]),
+           "grad_norm_card": float(card[3]["grad_norm"]), "leaves": {}}
+    if not (math.isfinite(rec["loss_card"]) and math.isfinite(rec["grad_norm_card"])):
+        raise AssertionError(f"train T1: non-finite card loss or norm: {rec}")
+    rec["loss_rel"] = abs(rec["loss_card"] - rec["loss_cpu"]) / abs(rec["loss_cpu"])
+    rec["grad_norm_rel"] = (abs(rec["grad_norm_card"] - rec["grad_norm_cpu"])
+                            / rec["grad_norm_cpu"])
+    log(f"train T1 {cfg.name} {cfg.n_layers} layers, 1 x {seq} tokens: loss "
+        f"card {rec['loss_card']:.6f} cpu {rec['loss_cpu']:.6f} (rel "
+        f"{rec['loss_rel']:.2e}, limit {T1_LOSS_RTOL}); grad norm card "
+        f"{rec['grad_norm_card']:.6f} cpu {rec['grad_norm_cpu']:.6f} (rel "
+        f"{rec['grad_norm_rel']:.2e}, limit {T1_GNORM_RTOL}); cpu side "
+        f"{cpu_s:.1f} s")
+    bad = []
+    if rec["loss_rel"] > T1_LOSS_RTOL:
+        bad.append("loss")
+    if rec["grad_norm_rel"] > T1_GNORM_RTOL:
+        bad.append("grad norm")
+    pairs = zip(tree_flatten_with_names(cpu[1]), tree_flatten_with_names(card[1]),
+                tree_flatten_with_names(cpu[2]), tree_flatten_with_names(card[2]))
+    for (name, gc), (_, gd), (_, pc), (_, pd) in pairs:
+        gd, pd = gd.cpu(), pd.cpu()
+        if not (torch.isfinite(gd).all() and torch.isfinite(pd.float()).all()):
+            raise AssertionError(f"train T1: non-finite card gradient or "
+                                 f"parameter in {name}")
+        g_rel = ((gc - gd).abs().max() / gc.abs().max()).item()
+        p_d = (pc.float() - pd.float()).abs().max().item()
+        # 1.001: m/sqrt(v) is 1 only to f32 rounding
+        p_lim = 2 * lr * 1.001 + 2.0 ** -7 * pc.float().abs().max().item()
+        moved = (pc != pd).float().mean().item()
+        rec["leaves"][name] = {"grad_rel": g_rel, "param_max_d": p_d,
+                               "param_limit": p_lim, "param_frac_differ": moved}
+        log(f"  {name}: max |dg| / max |g| {g_rel:.2e} (limit {T1_GRAD_RTOL}); "
+            f"after adamw max |dp| {p_d:.3e} (limit {p_lim:.3e}), "
+            f"{100 * moved:.4f}% of elements differ")
+        if g_rel > T1_GRAD_RTOL:
+            bad.append(f"{name} grad")
+        if p_d > p_lim:
+            bad.append(f"{name} param")
+    if bad:
+        raise AssertionError(f"train T1: card differs from the CPU beyond the "
+                             f"limits in {bad}")
+    rec["worst_grad_rel"] = max(r["grad_rel"] for r in rec["leaves"].values())
+    return rec
+
+
+def train_steps(cfg, dev, shape, microbatch, n_steps, opt, sync):
+    """Phase T2: ``cfg`` with bf16 weights from a generator on ``dev``
+    seeded 0 through ``make_train_step`` (``microbatch`` rows a slice);
+    ``n_steps`` steps, each timed on the host clock ending in ``sync``, all
+    on the data pipeline's batch of step 0, so that a falling loss shows
+    the gradients' direction and not the batch-to-batch noise (the
+    pipeline's stream is near-uniform over the vocabulary: over 3 steps of
+    fresh batches the loss moves less than it varies between batches).
+    Every loss must be finite and the last below the first.  Returns the
+    record and a closure that runs one more step."""
+    import math
+    import torch
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models.lm import model, transformer
+    from repro_torch.optim import adamw
+    params = transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    state = {"params": params, "opt": adamw.init(params)}
+    del params
+    step_fn = model.make_train_step(cfg, model.TrainStepConfig(opt=opt),
+                                    microbatch=microbatch)
+    batch = make_batch(cfg, shape, 0, device=dev)
+
+    def one_step():
+        state["params"], state["opt"], metrics = step_fn(
+            state["params"], state["opt"], batch)
+        return float(metrics["loss"])
+
+    losses, secs = [], []
+    for _ in range(n_steps):
+        sync()
+        t = time.perf_counter()
+        loss = one_step()
+        sync()
+        secs.append(time.perf_counter() - t)
+        losses.append(loss)
+        if not math.isfinite(loss):
+            raise AssertionError(f"train T2: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train T2: loss did not fall: {losses}")
+    return {"losses": losses, "step_s": secs}, one_step
+
+
+def train_example(cfg, dev, steps, batch, seq, ckpt_every, opt, root, sync):
+    """Phase T3: ``examples/train_lm.py`` through the port's ``train()`` on
+    ``dev`` with the AdamW config ``opt``: ``steps`` steps with
+    checkpoints every ``ckpt_every`` into
+    ``root/full`` (the mean of the first 10 losses must exceed that of the
+    last 10), and times one restore and one save of its final state; then
+    an interrupted pair in ``root/pair``, ``steps // 2`` steps and then
+    ``steps``: the second must resume from ``steps // 2`` and its first
+    loss lie within ``T3_RESUME_RTOL`` of the first run's last.  Every run
+    must report 0 retries and 0 rollbacks (the loop's retry and its NaN
+    breaker could hide a failing device step).  Each directory is removed
+    once read, so at most one run's checkpoints are on disk."""
+    import math
+    import shutil
+    import statistics
+    import torch
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.models.lm import transformer
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.train_loop import TrainLoopConfig, train
+    shape = ShapeSpec("example", seq, batch, "train")
+
+    def loop(total, sub):
+        return TrainLoopConfig(total_steps=total, ckpt_every=ckpt_every,
+                               ckpt_dir=str(root / sub), log_every=0, opt=opt)
+
+    def run(total, sub, hook=None):
+        rep = train(cfg, shape, loop(total, sub), fault_hook=hook, device=dev)
+        if rep.retries or rep.rollbacks:
+            raise AssertionError(f"train T3 {sub} to {total}: {rep.retries} "
+                                 f"retries, {rep.rollbacks} rollbacks")
+        if not all(math.isfinite(x) for x in rep.losses):
+            raise AssertionError(f"train T3 {sub} to {total}: non-finite loss")
+        return rep
+
+    stamps = []
+    full = run(steps, "full", lambda step: stamps.append(time.perf_counter()))
+    head = statistics.fmean(full.losses[:10])
+    tail = statistics.fmean(full.losses[-10:])
+    if not tail < head:
+        raise AssertionError(f"train T3: loss did not fall ({head} -> {tail})")
+    meta = transformer.init_params(cfg, torch.Generator(), device="meta")
+    like = {"params": meta, "opt": adamw.init(meta)}
+    sync()
+    t = time.perf_counter()
+    last, state, _ = ckpt.restore_latest(str(root / "full"), like, dev)
+    sync()
+    restore_s = time.perf_counter() - t
+    shutil.rmtree(root / "full")
+    t = time.perf_counter()
+    ckpt.save(str(root / "timing"), last, state)
+    save_s = time.perf_counter() - t
+    shutil.rmtree(root / "timing")
+    del state
+    half = steps // 2
+    first = run(half, "pair")
+    second = run(steps, "pair")
+    if second.resumed_from != half or second.steps_run != steps - half:
+        raise AssertionError(f"train T3: resumed from {second.resumed_from}, "
+                             f"ran {second.steps_run} steps")
+    jump = abs(second.losses[0] - first.losses[-1]) / first.losses[-1]
+    if jump > T3_RESUME_RTOL:
+        raise AssertionError(f"train T3: loss {second.losses[0]} at step "
+                             f"{half + 1} against {first.losses[-1]} at {half}")
+    gaps = [b - a for a, b in zip(stamps, stamps[1:])]
+    return {"params": transformer.param_count(cfg), "steps": full.steps_run,
+            "first10": head, "last10": tail, "wall_s": full.wall_seconds,
+            "step_s_median": statistics.median(gaps),
+            "step_s_mean": statistics.fmean(gaps),
+            "resumed_from": second.resumed_from,
+            "loss_at_half": first.losses[-1], "loss_after": second.losses[0],
+            "resume_jump": jump, "restore_s": restore_s, "save_s": save_s,
+            "ckpt_step": last,
+            "retries": [r.retries for r in (full, first, second)],
+            "rollbacks": [r.rollbacks for r in (full, first, second)]}
 
 
 def main() -> int:
@@ -1482,6 +1758,101 @@ def main() -> int:
             f" the profiler), kernels {busy:.3f} ms ({100 * busy / wall:.1f}%)")
         for row in top[:6]:
             log(f"  {row['ms']:9.3f} ms  x{row['calls']:<4d} {row['name'][:70]}")
+
+    # ---- 10-12. LM training (T1-T3): no kernel on this path ---------------
+    import dataclasses
+    import tempfile
+    from repro_torch.configs import GLOBAL_WINDOW, SHAPES, Segment, ShapeSpec
+    from repro_torch.optim import adamw
+    del server, params, cache, toks
+    torch.cuda.empty_cache()
+    two = dataclasses.replace(gemma, segments=(
+        Segment("attn", 2, window_pattern=(local_window, GLOBAL_WINDOW)),))
+    detail["train_t1"] = train_card_vs_cpu(two, dev, T1_SEQ)
+    log(f"train T1: card vs cpu within {detail['train_t1']['loss_rel']:.2e} "
+        f"(loss), {detail['train_t1']['grad_norm_rel']:.2e} (grad norm), "
+        f"{detail['train_t1']['worst_grad_rel']:.2e} (worst leaf gradient)")
+
+    t2_shape = ShapeSpec("train_4k_cut", SHAPES["train_4k"].seq_len, T2_BATCH,
+                         "train")
+    reset_counts()
+    flash_attention.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t2, t2_step = train_steps(gemma, dev, t2_shape, T2_MICROBATCH, T2_STEPS,
+                              adamw.AdamWConfig(warmup_steps=1),
+                              torch.cuda.synchronize)
+    if flash_attention.launches or imc_conv2d.launches or imc_mvm.launches:
+        raise AssertionError("train T2: the training path launched a kernel")
+    timed = t2["step_s"][1:]
+    n_params = transformer.param_count(gemma)
+    tokens = t2_shape.global_batch * t2_shape.seq_len
+    step_s = sum(timed) / len(timed)
+    t2.update(params=n_params, tokens=tokens, step_s_mean=step_s,
+              tok_per_s=tokens / step_s,
+              flop=6 * n_params * tokens,
+              bound_s=6 * n_params * tokens / BF16_FLOPS_PER_S,
+              peak_bytes=torch.cuda.max_memory_allocated(dev))
+    t2["mfu"] = t2["bound_s"] / step_s
+    detail["train_t2"] = t2
+    log(f"train T2 {gemma.name} {gemma.n_layers} layers ({n_params} params), "
+        f"batch {T2_BATCH} x {t2_shape.seq_len} in {T2_BATCH // T2_MICROBATCH} "
+        f"microbatches of {T2_MICROBATCH}: losses "
+        f"{', '.join(f'{x:.4f}' for x in t2['losses'])}; warm step "
+        f"{t2['step_s'][0]:.3f} s, timed {', '.join(f'{x:.3f}' for x in timed)} s"
+        f" (mean {step_s:.3f} s), {t2['tok_per_s']:.1f} tok/s; bound 6 N tokens "
+        f"= {t2['flop']:.3e} FLOP at {BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s = "
+        f"{t2['bound_s']:.4f} s, MFU {100 * t2['mfu']:.1f}%; peak memory "
+        f"{t2['peak_bytes'] / 2**30:.2f} GiB; 0 kernel launches")
+    wall, busy, rows = profile_kernels(t2_step, top=None)
+    classes = kernel_classes(rows)
+    detail["train_t2"]["profile"] = {"wall_ms": wall, "device_busy_ms": busy,
+                                     "classes_ms": classes, "top": rows[:16]}
+    log(f"profile one T2 step: wall {wall:.1f} ms (under the profiler), "
+        f"kernels {busy:.1f} ms ({100 * busy / wall:.1f}%); by class "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in classes.items()))
+    for row in rows[:12]:
+        log(f"  {row['ms']:9.3f} ms  x{row['calls']:<5d} {row['name'][:70]}")
+    del t2_step
+    torch.cuda.empty_cache()
+
+    reset_counts()
+    flash_attention.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        # the example's schedule: lr 3e-4, 30 warmup steps, cosine to the end
+        t3 = train_example(stablelm_100m(), dev, T3_STEPS, T3_BATCH, T3_SEQ,
+                           T3_CKPT_EVERY, adamw.AdamWConfig(
+                               lr=3e-4, warmup_steps=30, total_steps=T3_STEPS),
+                           Path(tmp), torch.cuda.synchronize)
+    if flash_attention.launches or imc_conv2d.launches or imc_mvm.launches:
+        raise AssertionError("train T3: the training path launched a kernel")
+    detail["train_t3"] = t3
+    # one step of the example's model under the profiler: where its time goes
+    t3_cfg = stablelm_100m()
+    _, t3_step = train_steps(t3_cfg, dev, ShapeSpec("example", T3_SEQ, T3_BATCH,
+                                                    "train"),
+                             t3_cfg.microbatch, 2, adamw.AdamWConfig(
+                                 lr=3e-4, warmup_steps=1), torch.cuda.synchronize)
+    wall, busy, rows = profile_kernels(t3_step, top=None)
+    t3["profile"] = {"wall_ms": wall, "device_busy_ms": busy,
+                     "launches": sum(r["calls"] for r in rows),
+                     "classes_ms": kernel_classes(rows), "top": rows[:8]}
+    del t3_step
+    log(f"train T3 stablelm-100m ({t3['params']} params), batch {T3_BATCH} x "
+        f"{T3_SEQ}, {t3['steps']} steps: loss first10 {t3['first10']:.4f} -> "
+        f"last10 {t3['last10']:.4f}; step {1e3 * t3['step_s_median']:.2f} ms "
+        f"median ({1e3 * t3['step_s_mean']:.2f} ms mean, checkpoints "
+        f"included), run {t3['wall_s']:.1f} s; resumed from "
+        f"{t3['resumed_from']}: loss {t3['loss_at_half']:.4f} -> "
+        f"{t3['loss_after']:.4f} ({100 * t3['resume_jump']:.2f}%, limit "
+        f"{100 * T3_RESUME_RTOL:.0f}%); retries {t3['retries']}, rollbacks "
+        f"{t3['rollbacks']}; checkpoint of step {t3['ckpt_step']}: restore "
+        f"{t3['restore_s']:.3f} s, save {t3['save_s']:.3f} s")
+    pr = t3["profile"]
+    log(f"profile one T3 step: wall {pr['wall_ms']:.1f} ms (under the profiler),"
+        f" kernels {pr['device_busy_ms']:.1f} ms "
+        f"({100 * pr['device_busy_ms'] / pr['wall_ms']:.1f}%) in "
+        f"{pr['launches']} launches; by class "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in pr["classes_ms"].items()))
 
     detail["card"] = card
     detail["device"] = torch.cuda.get_device_name(0)

@@ -5,16 +5,27 @@
   (``GLOBAL_WINDOW`` means global attention), for mixed local/global
   stacks (gemma2/gemma3)
 * attention-logit softcapping (gemma2)
-* prefill (full sequence) and single-token decode against a KV cache
+* training (full sequence, differentiable), prefill (full sequence) and
+  single-token decode against a KV cache
 
 Counterpart of ``repro.models.lm.attention``, with its shapes: hidden
-(B, S, D); q/k/v (B, S, H, hd); caches (B, S_max, KV, hd).  Prefill sends
-q/k/v through ``kernels.ops.attention`` (the flash kernel on the card, its
-plain version on the CPU), the drop-in that the reference names for its
-hot path; with it, memory is O(S) at any length, so the reference's
-q-chunked jnp branch has no counterpart.  Decode (one query against the
-cache) stays plain PyTorch, as the reference computes it with ``attend``.
-Cross-attention (whisper) waits for its slice.  The reference's sharding
+(B, S, D); q/k/v (B, S, H, hd); caches (B, S_max, KV, hd).  Two routes
+for a full sequence, chosen by the caller and never by a ``try``:
+
+* ``forward_train`` is the reference's ``forward`` as it trains: K/V
+  expanded to H heads and the plain ``attend`` under the full mask, or,
+  from ``CHUNK_THRESHOLD`` tokens, over query chunks of ``Q_CHUNK`` (a
+  Python loop with the values of the reference's ``lax.scan``).  The flash
+  kernel has no backward, in the reference as here, so training never
+  reaches it.
+* ``forward`` (prefill) sends q/k/v through ``kernels.ops.attention``
+  (the flash kernel on the card, its plain version on the CPU), the
+  drop-in that the reference names for its hot path; with it, memory is
+  O(S) at any length.
+
+Decode (one query against the cache) stays plain PyTorch, as the
+reference computes it with ``attend``.  Cross-attention (whisper) waits
+for its slice.  The reference's sharding
 hooks (``_pad_heads``, ``_constrain_attn``) are no-ops without a mesh and
 are left out on one card.
 """
@@ -89,6 +100,45 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(B, S, D) x (D, heads, hd) -> (B, S, heads, hd)."""
     return torch.einsum("bsd,dhk->bshk", x, w)
+
+
+#: sequences at least this long use q-chunked attention (bounded memory)
+CHUNK_THRESHOLD = 8192
+Q_CHUNK = 1024
+
+
+def forward_train(p: AttnParams, x: torch.Tensor, positions: torch.Tensor, *,
+                  causal: bool = True, window: Optional[int] = None,
+                  softcap: Optional[float] = None, use_rope: bool = True
+                  ) -> torch.Tensor:
+    """Full-sequence self-attention for training: (B, S, D) -> (B, S, D),
+    through the plain ``attend`` (differentiable).  From
+    ``CHUNK_THRESHOLD`` tokens the queries go in chunks of ``Q_CHUNK``, so
+    logits never exceed (B, H, Q_CHUNK, S)."""
+    S = x.shape[1]
+    H, hd = p.wq.shape[1], p.wq.shape[2]
+    q = _project(x, p.wq)
+    k = _project(x, p.wk)
+    v = _project(x, p.wv)
+    if use_rope:
+        cos, sin = rope.rope_angles(positions, hd)
+        q = rope.apply_rope(q, cos, sin)
+        k = rope.apply_rope(k, cos, sin)
+    k = _expand_kv(k, H)
+    v = _expand_kv(v, H)
+    scale = 1.0 / math.sqrt(hd)
+    if S < CHUNK_THRESHOLD:
+        bias = _mask_bias(positions, positions, causal, window)[None, None]
+        out = attend(q, k, v, bias, softcap, scale)
+    else:
+        outs = []
+        for i0 in range(0, S, Q_CHUNK):
+            bias = _mask_bias(positions[i0:i0 + Q_CHUNK], positions, causal,
+                              window)[None, None]
+            outs.append(attend(q[:, i0:i0 + Q_CHUNK], k, v, bias, softcap,
+                               scale))
+        out = torch.cat(outs, dim=1)
+    return torch.einsum("bqhd,hdk->bqk", out, p.wo)
 
 
 def forward(p: AttnParams, x: torch.Tensor, positions: torch.Tensor, *,

@@ -1,14 +1,22 @@
-"""Dense attention-only transformer stacks for serving.
+"""Dense attention-only transformer stacks for training and serving.
 
 Counterpart of ``repro.models.lm.transformer`` for ``attn`` segments.
 Parameters keep the reference's tree: ``embed`` (V, D), ``final_norm``,
 and ``segments``, one entry per config segment whose leaves carry a
 leading layer axis (L, ...), as ``jax.vmap(init_block)`` makes them.
 Where the reference runs ``lax.scan`` over that axis, the port runs a
-Python loop over views of each layer's slice.  Two serving modes:
+Python loop over views of each layer's slice.  Three modes:
 
-* ``prefill`` — full sequence; returns the last position's logits and the
-  per-segment KV caches stacked (L, B, S_max, KV, hd).
+* ``forward_train`` — full sequence through the differentiable plain
+  attention (``attention.forward_train``), each layer wrapped in
+  ``torch.utils.checkpoint`` when ``cfg.remat`` (the counterpart of
+  ``jax.checkpoint``); returns the final hidden states for the loss head.
+  The layers are views of the stacked leaves (``torch.unbind``), so
+  autograd gathers the layers' gradients into one (L, ...) gradient per
+  leaf.
+* ``prefill`` — full sequence through the flash kernel; returns the last
+  position's logits and the per-segment KV caches stacked
+  (L, B, S_max, KV, hd).
 * ``decode``  — one token against those caches, updated in place.
 
 Other segment kinds (ssm, rec, hybrid3, xattn), MoE FFNs, encoders, image
@@ -21,12 +29,15 @@ embedding is not scaled by sqrt(D).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ...configs.base import LMConfig, Segment
+from ...tree import tree_leaves, tree_map, tree_unflatten
 from . import attention, mlp
 
 _LATER = "see ROADMAP.md §1, 'Other LM families'"
@@ -44,24 +55,6 @@ def _check_supported(cfg: LMConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: image prefixes and non-rope positions are not "
             f"ported yet; {_LATER}")
-
-
-def tree_map(fn, tree):
-    """Apply ``fn`` to every tensor of a tree of dicts, lists, tuples and
-    NamedTuples, keeping the structure."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(tree_map(fn, v) for v in tree))
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
-
-
-def tree_leaves(tree) -> list:
-    out = []
-    tree_map(out.append, tree)
-    return out
 
 
 # ---------------------------------------------------------------------------
@@ -114,9 +107,8 @@ def init_segment(cfg: LMConfig, seg: Segment, generator: torch.Generator,
     """``seg.n`` blocks stacked leaf by leaf on a leading layer axis."""
     blocks = [init_block(cfg, seg.kind, generator, device) for _ in range(seg.n)]
     leaves = [tree_leaves(b) for b in blocks]
-    stacked = iter([torch.stack([lv[i] for lv in leaves])
-                    for i in range(len(leaves[0]))])
-    return tree_map(lambda _: next(stacked), blocks[0])
+    return tree_unflatten(blocks[0], [torch.stack([lv[i] for lv in leaves])
+                                      for i in range(len(leaves[0]))])
 
 
 def init_params(cfg: LMConfig, generator: torch.Generator,
@@ -161,15 +153,16 @@ def logits_head(cfg: LMConfig, params, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# full-sequence block application (prefill)
+# full-sequence block application (train / prefill)
 # ---------------------------------------------------------------------------
 
 def _attn_block_fwd(cfg, p, x, positions, window, causal=True,
-                    want_cache=False, s_max=0):
+                    want_cache=False, s_max=0, attn_fwd=attention.forward):
+    """One attention block.  ``attn_fwd`` is ``attention.forward`` (the
+    flash kernel, serving) or ``attention.forward_train`` (training)."""
     h = norm_apply(cfg, p["norm1"], x)
-    a = attention.forward(p["attn"], h, positions, causal=causal,
-                          window=window, softcap=cfg.attn_softcap,
-                          use_rope=(cfg.pos_embed == "rope"))
+    a = attn_fwd(p["attn"], h, positions, causal=causal, window=window,
+                 softcap=cfg.attn_softcap, use_rope=(cfg.pos_embed == "rope"))
     cache = None
     if want_cache:
         # K/V of this layer come from the same normed input the attention
@@ -185,6 +178,47 @@ def _attn_block_fwd(cfg, p, x, positions, window, causal=True,
 def layer(seg_params, i: int):
     """Views of layer ``i`` of a segment's stacked parameters."""
     return tree_map(lambda t: t[i], seg_params)
+
+
+def layers(seg_params) -> list:
+    """Views of every layer of a segment's stacked parameters, by one
+    ``unbind`` per leaf: its backward stacks the layers' gradients once,
+    where L separate ``t[i]`` would each add a full (L, ...) buffer."""
+    per_leaf = [t.unbind(0) for t in tree_leaves(seg_params)]
+    return [tree_unflatten(seg_params, views) for views in zip(*per_leaf)]
+
+
+def _maybe_remat(cfg: LMConfig, fn):
+    if not cfg.remat:
+        return fn
+    return functools.partial(checkpoint, fn, use_reentrant=False)
+
+
+def run_segment_train(cfg: LMConfig, seg: Segment, seg_params, x, positions,
+                      causal=True):
+    """The segment's layers over x (B, S, D), differentiably."""
+    if seg.kind != "attn":
+        raise NotImplementedError(f"block kind '{seg.kind}' is not ported yet; "
+                                  f"{_LATER}")
+
+    def body(h, p_l, w):
+        return _attn_block_fwd(cfg, p_l, h, positions, w, causal=causal,
+                               attn_fwd=attention.forward_train)[0]
+
+    body = _maybe_remat(cfg, body)
+    for p_l, w in zip(layers(seg_params), seg.windows(), strict=True):
+        x = body(x, p_l, w)
+    return x
+
+
+def forward_train(cfg: LMConfig, params, tokens: torch.Tensor) -> torch.Tensor:
+    """Returns the final hidden states (B, S, D) of tokens (B, S)."""
+    _check_supported(cfg)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x = embed_tokens(cfg, params, tokens)
+    for seg, seg_params in zip(cfg.segments, params["segments"]):
+        x = run_segment_train(cfg, seg, seg_params, x, positions)
+    return norm_apply(cfg, params["final_norm"], x)
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,9 @@ are arrays (numpy, or anything ``numpy.asarray`` takes).  The port keeps
 the same structure and layouts (HWIO conv weights, (in, out) dense
 weights, LM layers stacked on a leading (L, ...) axis), so the conversion
 is leaf by leaf, with no transposes.  Each NamedTuple of the reference
-(``AttnParams``, ``GatedMLP``, ``PlainMLP``, ``KVCache``) becomes the
-port's NamedTuple of the same name and fields, found by name: nothing of
+(``AttnParams``, ``GatedMLP``, ``PlainMLP``, ``KVCache``, and the
+optimizer states ``AdamWState`` and ``EFState``) becomes the port's
+NamedTuple of the same name and fields, found by name: nothing of
 the reference is imported.  bfloat16 leaves are carried bit for bit.
 """
 
@@ -17,8 +18,11 @@ import torch
 
 from .models.lm.attention import AttnParams, KVCache
 from .models.lm.mlp import GatedMLP, PlainMLP
+from .optim.adamw import AdamWState
+from .optim.compression import EFState
 
-_NAMED = {cls.__name__: cls for cls in (AttnParams, KVCache, GatedMLP, PlainMLP)}
+_NAMED = {cls.__name__: cls for cls in (AttnParams, KVCache, GatedMLP, PlainMLP,
+                                         AdamWState, EFState)}
 
 
 def _tensor(x, device) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """The card-free phases of ``chip_smoke.py`` rehearsed on the CPU: the
-LM card-against-CPU gate and the YOLOv8n phase with the CPU on both
-sides, and the placement phase (schedule and simulate the ResNet-18
+LM card-against-CPU gate, the YOLOv8n phase and the training phases
+T1-T3 (smoke widths, T3 at a few steps) with the CPU on both sides, and
+the placement phase (schedule and simulate the ResNet-18
 graph the main path executes and the YOLOv8n graph; elastic sessions;
 the serving control plane; the stage partitioner) against the
 reference."""
@@ -201,3 +202,153 @@ def test_yolo_bound_at_full_size():
     assert b["bound_by"] == "operations"
     assert b["bound_ms"] == pytest.approx(16 * 8.742912e9 / 67e12 * 1e3)
     assert 2.0 < b["bound_ms"] < 2.2
+
+
+# ---------------------------------------------------------------------------
+# Phases 10-12 (T1-T3): LM training
+# ---------------------------------------------------------------------------
+
+import dataclasses  # noqa: E402
+import importlib.util  # noqa: E402
+
+from repro_torch.configs import GLOBAL_WINDOW, Segment, ShapeSpec  # noqa: E402
+from repro_torch.models.lm import model  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.tree import tree_map  # noqa: E402
+
+CPU = torch.device("cpu")
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread for the training rehearsals: their many small
+    ops, with one thread per core in each of several test workers, slow
+    the workers down many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _two_layers():
+    """The T1 cut at smoke width: one local and one global layer."""
+    return dataclasses.replace(get_config("gemma3-1b").smoke(), segments=(
+        Segment("attn", 2, window_pattern=(64, GLOBAL_WINDOW)),))
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_train_t1_rehearsed_on_cpu():
+    rec = chip_smoke.train_card_vs_cpu(_two_layers(), CPU, 96)
+    assert rec["loss_rel"] == 0.0 and rec["grad_norm_rel"] == 0.0
+    assert rec["worst_grad_rel"] == 0.0 and len(rec["leaves"]) == 11
+    assert all(r["param_max_d"] == 0.0 for r in rec["leaves"].values())
+    assert rec["lr"] == pytest.approx(3e-4)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_train_t1_fails_on_a_wrong_card(monkeypatch):
+    """The gate is live: gradients 10% off on the "card" side (the second
+    call) fail it."""
+    real = model.loss_and_grads
+    calls = []
+
+    def skewed(cfg, params, batch):
+        loss, grads = real(cfg, params, batch)
+        calls.append(1)
+        if len(calls) == 2:
+            grads = tree_map(lambda g: g * 1.1, grads)
+        return loss, grads
+
+    monkeypatch.setattr(model, "loss_and_grads", skewed)
+    with pytest.raises(AssertionError, match="beyond the limits"):
+        chip_smoke.train_card_vs_cpu(_two_layers(), CPU, 32)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_train_t2_rehearsed_on_cpu(monkeypatch):
+    """T2's loop at smoke width: 4 slices a step, finite falling losses
+    (lr 3e-3: at smoke width a bf16 parameter's ulp exceeds the default
+    3e-4 step), and a closure that runs one more step."""
+    real = model.loss_fn
+    slices = []
+    monkeypatch.setattr(model, "loss_fn",
+                        lambda *a: slices.append(1) or real(*a))
+    cfg = get_config("gemma3-1b").smoke()
+    rec, step = chip_smoke.train_steps(
+        cfg, CPU, ShapeSpec("t2", 512, 8, "train"), 2, 4,
+        adamw.AdamWConfig(lr=3e-3, warmup_steps=1), lambda: None)
+    assert len(slices) == 4 * 4 and len(rec["step_s"]) == 4
+    assert rec["losses"][-1] < rec["losses"][0]
+    assert step() > 0 and len(slices) == 5 * 4
+
+
+def test_train_t2_bound():
+    """6 N tokens for gemma3-1b at batch 8 x 4096: 1.98e14 FLOP, 0.20 s at
+    the bf16 peak."""
+    n = transformer.param_count(get_config("gemma3-1b"))
+    assert 1.0e9 < n < 1.02e9
+    flop = 6 * n * chip_smoke.T2_BATCH * chip_smoke.T2_SEQ
+    assert flop == pytest.approx(1.98e14, rel=5e-3)
+    assert flop / chip_smoke.BF16_FLOPS_PER_S == pytest.approx(0.20, rel=1e-2)
+    assert chip_smoke.T2_BATCH // chip_smoke.T2_MICROBATCH == 4
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_train_t3_rehearsed_on_cpu(tmp_path):
+    cfg = get_config("gemma3-1b").smoke()
+    rec = chip_smoke.train_example(
+        cfg, CPU, 24, 2, 64, 4,
+        adamw.AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=24),
+        tmp_path, lambda: None)
+    assert rec["resumed_from"] == 12 and rec["steps"] == 24
+    assert rec["last10"] < rec["first10"]
+    assert rec["retries"] == [0, 0, 0] and rec["rollbacks"] == [0, 0, 0]
+    assert rec["ckpt_step"] == 24 and rec["restore_s"] > 0 and rec["save_s"] > 0
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_train_t3_fails_on_a_retried_step(tmp_path, monkeypatch):
+    """A step that raised once and passed on retry still fails T3: the
+    loop's retry must not hide a failing device step."""
+    real = model.make_train_step
+    failed = []
+
+    def flaky(*a, **k):
+        step = real(*a, **k)
+
+        def once(*args):
+            if not failed:
+                failed.append(1)
+                raise RuntimeError("injected")
+            return step(*args)
+        return once
+
+    monkeypatch.setattr(model, "make_train_step", flaky)
+    with pytest.raises(AssertionError, match="1 retries"):
+        chip_smoke.train_example(
+            get_config("gemma3-1b").smoke(), CPU, 6, 2, 32, 2,
+            adamw.AdamWConfig(lr=3e-3, warmup_steps=1, total_steps=6),
+            tmp_path, lambda: None)
+
+
+def test_train_t3_config_is_the_examples():
+    """T3's copy of ``examples/train_lm.py``'s geometry equals the
+    example's own config field by field."""
+    spec = importlib.util.spec_from_file_location(
+        "train_lm_example", ROOT / "examples" / "train_lm.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    want = dataclasses.asdict(example.make_100m_config())
+    got = dataclasses.asdict(chip_smoke.stablelm_100m())
+    assert got == want
+
+
+def test_kernel_classes_sum_every_row():
+    rows = [{"name": "nvjet_tst_192x192", "ms": 2.0},
+            {"name": "void at::native::cunn_SoftMaxForwardReg<float>", "ms": 1.0},
+            {"name": "void at::native::direct_copy_kernel_cuda", "ms": 0.5},
+            {"name": "void at::native::reduce_kernel<512, 1>", "ms": 0.25},
+            {"name": "void at::native::AUnaryFunctor<float>", "ms": 0.125}]
+    assert chip_smoke.kernel_classes(rows) == {
+        "gemm": 2.0, "softmax": 1.0, "copy/cast": 0.5, "reduce": 0.25,
+        "elementwise": 0.125}

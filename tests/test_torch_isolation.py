@@ -47,7 +47,9 @@ def test_port_files_found():
             "simulator.py", "_sim_reference.py", "metrics.py", "base.py",
             "lblp.py", "wb.py", "rr.py", "rd.py", "heft.py", "lblp_x.py",
             "optimal.py", "lblp_mt.py", "lblp_r.py", "elastic.py",
-            "serving.py", "pipeline_partition.py", "yolo.py"} <= names
+            "serving.py", "pipeline_partition.py", "yolo.py", "tree.py",
+            "adamw.py", "compression.py", "pipeline.py", "ckpt.py",
+            "train_loop.py", "straggler.py", "model.py"} <= names
 
 
 CORE_FILES = sorted((ROOT / "src" / "repro_torch" / "core").rglob("*.py"))
@@ -75,12 +77,18 @@ def test_core_exports_the_reference_core():
 
 def test_entry_points_default_to_cuda():
     from repro_torch import weights
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.data.pipeline import DataIterator, make_batch
     from repro_torch.models.cnn import layers, resnet
-    from repro_torch.models.lm import attention, mlp, transformer
+    from repro_torch.models.lm import attention, mlp, model, transformer
+    from repro_torch.runtime.straggler import DeadlineDataIterator
+    from repro_torch.runtime.train_loop import train
     for fn in (resnet.init, weights.from_jax_params, layers.conv_init,
                layers.dense_init, transformer.init_params, transformer.init_segment,
                transformer.init_block, attention.init, attention.init_cache,
-               mlp.init_gated, mlp.init_plain, mlp.normal):
+               mlp.init_gated, mlp.init_plain, mlp.normal, train, make_batch,
+               DataIterator, model.synth_batch, DeadlineDataIterator,
+               ckpt.restore, ckpt.restore_latest):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
 
 
