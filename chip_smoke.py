@@ -9,8 +9,9 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
    ``src/repro_torch/csrc`` with nvcc (one process per source, in
    parallel) and print the build time and ptxas resource lines, and the
    registers and spill bytes of each flash tensor-core instance and of
-   each INT8 instance (the serving path's flash instance and the ResNet
-   path's INT8 instances must not spill);
+   each INT8 instance (the serving path's flash instance, the 4-step and
+   16-step flash instances of the other families and the ResNet path's
+   INT8 instances must not spill);
 2. hold the INT8 kernels' C dispatch rules against their Python mirrors,
    then each kernel against its plain PyTorch version on the card with
    ``torch.equal``: every ResNet-18-CIFAR conv shape at batch 256, the fc
@@ -58,7 +59,10 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
 6. the flash-attention kernel against its plain version: gemma3-1b's
    prefill shapes (B=4, H=4, MQA, S=2048, hd=288) in bf16 and f32, with
    the 512 window and global, and ragged shapes (S = 1000, 300, 100, 1;
-   hd 16/64/100/128/288/320; softcap; non-causal; GQA); each check logs
+   hd 16/64/100/128/288/320; softcap; non-causal; GQA), then the other
+   families' prefill shapes in bf16 (hd 64 GQA 24/8; hd 64 non-causal
+   at S = 1,500; hd 256 MQA with a 2,048 window at S = 4,096; hd 256 MQA
+   at S = 512; a ragged hd 200 on the 16-step instance); each check logs
    the instance that ran it (bf16 within the register plan on the tensor
    cores, f32 and wider bf16 on the CUDA cores), and the Python mirror of
    the dispatch rule is held against the C entry's;
@@ -97,6 +101,36 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
    then an interrupted pair (150 steps, then 300), which must resume from
    150 with its next loss within 10%; 0 retries and 0 rollbacks in every
    run; then one step of that model under ``torch.profiler``.
+
+13. the other LM families at full width and cut depth, card against the
+   CPU with phase 7's gate (5% of max |logit|, tokens compared where the
+   CPU's top-2 margin exceeds twice the step's max |d|): granite-moe (2
+   layers, 640 tokens; also how many (token, layer) top-k expert sets
+   differ between the two), falcon-mamba (2 layers, 256 tokens),
+   recurrentgemma (one hybrid3 super-block and one rec layer, 640
+   tokens), whisper-small (2 + 2 layers, 1,500 frames, 64 tokens) and
+   paligemma (2 layers, 256 prefix + 128 tokens), each prefill and 8
+   greedy decode steps;
+14. this slice's main path: granite-moe-3b-a800m at full width and depth
+   (32 layers, random bf16 weights from seed 0) serving 8 requests of
+   1024-2048 tokens, 32 new each, through ``Server``: 32 flash launches
+   a prefill, all on the tensor-core instance; prefill and decode rates,
+   time to first token, step latency, peak memory; one prefill and one
+   decode step under ``torch.profiler`` by kernel class (GEMMs, flash,
+   the MoE dispatch's gather/scatter/sort/scan glue); the flash kernel's
+   time per prefill against its bound, its plain version and SDPA;
+15. the other families at full width: falcon-mamba-7b (64 layers) and
+   recurrentgemma-9b (38 layers; 4 requests of 2,048-3,072 tokens, so
+   its 2,048 window masks) through ``Server`` with 0 and 12 flash
+   launches a prefill; whisper-small (4 x 1,500 frames, 64 tokens, 12
+   non-causal and 12 causal launches), paligemma-3b (4 x (256 + 256),
+   18 launches) and qwen3-moe-235b-a22b cut to 1 layer (~470 GB in bf16
+   at full depth) through the step functions, 32 decode steps (4 for
+   qwen3), finite logits;
+16. one training step at full width, 2 layers, 1 x 256 tokens, card
+   against CPU with T1's limits, for granite-moe (the backward through
+   the dispatch's gathers) and falcon-mamba (through the scan); no
+   kernel may launch.
 
 Detail goes to ``chiprun_out/chip_smoke.json``.  The line before the last
 is ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
@@ -750,13 +784,6 @@ SERVE_MAX_BATCH = 4
 PATH_B, PATH_S = 4, 2048
 
 
-def with_layers(cfg, n):
-    """``cfg`` with its one segment cut to ``n`` layers (widths kept)."""
-    import dataclasses
-    seg = dataclasses.replace(cfg.segments[0], n=n)
-    return dataclasses.replace(cfg, segments=(seg,))
-
-
 def flash_inputs(gen, dev, B, H, KV, S, hd, dtype, path_layout, scale=1.0):
     """Random q (B,H,S,hd) and k/v (B,KV,S,hd).  With ``path_layout`` they
     are transposed views of (B,S,heads,hd) tensors, as attention.forward
@@ -814,6 +841,17 @@ def flash_check(q, k, v, causal, window, softcap, label):
     return err
 
 
+#: B, H, KV, S, hd, causal, window, path layout: the other LM families'
+#: prefill shapes (granite-moe and qwen3-moe, whisper's non-causal encoder,
+#: recurrentgemma's 2,048 window, paligemma's prefix + text) and a ragged
+#: case on the 16-step instance
+FAMILY_FLASH_SHAPES = [(4, 24, 8, 2048, 64, True, None, True),
+                       (4, 12, 12, 1500, 64, False, None, True),
+                       (2, 16, 1, 4096, 256, True, 2048, True),
+                       (4, 8, 1, 512, 256, True, None, True),
+                       (1, 3, 1, 1000, 200, True, None, False)]
+
+
 def flash_checks(dev, hd_path, local_window):
     """Phase 6: the flash kernel against its plain version at the serving
     path's shapes (both dtypes, window and global) and at ragged ones."""
@@ -861,29 +899,145 @@ def flash_checks(dev, hd_path, local_window):
         label = (f"({B},{H},{KV},{S},{hd}) {str(dtype)[6:]} causal={causal} "
                  f"window={window} softcap={softcap}")
         err = max(err, flash_check(*qkv, causal, window, softcap, label))
+    for B, H, KV, S, hd, causal, window, path_layout in FAMILY_FLASH_SHAPES:
+        qkv = flash_inputs(gen, dev, B, H, KV, S, hd, torch.bfloat16,
+                           path_layout=path_layout)
+        label = (f"({B},{H},{KV},{S},{hd}) bfloat16 causal={causal} "
+                 f"window={window} ({fa.tc_steps(hd)}-step instance)")
+        err = max(err, flash_check(*qkv, causal, window, None, label))
     return err
 
 
-def lm_card_vs_cpu(cfg, dev, prompt_len, steps):
-    """Phase 7: ``cfg`` (full width, cut depth) with bf16 weights from a CPU
-    generator seeded 0, copied to ``dev``; prefill and ``steps`` decode
-    steps on both, the CPU's greedy tokens fed to both.  The greedy tokens
+class RouteMatch:
+    """``moe.route`` for a card-against-CPU comparison of an MoE arch.
+
+    An MoE route is a discontinuous function of the router logits: where
+    the k-th and (k+1)-th experts' logits lie closer than the card's and
+    the CPU's bf16 differences in the router input, the two sides may pick
+    different experts, and that token's output moves by a whole expert's
+    share (granite-moe at full width: 89 of 1,280 (token, layer) sets, and
+    the last position's logits 13.7% apart, in this PR's first card run).
+    So the comparison splits in two: the card's call takes the experts of
+    the CPU's matching call (same order: ``side("cpu")`` and
+    ``side("card")`` say which side runs), with gates from the card's own
+    router logits at those experts, and the logit and gradient gates then
+    hold every other difference to their limits; and each (token, layer)
+    set that the card's own top-k would choose differently must be a near
+    tie, the CPU's margin between its k-th and (k+1)-th logit within twice
+    the call's max |router logit difference|, else it fails."""
+
+    def __init__(self, real_route, top_k_fn):
+        self.real, self.top_k = real_route, top_k_fn
+        self.cpu_calls = []
+        self.current = "cpu"
+        self.differ = self.total = 0
+        self.worst_margin_ratio = 0.0
+
+    def side(self, name):
+        self.current = name
+
+    def __call__(self, p, x, top_k):
+        import torch
+        if self.current == "cpu":
+            gates, experts = self.real(p, x, top_k)
+            logits = (x.to(torch.float32) @ p.w_router).detach()
+            self.cpu_calls.append((logits, experts))
+            return gates, experts
+        cpu_logits, cpu_experts = self.cpu_calls.pop(0)
+        logits = x.to(torch.float32) @ p.w_router
+        own = self.top_k(logits.detach(), top_k)[1].cpu()
+        a = own.reshape(-1, top_k).sort(dim=-1).values
+        b = cpu_experts.reshape(-1, top_k).sort(dim=-1).values
+        rows = (a != b).any(dim=-1)
+        self.total += rows.numel()
+        if rows.any():
+            flat = cpu_logits.reshape(-1, cpu_logits.shape[-1])
+            d = (logits.detach().cpu().reshape(flat.shape) - flat).abs().max().item()
+            srt = flat.sort(dim=-1, descending=True).values
+            margin = (srt[rows, top_k - 1] - srt[rows, top_k]).max().item()
+            self.differ += int(rows.sum())
+            self.worst_margin_ratio = max(
+                self.worst_margin_ratio, margin / d if d > 0 else float("inf"))
+            if margin > 2 * d:
+                raise AssertionError(f"moe route: the card picks other experts "
+                                     f"where the CPU's k-th margin {margin:.4f} "
+                                     f"exceeds twice the router logits' max "
+                                     f"|d| {d:.4f}: not a near tie")
+        forced = cpu_experts.to(x.device)
+        gates = torch.softmax(torch.gather(logits, -1, forced), dim=-1)
+        return gates, forced
+
+    def record(self, name):
+        log(f"{name}: {self.differ} of {self.total} (token, layer) expert sets "
+            f"of the card's own top-k differ from the CPU's, each a near tie "
+            f"(worst margin / max |d| {self.worst_margin_ratio:.3f}, limit 2); "
+            f"the card followed the CPU's routes")
+        return {"route_sets_differing": self.differ, "route_sets": self.total,
+                "worst_margin_ratio": self.worst_margin_ratio}
+
+
+def follow_cpu_routes(cfg):
+    """(side callback, RouteMatch or None, restore): for an MoE arch,
+    ``moe.route`` becomes a ``RouteMatch`` until ``restore()``."""
+    from repro_torch.models.lm import moe
+    if not cfg.n_experts:
+        return (lambda name: None), None, (lambda: None)
+    real = moe.route
+    match = RouteMatch(real, moe._top_k)
+    moe.route = match
+
+    def restore():
+        moe.route = real
+    return match.side, match, restore
+
+
+def lm_card_vs_cpu(cfg, dev, prompt_len, steps, extra=None):
+    """Phase 7 (and 13): ``cfg`` (full width, cut depth) with bf16 weights
+    from a CPU generator seeded 0, copied to ``dev``; prefill and ``steps``
+    decode steps on both, the CPU's greedy tokens fed to both.  ``extra``
+    holds CPU tensors of the arch's other inputs (``enc_frames``,
+    ``prefix``), copied to ``dev`` likewise.  The greedy tokens
     must agree at every step whose top-2 margin on the CPU exceeds twice
     that step's measured max |d| (there no error of that size can swap
-    them), and at least one step must be so compared.  Returns the worst
-    max |d| / max |logit| and the number of tokens compared."""
+    them), and at least one step must be so compared.  An MoE arch's card
+    follows the CPU's routes (``RouteMatch``).  Returns the worst max |d| /
+    max |logit| and the number of tokens compared (for MoE also the
+    route counts)."""
     import torch
     from repro_torch.models.lm import transformer
+    extra = extra or {}
     params_cpu = transformer.init_params(cfg, torch.Generator().manual_seed(0),
                                          device="cpu")
     params_dev = transformer.tree_map(lambda t: t.to(dev), params_cpu)
+    extra_dev = {k: v.to(dev) for k, v in extra.items()}
     toks = torch.randint(0, cfg.vocab, (1, prompt_len),
                          generator=torch.Generator().manual_seed(1))
-    s_max = prompt_len + steps
+    n_prefix = extra["prefix"].shape[1] if "prefix" in extra else 0
+    s_max = prompt_len + n_prefix + steps
+    side, match, restore = follow_cpu_routes(cfg)
+    try:
+        out = _card_vs_cpu_steps(cfg, params_cpu, params_dev, toks, s_max,
+                                 steps, extra, extra_dev, dev, side)
+    finally:
+        restore()
+        if match is not None:       # printed before any failure propagates
+            out_routes = match.record(f"lm card vs cpu {cfg.name}")
+    if match is not None:
+        out.update(out_routes)
+    return out
+
+
+def _card_vs_cpu_steps(cfg, params_cpu, params_dev, toks, s_max, steps, extra,
+                       extra_dev, dev, side):
+    import torch
+    from repro_torch.models.lm import transformer
     t = time.perf_counter()
-    log_cpu, cache_cpu = transformer.prefill(cfg, params_cpu, toks, s_max)
+    side("cpu")
+    log_cpu, cache_cpu = transformer.prefill(cfg, params_cpu, toks, s_max, **extra)
     cpu_s = time.perf_counter() - t
-    log_dev, cache_dev = transformer.prefill(cfg, params_dev, toks.to(dev), s_max)
+    side("card")
+    log_dev, cache_dev = transformer.prefill(cfg, params_dev, toks.to(dev), s_max,
+                                             **extra_dev)
     worst, compared = 0.0, 0
     for step in range(steps + 1):
         a, b = log_cpu[:, -1].float(), log_dev[:, -1].float().cpu()
@@ -910,7 +1064,9 @@ def lm_card_vs_cpu(cfg, dev, prompt_len, steps):
         if step == steps:
             break
         tok = a.argmax(-1, keepdim=True)
+        side("cpu")
         log_cpu, cache_cpu = transformer.decode(cfg, params_cpu, tok, cache_cpu)
+        side("card")
         log_dev, cache_dev = transformer.decode(cfg, params_dev, tok.to(dev),
                                                 cache_dev)
     if compared == 0:
@@ -968,28 +1124,30 @@ def lm_serve(cfg, dev, n_requests, lens, max_new, max_batch, sync):
     return server, reqs, rec
 
 
-def flash_timings(dev, cfg):
-    """Phase 9: per prefill of (PATH_B, PATH_S), the kernel, its plain
-    version and SDPA (the yardstick; the port never calls it) at each
-    layer's window, summed over the layers; the bound from this run's
-    shapes and masks."""
+def flash_timings(dev, cfg, B=None, S=None):
+    """Phase 9 (and 14-15): per prefill of (B, S) (default (PATH_B,
+    PATH_S)), the kernel, its plain version and SDPA (the yardstick; the
+    port never calls it) at each attention layer's window (those of the
+    config's first segment), summed over the layers; the bound from this
+    run's shapes and masks."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
+    B, S = B or PATH_B, S or PATH_S
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     gen = torch.Generator(device=dev).manual_seed(11)
-    q, k, v = flash_inputs(gen, dev, PATH_B, H, KV, PATH_S, hd, torch.bfloat16,
+    q, k, v = flash_inputs(gen, dev, B, H, KV, S, hd, torch.bfloat16,
                            path_layout=True)
     qc = q.contiguous()
     kx = k.repeat_interleave(H // KV, dim=1).contiguous()
     vx = v.repeat_interleave(H // KV, dim=1).contiguous()
-    idx = torch.arange(PATH_S, device=dev)
+    idx = torch.arange(S, device=dev)
     d = idx[:, None] - idx[None, :]
     windows = cfg.segments[0].windows()
     rows = {}
     for w in sorted(set(windows)):
-        window = None if w >= PATH_S else w
+        window = None if w >= S else w
         ms = cuda_time_ms(lambda: flash_attention(q, k, v, causal=True,
                                                   window=window), 10)
         plain_ms = cuda_time_ms(lambda: ref.flash_attention_ref(
@@ -1001,7 +1159,7 @@ def flash_timings(dev, cfg):
                 qc, kx, vx, attn_mask=band, is_causal=band is None)
 
         library_ms = cuda_time_ms(sdpa, 10)
-        pairs = PATH_B * H * int(((d >= 0) & (d < (window or PATH_S + 1))).sum())
+        pairs = B * H * int(((d >= 0) & (d < (window or S + 1))).sum())
         n_bytes = 2 * (q.numel() + k.numel() + v.numel()) + 4 * q.numel()
         n_ops = 4 * hd * pairs
         t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -1022,7 +1180,8 @@ def flash_timings(dev, cfg):
                        "ops_ms")}
     tot["bound_by"] = "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations"
     tot["per_window"] = list(rows.values())
-    log(f"per prefill ({PATH_B}, {PATH_S}), {len(windows)} layers: flash kernel "
+    log(f"per {cfg.name} prefill ({B}, {S}), {len(windows)} "
+        f"attention layers (hd {hd}, {H}/{KV} heads): flash kernel "
         f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, sdpa "
         f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms "
         f"({tot['bound_by']})")
@@ -1034,13 +1193,24 @@ KERNEL_CLASSES = (("gemm", ("nvjet", "gemm", "cutlass", "xmma")),
                   ("reduce", ("reduce_kernel",)))
 
 
-def kernel_classes(rows):
-    """Device ms summed by the class of kernel name (``KERNEL_CLASSES``;
-    the rest is "elementwise")."""
-    out = {name: 0.0 for name, _ in KERNEL_CLASSES}
+#: the serving profile's classes: the flash kernel, and the MoE dispatch's
+#: glue (advanced indexing, gather/scatter, the one-hot, sorts and scans)
+SERVE_CLASSES = (("gemm", ("nvjet", "gemm", "cutlass", "xmma")),
+                 ("flash", ("flash_",)),
+                 ("gather/scatter/sort/scan", ("index", "gather", "scatter",
+                                               "Sort", "sort", "scan", "Scan",
+                                               "cub::")),
+                 ("softmax", ("SoftMax",)), ("copy/cast", ("copy",)),
+                 ("reduce", ("reduce_kernel",)))
+
+
+def kernel_classes(rows, classes=KERNEL_CLASSES):
+    """Device ms summed by the class of kernel name (``classes``; the rest
+    is "elementwise")."""
+    out = {name: 0.0 for name, _ in classes}
     out["elementwise"] = 0.0
     for row in rows:
-        cls = next((name for name, keys in KERNEL_CLASSES
+        cls = next((name for name, keys in classes
                     if any(k in row["name"] for k in keys)), "elementwise")
         out[cls] += row["ms"]
     return out
@@ -1103,7 +1273,7 @@ def stablelm_100m():
         segments=(Segment("attn", 12),), microbatch=8)
 
 
-def train_card_vs_cpu(cfg, dev, seq):
+def train_card_vs_cpu(cfg, dev, seq, side=lambda name: None):
     """Phase T1: one batch of 1 x ``seq`` tokens through ``loss_and_grads``
     and one ``adamw.apply`` (warmup 1: lr 3e-4 at step 1), bf16 weights
     from a CPU generator seeded 0 copied to ``dev``, on both.  Compares the
@@ -1133,8 +1303,10 @@ def train_card_vs_cpu(cfg, dev, seq):
         return float(loss), grads, new, metrics
 
     t = time.perf_counter()
+    side("cpu")
     cpu = step(params_cpu, batch)
     cpu_s = time.perf_counter() - t
+    side("card")
     card = step(params_dev, {k: v.to(dev) for k, v in batch.items()})
     lr = float(cpu[3]["lr"])
     rec = {"loss_cpu": cpu[0], "loss_card": card[0], "cpu_s": cpu_s, "lr": lr,
@@ -1305,6 +1477,352 @@ def train_example(cfg, dev, steps, batch, seq, ckpt_every, opt, root, sync):
             "rollbacks": [r.rollbacks for r in (full, first, second)]}
 
 
+# ---------------------------------------------------------------------------
+# The other LM families (phases 13-16)
+# ---------------------------------------------------------------------------
+
+FAMILY_DECODE_STEPS = 8
+#: phase 13, card against CPU at full width: arch, layers per segment,
+#: encoder layers, prompt tokens, encoder frames
+FAMILY_CARD_VS_CPU = (("granite-moe-3b-a800m", (2,), None, 640, 0),
+                      ("falcon-mamba-7b", (2,), None, 256, 0),
+                      ("recurrentgemma-9b", (1, 1), None, 640, 0),
+                      ("whisper-small", (2,), (2,), 64, 1500),
+                      ("paligemma-3b", (2,), None, 128, 0))
+MAIN_ARCH = "granite-moe-3b-a800m"
+#: phase 15 through ``Server``: arch, requests, prompt lengths, new tokens,
+#: flash launches a prefill
+FAMILY_SERVE = (("falcon-mamba-7b", 4, (1024, 2048), 16, 0),
+                ("recurrentgemma-9b", 4, (2048, 3072), 16, 12))
+#: phase 15 through the step functions: arch, batch, prompt tokens, decode
+#: steps, encoder frames, layers (None: all), flash launches a prefill
+FAMILY_STEPS = (("whisper-small", 4, 64, 32, 1500, None, 24),
+                ("paligemma-3b", 4, 256, 32, 0, None, 18),
+                ("qwen3-moe-235b-a22b", 4, 2048, 4, 0, 1, 1))
+T16_ARCHS = ("granite-moe-3b-a800m", "falcon-mamba-7b")
+
+
+def cut(cfg, *ns, enc=None):
+    """``cfg`` with segment i cut to ``ns[i]`` layers and its encoder
+    segments to ``enc`` (widths kept)."""
+    import dataclasses
+    segs = tuple(dataclasses.replace(s, n=n) for s, n in zip(cfg.segments, ns))
+    out = dataclasses.replace(cfg, segments=segs)
+    if enc is not None:
+        out = dataclasses.replace(out, enc_segments=tuple(
+            dataclasses.replace(s, n=n) for s, n in zip(cfg.enc_segments, enc)))
+    return out
+
+
+def family_inputs(cfg, batch, frames, gen):
+    """The arch's stub inputs besides tokens, random bf16 drawn from
+    ``gen`` on its device: encoder frames (batch, frames, D) or an image
+    prefix (batch, P, prefix_dim)."""
+    import torch
+    out = {}
+    if cfg.is_encdec():
+        out["enc_frames"] = torch.randn((batch, frames, cfg.enc_frame_dim),
+                                        generator=gen, device=gen.device)
+    if cfg.num_prefix_tokens:
+        out["prefix"] = torch.randn((batch, cfg.num_prefix_tokens,
+                                     cfg.prefix_dim), generator=gen,
+                                    device=gen.device)
+    return {k: v.to(torch.bfloat16) for k, v in out.items()}
+
+
+def zero_counts():
+    """Every kernel wrapper's launch counts set to 0."""
+    from repro_torch.kernels.conv2d import imc_conv2d
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.imc_mvm import imc_mvm
+    for fn in (imc_conv2d, imc_mvm):
+        fn.launches = 0
+        fn.launches_by_instance = dict.fromkeys(fn.launches_by_instance, 0)
+    flash_attention.launches = 0
+    flash_attention.instance_launches = dict.fromkeys(
+        flash_attention.instance_launches, 0)
+
+
+def read_counts():
+    from repro_torch.kernels.conv2d import imc_conv2d
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.imc_mvm import imc_mvm
+    return {"flash": flash_attention.launches,
+            "flash_instances": dict(flash_attention.instance_launches),
+            "conv": imc_conv2d.launches, "mvm": imc_mvm.launches}
+
+
+def check_flash_counts(counts, per_prefill, prefills, label):
+    """The path's launches: ``per_prefill`` flash launches a prefill, all on
+    the tensor-core instance, and no INT8 kernel."""
+    from repro_torch.kernels import flash_attention as fa
+    if prefills == 0 or counts["flash"] != per_prefill * prefills:
+        raise AssertionError(f"{label}: {counts['flash']} flash launches for "
+                             f"{prefills} prefills, want {per_prefill} each")
+    if counts["flash_instances"][fa.TENSOR_CORE] != counts["flash"]:
+        raise AssertionError(f"{label}: flash launches by instance "
+                             f"{counts['flash_instances']}, not all on the "
+                             f"tensor cores")
+    if counts["conv"] or counts["mvm"]:
+        raise AssertionError(f"{label}: the LM path launched an INT8 kernel")
+
+
+def serve_counted(cfg, dev, n_requests, lens, max_new, max_batch,
+                  flash_per_prefill, sync):
+    """``cfg`` through ``Server`` (``lm_serve``): the launch counts set to 0
+    just before the requests and read just after, the device's peak memory
+    over them, each request's tokens checked; returns (server, record)."""
+    import torch
+    server, reqs, rec = lm_serve(cfg, dev, n_requests, lens, max_new,
+                                 max_batch, sync)
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    stats = server.serve(reqs)
+    sync()
+    counts = read_counts()
+    check_flash_counts(counts, flash_per_prefill, stats.prefills, cfg.name)
+    for r in reqs:
+        if len(r.out_tokens) != max_new or not all(
+                0 <= t < cfg.vocab for t in r.out_tokens):
+            raise AssertionError(f"serve {cfg.name}: request {r.rid} got "
+                                 f"{r.out_tokens}")
+    pre_s = sum(t for t, _ in rec["prefill"])
+    pre_tok = sum(n for _, n in rec["prefill"])
+    dec = [t for t, _ in rec["decode"]]
+    dec_tok = sum(n for _, n in rec["decode"])
+    out = {
+        "requests": len(reqs), "prompt_lens": [int(r.prompt.numel()) for r in reqs],
+        "prefills": stats.prefills, "decode_steps": stats.decode_steps,
+        "flash_launches": counts["flash"],
+        "flash_instances": counts["flash_instances"],
+        "wall_s": stats.wall_seconds, "peak_bytes": torch.cuda.max_memory_allocated(dev),
+        "prefill_tokens": pre_tok, "prefill_tok_per_s": pre_tok / pre_s,
+        "ttft_ms": [t * 1e3 for t, _ in rec["prefill"]],
+        "decode_tok_per_s": dec_tok / sum(dec),
+        "decode_step_ms_mean": sum(dec) / len(dec) * 1e3,
+        "decode_step_ms_max": max(dec) * 1e3}
+    log(f"{cfg.name} serve ({cfg.n_layers} layers): {out['requests']} requests "
+        f"(prompts {out['prompt_lens']}), {stats.prefills} prefills, "
+        f"{stats.decode_steps} decode steps, flash launches {counts['flash']} "
+        f"({flash_per_prefill} per prefill; by instance "
+        f"{counts['flash_instances']}), wall {stats.wall_seconds:.3f} s, peak "
+        f"memory {out['peak_bytes'] / 2**30:.2f} GiB")
+    log(f"  prefill {out['prefill_tok_per_s']:.1f} tok/s (padded tokens), time "
+        f"to first token {', '.join(f'{t:.1f}' for t in out['ttft_ms'])} ms; "
+        f"decode {out['decode_tok_per_s']:.1f} tok/s, step "
+        f"{out['decode_step_ms_mean']:.3f} ms mean, "
+        f"{out['decode_step_ms_max']:.3f} ms max")
+    return server, out
+
+
+def profile_serving(cfg, params, dev, B, S, top=6):
+    """One prefill of (B, S) random tokens and one decode step against its
+    cache under ``torch.profiler``: wall, device busy time, device time by
+    ``SERVE_CLASSES``, top rows."""
+    import torch
+    from repro_torch.models.lm import transformer
+    toks = torch.randint(0, cfg.vocab, (B, S), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(2))
+
+    def prefill_once():
+        return transformer.prefill(cfg, params, toks, S + 1)
+
+    cache = prefill_once()[1]
+
+    def decode_once():      # writes position S of the cache each time
+        return transformer.decode(cfg, params, toks[:, :1], cache)
+
+    out = {}
+    for name, fn in (("prefill", prefill_once), ("decode", decode_once)):
+        fn()
+        torch.cuda.synchronize()
+        wall, busy, rows = profile_kernels(fn, top=None)
+        classes = kernel_classes(rows, SERVE_CLASSES)
+        out[name] = {"wall_ms": wall, "device_busy_ms": busy,
+                     "launches": sum(r["calls"] for r in rows),
+                     "classes_ms": classes, "top": rows[:top]}
+        log(f"profile one {cfg.name} {name} ({B}, {S}): wall {wall:.3f} ms "
+            f"(under the profiler), kernels {busy:.3f} ms "
+            f"({100 * busy / wall:.1f}% busy) in {out[name]['launches']} "
+            f"launches; by class "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in classes.items()))
+        for row in rows[:top]:
+            log(f"  {row['ms']:9.3f} ms  x{row['calls']:<5d} {row['name'][:70]}")
+    return out
+
+
+def families_card_vs_cpu(dev):
+    """Phase 13: each family at full width and cut depth, card against the
+    CPU (``lm_card_vs_cpu``'s gate)."""
+    import torch
+    from repro_torch import configs
+    out = {}
+    for arch, ns, enc, prompt, frames in FAMILY_CARD_VS_CPU:
+        cfg = cut(configs.get_config(arch), *ns, enc=enc)
+        extra = family_inputs(cfg, 1, frames, torch.Generator().manual_seed(2))
+        t = time.perf_counter()
+        rec = lm_card_vs_cpu(cfg, dev, prompt, FAMILY_DECODE_STEPS, extra)
+        rec["wall_s"] = time.perf_counter() - t
+        out[arch] = rec
+        log(f"{arch} {cfg.n_layers} layers, full width"
+            f"{f', {frames} frames' if frames else ''}"
+            f"{f', {cfg.num_prefix_tokens} prefix' if cfg.num_prefix_tokens else ''}"
+            f", {prompt} tokens: card vs cpu within {rec['worst_rel']:.3e} of "
+            f"max |logit| (limit {LM_LOGIT_TOL}), {rec['tokens_compared']} "
+            f"tokens compared; cpu prefill {rec['cpu_prefill_s']:.1f} s, phase "
+            f"{rec['wall_s']:.1f} s")
+        torch.cuda.empty_cache()
+    return out
+
+
+def step_path(cfg, dev, batch, prompt, steps, frames, flash_per_prefill, sync):
+    """Phase 15 for the archs served through the step functions
+    (``make_prefill_step``/``make_decode_step``, as the reference allows for
+    encoder frames and image prefixes): weights on ``dev`` from a CUDA
+    generator seeded 0, one warm-up prefill, then, with the counts set to
+    0, one prefill and ``steps`` greedy decode steps, timed on the host
+    clock ending in ``sync``.  Flash launches are split by ``causal`` with
+    a counting wrapper around ``ops.attention``."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import model, transformer
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = transformer.init_params(cfg, gen, device=dev)
+    batch_in = {"tokens": torch.randint(0, cfg.vocab, (batch, prompt),
+                                        generator=gen, device=dev),
+                **family_inputs(cfg, batch, frames, gen)}
+    s_max = prompt + cfg.num_prefix_tokens + steps
+    prefill = model.make_prefill_step(cfg, s_max)
+    decode = model.make_decode_step(cfg)
+    prefill(params, batch_in)               # warm-up
+    sync()
+    torch.cuda.reset_peak_memory_stats(dev)
+    by_causal, real = {True: 0, False: 0}, ops.attention
+
+    def counting(q, k, v, **kw):
+        by_causal[kw.get("causal", True)] += 1
+        return real(q, k, v, **kw)
+
+    ops.attention = counting
+    try:
+        zero_counts()
+        t = time.perf_counter()
+        logits, cache = prefill(params, batch_in)
+        sync()
+        ttft = time.perf_counter() - t
+        counts = read_counts()
+        secs = []
+        for _ in range(steps):
+            if not torch.isfinite(logits).all():
+                raise AssertionError(f"{cfg.name}: non-finite logits")
+            tok = torch.argmax(logits[:, -1:], dim=-1)
+            t = time.perf_counter()
+            logits, cache = decode(params, tok, cache)
+            sync()
+            secs.append(time.perf_counter() - t)
+    finally:
+        ops.attention = real
+    if not torch.isfinite(logits).all() or logits.shape != (batch, 1, cfg.vocab):
+        raise AssertionError(f"{cfg.name}: bad logits {tuple(logits.shape)}")
+    check_flash_counts(counts, flash_per_prefill, 1, cfg.name)
+    if cache.cur_pos != prompt + cfg.num_prefix_tokens + steps:
+        raise AssertionError(f"{cfg.name}: cache at {cache.cur_pos}")
+    out = {"batch": batch, "prompt": prompt, "frames": frames,
+           "prefix": cfg.num_prefix_tokens, "layers": cfg.n_layers,
+           "flash_launches": counts["flash"],
+           "flash_by_causal": {str(k): v for k, v in by_causal.items()},
+           "ttft_ms": ttft * 1e3, "decode_steps": steps,
+           "decode_step_ms_mean": sum(secs) / max(len(secs), 1) * 1e3,
+           "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+    log(f"{cfg.name} ({cfg.n_layers} layers"
+        f"{f' + {sum(s.n for s in cfg.enc_segments)} encoder' if cfg.enc_segments else ''}"
+        f") batch {batch}: {frames or cfg.num_prefix_tokens or 0} "
+        f"{'frames' if frames else 'prefix'} + {prompt} tokens; prefill "
+        f"{out['ttft_ms']:.1f} ms, flash launches {counts['flash']} "
+        f"(causal {by_causal[True]}, non-causal {by_causal[False]}); "
+        f"{steps} decode steps, {out['decode_step_ms_mean']:.3f} ms mean; "
+        f"peak memory {out['peak_bytes'] / 2**30:.2f} GiB; logits finite")
+    return params, out
+
+
+def families_train(dev):
+    """Phase 16: one training step at full width, 2 layers, 1 x T1_SEQ
+    tokens, card against CPU (``train_card_vs_cpu``), for the MoE
+    dispatch's backward and the scan's; no kernel may launch."""
+    import torch
+    from repro_torch import configs
+    out = {}
+    for arch in T16_ARCHS:
+        cfg = cut(configs.get_config(arch), 2)
+        zero_counts()
+        side, match, restore = follow_cpu_routes(cfg)
+        try:
+            rec = train_card_vs_cpu(cfg, dev, T1_SEQ, side)
+        finally:
+            restore()
+            if match is not None:
+                routes = match.record(f"train {arch} (forward and remat "
+                                      f"recompute)")
+        counts = read_counts()
+        if counts["flash"] or counts["conv"] or counts["mvm"]:
+            raise AssertionError(f"train {arch}: the training path launched a "
+                                 f"kernel: {counts}")
+        if match is not None:
+            rec.update(routes)
+        out[arch] = rec
+        log(f"train {arch} 2 layers: card vs cpu within {rec['loss_rel']:.2e} "
+            f"(loss), {rec['grad_norm_rel']:.2e} (grad norm), "
+            f"{rec['worst_grad_rel']:.2e} (worst leaf gradient); no kernel "
+            f"launched")
+        torch.cuda.empty_cache()
+    return out
+
+
+def other_families(dev, detail, sync):
+    """Phases 13-16.  Returns the main path's flash launches and its flash
+    timings for the ``kernels`` line."""
+    import torch
+    from repro_torch.configs import get_config
+    detail["families_card_vs_cpu"] = families_card_vs_cpu(dev)
+
+    # ---- 14. the main path: granite-moe-3b-a800m through Server ------------
+    granite = get_config(MAIN_ARCH)
+    server, detail["granite_serve"] = serve_counted(
+        granite, dev, SERVE_REQUESTS, SERVE_LENS, SERVE_MAX_NEW,
+        SERVE_MAX_BATCH, granite.n_layers, sync)
+    main_launches = detail["granite_serve"]["flash_launches"]
+    detail["granite_profile"] = profile_serving(granite, server.params, dev,
+                                                PATH_B, PATH_S)
+    detail["granite_flash"] = flash_timings(dev, granite)
+    del server
+    torch.cuda.empty_cache()
+
+    # ---- 15. the other families at full width ------------------------------
+    for arch, n, lens, max_new, per_prefill in FAMILY_SERVE:
+        cfg = get_config(arch)
+        server, rec = serve_counted(cfg, dev, n, lens, max_new, SERVE_MAX_BATCH,
+                                    per_prefill, sync)
+        detail[f"serve_{arch}"] = rec
+        detail[f"profile_{arch}"] = profile_serving(cfg, server.params, dev,
+                                                    PATH_B, lens[1])
+        if per_prefill:
+            detail[f"flash_{arch}"] = flash_timings(dev, cfg, PATH_B, lens[1])
+        del server
+        torch.cuda.empty_cache()
+    for arch, batch, prompt, steps, frames, layers, per_prefill in FAMILY_STEPS:
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = cut(cfg, layers)
+        params, detail[f"steps_{arch}"] = step_path(
+            cfg, dev, batch, prompt, steps, frames, per_prefill, sync)
+        del params
+        torch.cuda.empty_cache()
+
+    # ---- 16. training, card against CPU ------------------------------------
+    detail["families_train"] = families_train(dev)
+    return main_launches, detail["granite_flash"]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1357,6 +1875,17 @@ def main() -> int:
             or path_inst[0].get("spill_loads") != 0:
         raise AssertionError(f"ptxas: the serving path's flash instance "
                              f"{path_tag} spills or is missing: {path_inst}")
+    # the other families' path instances, cp.async-staged like the one
+    # above: hd 64 (4 steps) and hd 256 (16 steps)
+    for steps in (4, 16):
+        tag = f"ILi{steps}ELb1E"
+        inst = [r for fn, r in tc_ptxas.items() if tag in fn]
+        if len(inst) != 1 or inst[0].get("spill_stores") != 0 \
+                or inst[0].get("spill_loads") != 0:
+            raise AssertionError(f"ptxas: the other families' flash instance "
+                                 f"{tag} spills or is missing: {inst}")
+    log("ptxas: the 4-step and 16-step cp.async flash instances (the other "
+        "families' paths) do not spill")
     g18 = graphs.resnet18_graph()
     path_convs = conv_shapes(g18, BATCH)
     path_instances = {f"imc_conv2d/{conv2d.conv_instance(c[3], c[4], True)}"
@@ -1459,12 +1988,6 @@ def main() -> int:
     detail["partition"] = stage_partition()
 
     # ---- 4. main path ------------------------------------------------------
-    def reset_counts():
-        imc_conv2d.launches = 0
-        imc_mvm.launches = 0
-        for fn in (imc_conv2d, imc_mvm):
-            fn.launches_by_instance = dict.fromkeys(fn.launches_by_instance, 0)
-
     def serve(cfg, g, n_requests, label):
         params = resnet.init(torch.Generator().manual_seed(0), cfg, device=dev)
         data = torch.Generator(device=dev).manual_seed(1)
@@ -1474,7 +1997,7 @@ def main() -> int:
                          device=dev)
         executor.execute(g, params, x_cal, mode="int8", act_scales=scales)
         torch.cuda.synchronize()
-        reset_counts()
+        zero_counts()
         outs, lat = [], []
         t_all = time.perf_counter()
         for r in range(n_requests):
@@ -1519,7 +2042,7 @@ def main() -> int:
             raise AssertionError(f"{label}: logits disagree with the plain path")
         return params, scales, xs, lat, total, counts
 
-    reset_counts()
+    zero_counts()
     log(f"resnet18_cifar: executing the graph LBLP placed ({len(g18)} nodes on "
         f"{len(set(lblp.mapping.values()))} PUs of the IMCE model)")
     params, scales, xs, lat, total, counts18 = serve(
@@ -1535,7 +2058,7 @@ def main() -> int:
                      "latency_ms": [t * 1e3 for t in lat]}
     log(f"resnet18_cifar int8: {fps:.1f} frames/s, request latency mean "
         f"{sum(lat) / len(lat) * 1e3:.3f} ms, max {max(lat) * 1e3:.3f} ms")
-    reset_counts()
+    zero_counts()
     serve(resnet.RESNET8, graphs.resnet8_graph(), 1, "resnet8")
 
     # device busy share over one request
@@ -1675,7 +2198,7 @@ def main() -> int:
     flash_err = flash_checks(dev, gemma.hd, local_window)
 
     # ---- 7. full width, cut depth: card against the CPU plain path ---------
-    period = with_layers(gemma, len(gemma.segments[0].window_pattern))
+    period = cut(gemma, len(gemma.segments[0].window_pattern))
     detail["lm_card_vs_cpu"] = lm_card_vs_cpu(period, dev, LM_PROMPT,
                                               LM_DECODE_STEPS)
     log(f"gemma3-1b {period.n_layers} layers, full width: card vs cpu within "
@@ -1685,86 +2208,22 @@ def main() -> int:
         f"{detail['lm_card_vs_cpu']['cpu_prefill_s']:.1f} s")
 
     # ---- 8. the LM main path: 26-layer gemma3-1b through Server ------------
-    server, reqs, rec = lm_serve(gemma, dev, SERVE_REQUESTS, SERVE_LENS,
-                                 SERVE_MAX_NEW, SERVE_MAX_BATCH,
-                                 torch.cuda.synchronize)
-    reset_counts()
-    flash_attention.launches = 0
-    flash_attention.instance_launches = dict.fromkeys(
-        flash_attention.instance_launches, 0)
-    stats = server.serve(reqs)
-    torch.cuda.synchronize()
-    flash_launches = flash_attention.launches
-    flash_instances = dict(flash_attention.instance_launches)
-    if stats.prefills == 0 or flash_launches != gemma.n_layers * stats.prefills:
-        raise AssertionError(f"serve: {flash_launches} flash launches for "
-                             f"{stats.prefills} prefills of {gemma.n_layers} layers")
-    if flash_instances[fa.TENSOR_CORE] != flash_launches:
-        raise AssertionError(f"serve: flash launches by instance "
-                             f"{flash_instances}, not all on the tensor cores")
-    if imc_conv2d.launches or imc_mvm.launches:
-        raise AssertionError("serve: the LM path launched an INT8 kernel")
-    for r in reqs:
-        if len(r.out_tokens) != SERVE_MAX_NEW or not all(
-                0 <= t < gemma.vocab for t in r.out_tokens):
-            raise AssertionError(f"serve: request {r.rid} got {r.out_tokens}")
-    pre_s = sum(t for t, _ in rec["prefill"])
-    pre_tok = sum(n for _, n in rec["prefill"])
-    dec = [t for t, _ in rec["decode"]]
-    dec_tok = sum(n for _, n in rec["decode"])
-    detail["serve"] = {
-        "requests": len(reqs), "prompt_lens": [int(r.prompt.numel()) for r in reqs],
-        "prefills": stats.prefills, "decode_steps": stats.decode_steps,
-        "flash_launches": flash_launches, "flash_instances": flash_instances,
-        "wall_s": stats.wall_seconds,
-        "prefill_tokens": pre_tok, "prefill_tok_per_s": pre_tok / pre_s,
-        "ttft_ms": [t * 1e3 for t, _ in rec["prefill"]],
-        "decode_tok_per_s": dec_tok / sum(dec),
-        "decode_step_ms_mean": sum(dec) / len(dec) * 1e3,
-        "decode_step_ms_max": max(dec) * 1e3}
-    sv = detail["serve"]
-    log(f"gemma3-1b serve: {sv['requests']} requests, {stats.prefills} prefills,"
-        f" {stats.decode_steps} decode steps, flash launches {flash_launches} "
-        f"({gemma.n_layers} per prefill; by instance {flash_instances}), wall "
-        f"{stats.wall_seconds:.3f} s")
-    log(f"  prefill {sv['prefill_tok_per_s']:.1f} tok/s (padded tokens), time "
-        f"to first token {', '.join(f'{t:.1f}' for t in sv['ttft_ms'])} ms; "
-        f"decode {sv['decode_tok_per_s']:.1f} tok/s, step "
-        f"{sv['decode_step_ms_mean']:.3f} ms mean, "
-        f"{sv['decode_step_ms_max']:.3f} ms max")
+    server, detail["serve"] = serve_counted(
+        gemma, dev, SERVE_REQUESTS, SERVE_LENS, SERVE_MAX_NEW, SERVE_MAX_BATCH,
+        gemma.n_layers, torch.cuda.synchronize)
 
     # ---- 9. flash timings and the LM profile -------------------------------
-    flash_tot = flash_timings(dev, gemma)
-    detail["flash_attention"] = flash_tot
-    toks = torch.randint(0, gemma.vocab, (PATH_B, PATH_S), device=dev,
-                         generator=torch.Generator(device=dev).manual_seed(2))
-    params = server.params
-
-    def prefill_once():
-        return transformer.prefill(gemma, params, toks, PATH_S + 1)
-
-    cache = prefill_once()[1]
-
-    def decode_once():      # writes position PATH_S of the cache each time
-        return transformer.decode(gemma, params, toks[:, :1], cache)
-
-    for name, fn in (("prefill", prefill_once), ("decode", decode_once)):
-        fn()
-        torch.cuda.synchronize()
-        wall, busy, top = profile_kernels(fn)
-        detail[f"profile_{name}"] = {"wall_ms": wall, "device_busy_ms": busy,
-                                     "top": top}
-        log(f"profile one {name} ({PATH_B}, {PATH_S}): wall {wall:.3f} ms (under"
-            f" the profiler), kernels {busy:.3f} ms ({100 * busy / wall:.1f}%)")
-        for row in top[:6]:
-            log(f"  {row['ms']:9.3f} ms  x{row['calls']:<4d} {row['name'][:70]}")
+    detail["flash_attention"] = flash_timings(dev, gemma)
+    prof = profile_serving(gemma, server.params, dev, PATH_B, PATH_S)
+    detail["profile_prefill"], detail["profile_decode"] = prof["prefill"], \
+        prof["decode"]
 
     # ---- 10-12. LM training (T1-T3): no kernel on this path ---------------
     import dataclasses
     import tempfile
     from repro_torch.configs import GLOBAL_WINDOW, SHAPES, Segment, ShapeSpec
     from repro_torch.optim import adamw
-    del server, params, cache, toks
+    del server
     torch.cuda.empty_cache()
     two = dataclasses.replace(gemma, segments=(
         Segment("attn", 2, window_pattern=(local_window, GLOBAL_WINDOW)),))
@@ -1775,8 +2234,7 @@ def main() -> int:
 
     t2_shape = ShapeSpec("train_4k_cut", SHAPES["train_4k"].seq_len, T2_BATCH,
                          "train")
-    reset_counts()
-    flash_attention.launches = 0
+    zero_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     t2, t2_step = train_steps(gemma, dev, t2_shape, T2_MICROBATCH, T2_STEPS,
                               adamw.AdamWConfig(warmup_steps=1),
@@ -1815,8 +2273,7 @@ def main() -> int:
     del t2_step
     torch.cuda.empty_cache()
 
-    reset_counts()
-    flash_attention.launches = 0
+    zero_counts()
     with tempfile.TemporaryDirectory() as tmp:
         # the example's schedule: lr 3e-4, 30 warmup steps, cosine to the end
         t3 = train_example(stablelm_100m(), dev, T3_STEPS, T3_BATCH, T3_SEQ,
@@ -1854,6 +2311,11 @@ def main() -> int:
         f"{pr['launches']} launches; by class "
         + ", ".join(f"{k} {v:.1f} ms" for k, v in pr["classes_ms"].items()))
 
+    # ---- 13-16. the other LM families --------------------------------------
+    del t3
+    torch.cuda.empty_cache()
+    main_launches, main_flash = other_families(dev, detail, torch.cuda.synchronize)
+
     detail["card"] = card
     detail["device"] = torch.cuda.get_device_name(0)
     OUT_DIR.mkdir(exist_ok=True)
@@ -1877,10 +2339,10 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:29",
-         "launches": flash_launches, "max_abs_err": flash_err,
-         "ms": flash_tot["ms"], "plain_ms": flash_tot["plain_ms"],
-         "bound_ms": flash_tot["bound_ms"], "bound_by": flash_tot["bound_by"],
-         "library_ms": flash_tot["library_ms"]},
+         "launches": main_launches, "max_abs_err": flash_err,
+         "ms": main_flash["ms"], "plain_ms": main_flash["plain_ms"],
+         "bound_ms": main_flash["bound_ms"], "bound_by": main_flash["bound_by"],
+         "library_ms": main_flash["library_ms"]},
     ]
     log(card)
     print(json.dumps({"kernels": kernels}))

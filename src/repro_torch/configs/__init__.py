@@ -1,33 +1,28 @@
-"""Arch config registry of the port (counterpart of ``repro.configs``).
-
-It holds the dense, attention-only architectures that the port's LM
-modules run.  The other families of the reference's registry (MoE, SSM,
-recurrent, enc-dec, VLM) wait for their slice: asking for one raises
-``KeyError`` naming the ``ROADMAP.md`` item that ports it.
-"""
+"""Arch config registry of the port (counterpart of ``repro.configs``):
+one module per assigned architecture, the same ten as the reference's."""
 
 from __future__ import annotations
 
 from importlib import import_module
 
-from .base import GLOBAL_WINDOW, SHAPES, LMConfig, Segment, ShapeSpec
+from .base import GLOBAL_WINDOW, SHAPES, LMConfig, Segment, ShapeSpec, \
+    shape_supported
 
 _ARCH_MODULES = {
+    "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+    "falcon-mamba-7b": "falcon_mamba_7b",
     "stablelm-1.6b": "stablelm_1_6b",
     "gemma3-1b": "gemma3_1b",
     "gemma2-27b": "gemma2_27b",
     "starcoder2-3b": "starcoder2_3b",
+    "whisper-small": "whisper_small",
+    "paligemma-3b": "paligemma_3b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
 }
-
-#: archs of the reference that the port does not run yet
-_NOT_PORTED = ("granite-moe-3b-a800m", "qwen3-moe-235b-a22b", "falcon-mamba-7b",
-               "whisper-small", "paligemma-3b", "recurrentgemma-9b")
 
 
 def get_config(arch: str) -> LMConfig:
-    if arch in _NOT_PORTED:
-        raise KeyError(f"arch '{arch}' is not ported yet: see ROADMAP.md §1, "
-                       "'Other LM families'")
     if arch not in _ARCH_MODULES:
         raise KeyError(f"unknown arch '{arch}'; have {sorted(_ARCH_MODULES)}")
     mod = import_module(f"{__name__}.{_ARCH_MODULES[arch]}")
@@ -39,4 +34,4 @@ def all_archs() -> list:
 
 
 __all__ = ["LMConfig", "Segment", "ShapeSpec", "SHAPES", "GLOBAL_WINDOW",
-           "get_config", "all_archs"]
+           "shape_supported", "get_config", "all_archs"]

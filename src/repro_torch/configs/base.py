@@ -153,3 +153,11 @@ SHAPES: Dict[str, ShapeSpec] = {
     "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
 }
 
+
+
+def shape_supported(cfg: LMConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """(supported, reason-if-not) — the documented skip rules."""
+    if shape.name == "long_500k" and not cfg.supports_long:
+        return False, ("pure full-attention arch: 500k decode KV is "
+                       "quadratic-history; skipped per assignment")
+    return True, ""

@@ -14,7 +14,8 @@ A light Zipf-ish token distribution plus a copy-structure (spans repeated
 within a sequence) make the synthetic stream learnable.  The tokens are
 made by the reference's numpy code, copied as it is, so a batch is
 bit-equal to the reference's; it lands as int32 tensors on ``device``.
-The image-prefix and encoder-decoder branches wait for their archs.
+Encoder-decoder archs also get stub frame embeddings, and VLMs a stub
+image prefix, from the reference's numpy draws rounded to bf16.
 """
 
 from __future__ import annotations
@@ -27,8 +28,6 @@ import numpy as np
 import torch
 
 from ..configs.base import LMConfig, ShapeSpec
-
-_LATER = "see ROADMAP.md §1, 'Other LM families'"
 
 
 @dataclass
@@ -63,13 +62,29 @@ def make_batch(cfg: LMConfig, shape: ShapeSpec, step: int,
     """Batch for this host at ``step`` (host's slice of the global batch);
     ``labels`` is the same tensor as ``tokens``."""
     dcfg = dcfg or DataConfig()
-    if cfg.is_encdec() or cfg.num_prefix_tokens:
-        raise NotImplementedError(f"{cfg.name}: encoder frames and image "
-                                  f"prefixes are not ported yet; {_LATER}")
     B = shape.global_batch // dcfg.num_hosts
-    toks = torch.from_numpy(_token_batch(cfg, B, shape.seq_len, step, dcfg))
-    toks = toks.to(device)
-    return {"tokens": toks, "labels": toks}
+    S = shape.seq_len
+
+    def tokens(seq):
+        toks = torch.from_numpy(_token_batch(cfg, B, seq, step, dcfg)).to(device)
+        return {"tokens": toks, "labels": toks}
+
+    def bf16(a):
+        return torch.from_numpy(a).to(torch.bfloat16).to(device)
+
+    if cfg.is_encdec():
+        dec = max(S // cfg.dec_len_ratio, 8)
+        rng = np.random.default_rng(dcfg.seed + step)
+        frames = rng.standard_normal((B, S, cfg.enc_frame_dim),
+                                     dtype=np.float32)
+        return {"enc_frames": bf16(frames), **tokens(dec)}
+    if cfg.num_prefix_tokens:
+        text = S - cfg.num_prefix_tokens
+        rng = np.random.default_rng(dcfg.seed + step)
+        prefix = rng.standard_normal(
+            (B, cfg.num_prefix_tokens, cfg.prefix_dim), dtype=np.float32)
+        return {"prefix": bf16(prefix), **tokens(text)}
+    return tokens(S)
 
 
 class DataIterator:

@@ -1,10 +1,11 @@
-"""Grouped-query self-attention with the variants the dense archs need:
+"""Grouped-query attention with the variants the assigned archs need:
 
 * GQA / MQA / MHA (``n_kv_heads`` divides ``n_heads``)
 * causal masking; sliding-window (local) masking with a per-layer window
   (``GLOBAL_WINDOW`` means global attention), for mixed local/global
   stacks (gemma2/gemma3)
 * attention-logit softcapping (gemma2)
+* cross-attention (whisper decoder)
 * training (full sequence, differentiable), prefill (full sequence) and
   single-token decode against a KV cache
 
@@ -24,8 +25,10 @@ for a full sequence, chosen by the caller and never by a ``try``:
   O(S) at any length.
 
 Decode (one query against the cache) stays plain PyTorch, as the
-reference computes it with ``attend``.  Cross-attention (whisper) waits
-for its slice.  The reference's sharding
+reference computes it with ``attend``.  So does cross-attention
+(``kv_from``, and ``cross_decode``): the reference sends it through the
+plain ``attend`` with no rope and no mask, never to the flash kernel,
+whose queries and keys share one length.  The reference's sharding
 hooks (``_pad_heads``, ``_constrain_attn``) are no-ops without a mesh and
 are left out on one card.
 """
@@ -107,14 +110,29 @@ CHUNK_THRESHOLD = 8192
 Q_CHUNK = 1024
 
 
+def _cross(p: AttnParams, x: torch.Tensor, kv_from: torch.Tensor,
+           softcap: Optional[float]) -> torch.Tensor:
+    """Cross-attention of x (B, S, D) over ``kv_from`` (B, S_enc, D): no
+    rope, no mask, the plain ``attend``."""
+    H, hd = p.wq.shape[1], p.wq.shape[2]
+    q = _project(x, p.wq)
+    k = _expand_kv(_project(kv_from, p.wk), H)
+    v = _expand_kv(_project(kv_from, p.wv), H)
+    out = attend(q, k, v, None, softcap, 1.0 / math.sqrt(hd))
+    return torch.einsum("bqhd,hdk->bqk", out, p.wo)
+
+
 def forward_train(p: AttnParams, x: torch.Tensor, positions: torch.Tensor, *,
                   causal: bool = True, window: Optional[int] = None,
-                  softcap: Optional[float] = None, use_rope: bool = True
-                  ) -> torch.Tensor:
-    """Full-sequence self-attention for training: (B, S, D) -> (B, S, D),
+                  softcap: Optional[float] = None, use_rope: bool = True,
+                  kv_from: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence attention for training: (B, S, D) -> (B, S, D),
     through the plain ``attend`` (differentiable).  From
     ``CHUNK_THRESHOLD`` tokens the queries go in chunks of ``Q_CHUNK``, so
-    logits never exceed (B, H, Q_CHUNK, S)."""
+    logits never exceed (B, H, Q_CHUNK, S).  ``kv_from`` (B, S_enc, D)
+    makes it cross-attention (no rope, no mask)."""
+    if kv_from is not None:
+        return _cross(p, x, kv_from, softcap)
     S = x.shape[1]
     H, hd = p.wq.shape[1], p.wq.shape[2]
     q = _project(x, p.wq)
@@ -143,14 +161,18 @@ def forward_train(p: AttnParams, x: torch.Tensor, positions: torch.Tensor, *,
 
 def forward(p: AttnParams, x: torch.Tensor, positions: torch.Tensor, *,
             causal: bool = True, window: Optional[int] = None,
-            softcap: Optional[float] = None, use_rope: bool = True
-            ) -> torch.Tensor:
-    """Full-sequence self-attention (prefill): (B, S, D) -> (B, S, D).
+            softcap: Optional[float] = None, use_rope: bool = True,
+            kv_from: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence attention (prefill): (B, S, D) -> (B, S, D).
 
-    q/k/v go to ``ops.attention`` as (B, H, S, hd) views (K/V keep their
-    KV heads: the kernel maps head groups itself); its f32 result is cast
-    to the working dtype before ``wo``, since the reference's ``attend``
-    returns v's dtype."""
+    Self-attention sends q/k/v to ``ops.attention`` as (B, H, S, hd) views
+    (K/V keep their KV heads: the kernel maps head groups itself); its f32
+    result is cast to the working dtype before ``wo``, since the
+    reference's ``attend`` returns v's dtype.  With ``kv_from`` (B, S_enc,
+    D) it is cross-attention, which the reference computes with the plain
+    ``attend`` (no rope, no mask) and so does the port."""
+    if kv_from is not None:
+        return _cross(p, x, kv_from, softcap)
     hd = p.wq.shape[2]
     q = _project(x, p.wq)
     k = _project(x, p.wk)
@@ -198,6 +220,17 @@ def prefill(p: AttnParams, x: torch.Tensor, positions: torch.Tensor,
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
     return KVCache(k, v)
+
+
+def cross_decode(p: AttnParams, x: torch.Tensor, cache: KVCache) -> torch.Tensor:
+    """Cross-attention during decode: x (B, 1, D) over the static
+    (unpadded) encoder KV cache."""
+    H, hd = p.wq.shape[1], p.wq.shape[2]
+    q = _project(x, p.wq)
+    k = _expand_kv(cache.k, H)
+    v = _expand_kv(cache.v, H)
+    out = attend(q, k, v, None, None, 1.0 / math.sqrt(hd))
+    return torch.einsum("bqhd,hdk->bqk", out, p.wo)
 
 
 def decode_step(p: AttnParams, x: torch.Tensor, cache: KVCache, cur_pos: int,

@@ -97,8 +97,13 @@ def synth_batch(cfg: LMConfig, shape: ShapeSpec, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 def loss_fn(cfg: LMConfig, params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Mean next-token cross-entropy (f32)."""
-    hidden = transformer.forward_train(cfg, params, batch["tokens"])
+    """Mean next-token cross-entropy (f32).  The image prefix's positions
+    are dropped before the head."""
+    hidden = transformer.forward_train(
+        cfg, params, batch["tokens"], enc_frames=batch.get("enc_frames"),
+        prefix=batch.get("prefix"))
+    if batch.get("prefix") is not None:
+        hidden = hidden[:, batch["prefix"].shape[1]:, :]
     logits = transformer.logits_head(cfg, params, hidden)
     # shift: predict t+1 from t
     logits = logits[:, :-1]
@@ -174,7 +179,9 @@ def make_train_step(cfg: LMConfig, tcfg: Optional[TrainStepConfig] = None,
 
 def make_prefill_step(cfg: LMConfig, s_max: int):
     def prefill_step(params, batch):
-        return transformer.prefill(cfg, params, batch["tokens"], s_max)
+        return transformer.prefill(cfg, params, batch["tokens"], s_max,
+                                   enc_frames=batch.get("enc_frames"),
+                                   prefix=batch.get("prefix"))
     return prefill_step
 
 

@@ -352,3 +352,125 @@ def test_kernel_classes_sum_every_row():
     assert chip_smoke.kernel_classes(rows) == {
         "gemm": 2.0, "softmax": 1.0, "copy/cast": 0.5, "reduce": 0.25,
         "elementwise": 0.125}
+
+
+# ---------------------------------------------------------------------------
+# Phases 13-16: the other LM families
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def smoke_configs(monkeypatch):
+    """The registry's configs at smoke width, for the phases that look
+    archs up by name."""
+    from repro_torch import configs
+    full = configs.get_config
+    monkeypatch.setattr(configs, "get_config", lambda arch: full(arch).smoke())
+
+
+@pytest.mark.usefixtures("one_torch_thread", "smoke_configs")
+def test_families_card_vs_cpu_rehearsed_on_cpu():
+    """Phase 13 at smoke width with the CPU on both sides: every family's
+    cut runs, logits and routes agree exactly, tokens are compared."""
+    out = chip_smoke.families_card_vs_cpu(CPU)
+    assert sorted(out) == sorted(a for a, *_ in chip_smoke.FAMILY_CARD_VS_CPU)
+    for arch, rec in out.items():
+        assert rec["worst_rel"] == 0.0 and rec["tokens_compared"] >= 1, arch
+    moe_rec = out["granite-moe-3b-a800m"]
+    # 2 layers x (640 prompt + 8 decode tokens), all routes equal
+    assert moe_rec["route_sets"] == 2 * (640 + chip_smoke.FAMILY_DECODE_STEPS)
+    assert moe_rec["route_sets_differing"] == 0
+
+
+def test_families_card_vs_cpu_cuts():
+    """The cuts phase 13 runs: 2 layers (granite-moe, falcon-mamba,
+    paligemma), one hybrid3 super-block and one rec layer
+    (recurrentgemma), 2 encoder + 2 decoder layers (whisper)."""
+    layers = {arch: chip_smoke.cut(get_config(arch), *ns, enc=enc)
+              for arch, ns, enc, _, _ in chip_smoke.FAMILY_CARD_VS_CPU}
+    assert layers["recurrentgemma-9b"].n_layers == 4
+    assert [s.n for s in layers["whisper-small"].enc_segments] == [2]
+    assert all(layers[a].n_layers == 2 for a in (
+        "granite-moe-3b-a800m", "falcon-mamba-7b", "paligemma-3b",
+        "whisper-small"))
+    assert layers["granite-moe-3b-a800m"].d_model == 1536
+
+
+def test_families_gate_fails_on_a_wrong_card(monkeypatch):
+    """Logits 10% off on the "card" side (the second prefill) fail phase
+    13's gate for a family with an encoder."""
+    cfg = chip_smoke.cut(get_config("whisper-small").smoke(), 2, enc=(2,))
+    extra = chip_smoke.family_inputs(cfg, 1, 30, torch.Generator().manual_seed(2))
+    real = transformer.prefill
+    calls = []
+
+    def skewed(*a, **k):
+        logits, cache = real(*a, **k)
+        calls.append(1)
+        return (logits * 1.1 if len(calls) == 2 else logits), cache
+
+    monkeypatch.setattr(transformer, "prefill", skewed)
+    with pytest.raises(AssertionError, match="card logits differ"):
+        chip_smoke.lm_card_vs_cpu(cfg, CPU, 16, 2, extra)
+
+
+def _route_call(match, side, logits):
+    """One ``route`` call of an identity router: x's rows are the logits."""
+    from repro_torch.models.lm import moe
+    match.side(side)
+    E = logits.shape[-1]
+    p = moe.MoEParams(torch.eye(E), *(torch.zeros((E, E, 2)),) * 3)
+    return match(p, logits[None], 2)
+
+
+def test_route_match_follows_the_cpu_on_near_ties():
+    """The card's call takes the CPU's experts (gates from its own logits)
+    where its own top-2 differs from the CPU's by a near tie."""
+    from repro_torch.models.lm import moe
+    match = chip_smoke.RouteMatch(moe.route, moe._top_k)
+    cpu = torch.tensor([[3.0, 2.0, 1.99, 0.0], [0.0, 1.0, 2.0, 3.0]])
+    card = cpu.clone()
+    card[0, 2] = 2.01                      # a near tie: 2 and 1.99 swap
+    _, e_cpu = _route_call(match, "cpu", cpu)
+    gates, e_card = _route_call(match, "card", card)
+    assert torch.equal(e_card, e_cpu) and match.differ == 1 and match.total == 2
+    assert torch.allclose(gates[0, 0], torch.softmax(torch.tensor([3.0, 2.0]), 0))
+
+
+def test_route_match_fails_where_it_is_no_tie():
+    """Where the card's own top-k differs from the CPU's by more than a near
+    tie (a broken top-k on the card: here, the bottom 2), the gate fails."""
+    from repro_torch.models.lm import moe
+    match = chip_smoke.RouteMatch(moe.route, lambda x, k: moe._top_k(-x, k))
+    logits = torch.tensor([[3.0, 2.0, 1.0, 0.0]])
+    _route_call(match, "cpu", logits)
+    with pytest.raises(AssertionError, match="not a near tie"):
+        _route_call(match, "card", logits)
+
+
+@pytest.mark.usefixtures("one_torch_thread", "smoke_configs")
+def test_families_train_rehearsed_on_cpu():
+    """Phase 16 at smoke width with the CPU on both sides: granite-moe's
+    dispatch backward and falcon-mamba's scan backward, equal; no kernel
+    launched."""
+    out = chip_smoke.families_train(CPU)
+    assert sorted(out) == sorted(chip_smoke.T16_ARCHS)
+    for arch, rec in out.items():
+        assert rec["loss_rel"] == 0.0 and rec["worst_grad_rel"] == 0.0, arch
+    assert out["granite-moe-3b-a800m"]["route_sets_differing"] == 0
+
+
+def test_step_path_rehearsed_on_cpu(monkeypatch):
+    """Phase 15's step-function path at smoke width on the CPU for whisper
+    (encoder frames) and paligemma (prefix): the counting wrapper sees the
+    encoder's non-causal and the decoder's causal attention calls (no
+    kernel launches on the CPU, so the launch check is stubbed)."""
+    monkeypatch.setattr(chip_smoke, "check_flash_counts", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    cfg = get_config("whisper-small").smoke()
+    _, rec = chip_smoke.step_path(cfg, CPU, 2, 8, 3, 20, 4, lambda: None)
+    assert rec["flash_by_causal"] == {"True": 2, "False": 2}
+    cfg = get_config("paligemma-3b").smoke()
+    _, rec = chip_smoke.step_path(cfg, CPU, 2, 8, 3, 0, 2, lambda: None)
+    assert rec["flash_by_causal"] == {"True": 2, "False": 0}
+    assert rec["prefix"] == cfg.num_prefix_tokens

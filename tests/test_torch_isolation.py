@@ -49,7 +49,10 @@ def test_port_files_found():
             "optimal.py", "lblp_mt.py", "lblp_r.py", "elastic.py",
             "serving.py", "pipeline_partition.py", "yolo.py", "tree.py",
             "adamw.py", "compression.py", "pipeline.py", "ckpt.py",
-            "train_loop.py", "straggler.py", "model.py"} <= names
+            "train_loop.py", "straggler.py", "model.py", "moe.py", "ssm.py",
+            "rglru.py", "scan.py", "granite_moe_3b_a800m.py",
+            "qwen3_moe_235b_a22b.py", "falcon_mamba_7b.py",
+            "recurrentgemma_9b.py", "whisper_small.py", "paligemma_3b.py"} <= names
 
 
 CORE_FILES = sorted((ROOT / "src" / "repro_torch" / "core").rglob("*.py"))
@@ -80,12 +83,14 @@ def test_entry_points_default_to_cuda():
     from repro_torch.checkpoint import ckpt
     from repro_torch.data.pipeline import DataIterator, make_batch
     from repro_torch.models.cnn import layers, resnet
-    from repro_torch.models.lm import attention, mlp, model, transformer
+    from repro_torch.models.lm import (attention, mlp, model, moe, rglru, ssm,
+                                       transformer)
     from repro_torch.runtime.straggler import DeadlineDataIterator
     from repro_torch.runtime.train_loop import train
     for fn in (resnet.init, weights.from_jax_params, layers.conv_init,
                layers.dense_init, transformer.init_params, transformer.init_segment,
                transformer.init_block, attention.init, attention.init_cache,
+               moe.init, ssm.init, ssm.init_state, rglru.init, rglru.init_state,
                mlp.init_gated, mlp.init_plain, mlp.normal, train, make_batch,
                DataIterator, model.synth_batch, DeadlineDataIterator,
                ckpt.restore, ckpt.restore_latest):

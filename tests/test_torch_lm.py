@@ -299,11 +299,22 @@ def test_quirk_prefill_cache_is_the_attention_input_kv():
 
 
 def test_unsupported_configs_raise():
+    """The other families build now (an SSM stack, an MoE FFN, with the
+    reference's tree); a block kind the reference does not know still
+    raises, as there."""
     cfg = get_config("gemma3-1b").smoke()
-    ssm = dataclasses.replace(cfg, segments=(dataclasses.replace(
-        cfg.segments[0], kind="ssm"),))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.init_params(ssm, torch.Generator(), device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.init_params(dataclasses.replace(cfg, n_experts=4, top_k=2),
-                                torch.Generator(), device="meta")
+    ssm_cfg = dataclasses.replace(get_config("falcon-mamba-7b").smoke())
+    params = transformer.init_params(ssm_cfg, torch.Generator(), device="meta")
+    assert set(params["segments"][0]) == {"norm", "ssm"}
+    moe_cfg = dataclasses.replace(cfg, n_experts=4, top_k=2)
+    params = transformer.init_params(moe_cfg, torch.Generator(), device="meta")
+    assert params["segments"][0]["ffn"].w_gate.shape == (2, 4, cfg.d_model, cfg.d_ff)
+    odd = dataclasses.replace(cfg, segments=(dataclasses.replace(
+        cfg.segments[0], kind="conv"),))
+    with pytest.raises(ValueError, match="conv"):
+        transformer.init_params(odd, torch.Generator(), device="meta")
+    jodd = dataclasses.replace(jget_config("gemma3-1b").smoke(), segments=(
+        dataclasses.replace(jget_config("gemma3-1b").smoke().segments[0],
+                            kind="conv"),))
+    with pytest.raises(ValueError, match="conv"):
+        jtransformer.init_params(jodd, jax.random.PRNGKey(0))

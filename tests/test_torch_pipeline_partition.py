@@ -16,7 +16,7 @@ pytest.importorskip("jax")
 from repro.configs import all_archs as jall_archs  # noqa: E402
 from repro.configs import get_config as jget_config  # noqa: E402
 from repro.core import pipeline_partition as jpp  # noqa: E402
-from repro_torch.configs import all_archs, base, get_config  # noqa: E402
+from repro_torch.configs import all_archs, get_config  # noqa: E402
 from repro_torch.core import pipeline_partition as pp  # noqa: E402
 
 RTOL = 1e-12
@@ -24,18 +24,8 @@ ARCHS = jall_archs()
 
 
 def port_config(arch):
-    """The port's config of ``arch``; for an arch the port's registry
-    refuses (its LM family is not ported), the port's ``LMConfig`` built
-    from the reference's fields."""
-    try:
-        return get_config(arch)
-    except KeyError:
-        ref = jget_config(arch)
-        fields = {f.name: getattr(ref, f.name) for f in dataclasses.fields(ref)}
-        for key in ("segments", "enc_segments"):
-            fields[key] = tuple(base.Segment(s.kind, s.n, tuple(s.window_pattern))
-                                for s in fields[key])
-        return base.LMConfig(**fields)
+    """The port's config of ``arch``, from its registry."""
+    return get_config(arch)
 
 
 def ref_stage_rate():
@@ -50,12 +40,10 @@ def rel(a, b):
 
 
 def test_registry_covers_the_reference():
-    assert len(ARCHS) == 10
-    refused = [a for a in ARCHS if a not in all_archs()]
-    assert len(refused) == 6
-    for arch in refused:
-        with pytest.raises(KeyError):
-            get_config(arch)
+    assert len(ARCHS) == 10 and all_archs() == ARCHS
+    for arch in ARCHS:
+        assert dataclasses.asdict(get_config(arch)) == \
+            dataclasses.asdict(jget_config(arch))
 
 
 def test_stage_rate_is_the_h100_bf16_peak():

@@ -352,10 +352,24 @@ def test_data_iterator_equals_reference():
 
 
 def test_prefix_and_encdec_batches_are_not_ported():
-    cfg = dataclasses.replace(get_config("gemma3-1b").smoke(), num_prefix_tokens=4,
-                              prefix_dim=8)
-    with pytest.raises(NotImplementedError, match="Other LM families"):
-        pipeline.make_batch(cfg, ShapeSpec("d", 32, 2, "train"), 0, device="cpu")
+    """They are ported now: an image-prefix batch and an encoder-frame
+    batch equal the reference's bit for bit (bf16 by their 16-bit
+    patterns)."""
+    prefix = dict(num_prefix_tokens=4, prefix_dim=8)
+    frames = dict(enc_segments=(Segment("attn", 1),), enc_frame_dim=8)
+    jframes = dict(enc_segments=(JSegment("attn", 1),), enc_frame_dim=8)
+    for extra, jextra in ((prefix, prefix), (frames, jframes)):
+        cfg = dataclasses.replace(get_config("gemma3-1b").smoke(), **extra)
+        jcfg = dataclasses.replace(jget_config("gemma3-1b").smoke(), **jextra)
+        got = pipeline.make_batch(cfg, ShapeSpec("d", 32, 2, "train"), 0,
+                                  device="cpu")
+        want = jpipeline.make_batch(jcfg, JShapeSpec("d", 32, 2, "train"), 0)
+        assert sorted(got) == sorted(want) and len(got) == 3
+        for key, w in want.items():
+            w = np.asarray(w)
+            g = got[key].view(torch.int16) if w.dtype.name == "bfloat16" else got[key]
+            np.testing.assert_array_equal(
+                g.numpy(), w.view(np.int16) if w.dtype.name == "bfloat16" else w)
 
 
 @pytest.mark.parametrize("mode", ["train", "prefill", "decode"])

@@ -14,6 +14,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp
 import numpy as np
 
+from repro.configs import all_archs as jall_archs
 from repro.configs import get_config as jget_config
 from repro.models.cnn import resnet as jresnet
 from repro.models.lm import attention as jattention
@@ -147,11 +148,13 @@ def test_port_init_builds_the_reference_tree(arch):
 
 
 def test_registry_holds_the_dense_archs():
-    assert all_archs() == sorted(ARCHS)
-    for arch in ARCHS:
+    """The registry holds the dense archs and, since the other families
+    were ported, all ten of the reference's, each config equal to the
+    reference's; an unknown arch still raises."""
+    assert set(ARCHS) <= set(all_archs())
+    assert all_archs() == jall_archs() and len(all_archs()) == 10
+    for arch in all_archs():
         assert dataclasses.asdict(get_config(arch)) == \
             dataclasses.asdict(jget_config(arch))
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("qwen3-moe-235b-a22b")
     with pytest.raises(KeyError, match="unknown"):
         get_config("no-such-arch")
