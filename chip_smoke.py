@@ -131,6 +131,23 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
    against CPU with T1's limits, for granite-moe (the backward through
    the dispatch's gathers) and falcon-mamba (through the scan); no
    kernel may launch.
+17. this slice's main path, the sharded serving steps: granite-moe at
+   full width and depth (phase 14's weights and first 4 prompts,
+   left-padded to 4 x 2,048) through ``make_prefill_step`` and
+   ``make_decode_step`` unsharded, then on a real one-rank NCCL process
+   group (``make_host_mesh()``) with parameters, batch and cache placed by
+   ``sharding`` as DTensors under ``activation_mesh``: 32 tensor-core
+   flash launches a prefill (run shard by shard through ``local_map``), 32
+   greedy decode steps whose tokens must equal the unsharded run's; max
+   |logit d|, prefill and decode-step times, peak memory;
+18. the dry run (``python -m repro_torch.launch.dryrun``) of gemma3-1b and
+   granite-moe at every shape on the fake 16x16 mesh, started as two
+   subprocesses (no card visible) before phase 1 and collected here: each
+   supported cell must end ``ok``; per cell the per-device peak, FLOPs
+   and collective bytes, and ``launch.roofline``'s row (model estimates
+   under H100 constants, not measurements);
+19. ``examples/torch/serve_lm.py`` and ``schedule_and_run_cnn.py`` on the
+   card as subprocesses: each must exit 0 and report kernel launches.
 
 Detail goes to ``chiprun_out/chip_smoke.json``.  The line before the last
 is ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
@@ -149,10 +166,13 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
+sys.path.insert(0, str(ROOT / "src"))
 
-# Published H100 SXM peaks (NVIDIA data sheet, dense, at a 700 W limit).
-HBM_BYTES_PER_S = 3.35e12
-INT8_OPS_PER_S = 1979e12
+# Published H100 SXM peaks (NVIDIA data sheet, dense, at a 700 W limit),
+# kept in one place: the port's roofline.
+from repro_torch.launch.roofline import (  # noqa: E402
+    HBM_BW as HBM_BYTES_PER_S, PEAK_F32_FLOPS as F32_FLOPS_PER_S,
+    PEAK_FLOPS as BF16_FLOPS_PER_S, PEAK_INT8_OPS as INT8_OPS_PER_S)
 
 BATCH = 256
 REQUESTS = 8
@@ -654,7 +674,6 @@ def stage_partition():
 # YOLOv8n in float on the card (the paper's §V.C model)
 # ---------------------------------------------------------------------------
 
-F32_FLOPS_PER_S = 67e12   # H100 SXM dense f32 peak, CUDA cores (no TF32)
 YOLO_HW = 640
 YOLO_CHECK_FRAMES = 2
 YOLO_REQUESTS = 8
@@ -766,7 +785,6 @@ def yolo_serve(params, dev, hw, n_requests, batch, sync):
 # LM serving path (gemma3-1b) and its flash-attention kernel
 # ---------------------------------------------------------------------------
 
-BF16_FLOPS_PER_S = 989e12
 FLASH_F32_TOL = 2e-4   # f32 inputs, and bf16 inputs against the f32 upcast
 FLASH_BF16_TOL = 2e-2  # bf16 inputs against the plain version in bf16
 # Card against CPU at full width: both run the port in bf16, but the card's
@@ -1823,12 +1841,266 @@ def other_families(dev, detail, sync):
     return main_launches, detail["granite_flash"]
 
 
+# ---------------------------------------------------------------------------
+# Launch and sharding (phases 17-19)
+# ---------------------------------------------------------------------------
+
+SHARD_BATCH, SHARD_PROMPT, SHARD_STEPS = 4, 2048, 32
+DRYRUN_ARCHS = ("gemma3-1b", "granite-moe-3b-a800m")
+DRYRUN_TIMEOUT_S = 900
+CARD_EXAMPLES = ("serve_lm.py", "schedule_and_run_cnn.py")
+
+
+def start_dryruns():
+    """Phase 18's dry runs, started before phase 1 so that they run on the
+    host's cores while the card phases run: one subprocess per arch, each
+    on a fake process group with no card visible (the fake group never
+    shares a process with the card's), one thread, at the lowest CPU
+    priority (the card phases' host-bound timings keep the cores they
+    need).  Returns {arch: (process, log)}."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    OUT_DIR.mkdir(exist_ok=True)
+    procs = {}
+    for arch in DRYRUN_ARCHS:
+        out = open(OUT_DIR / f"dryrun_{arch}.log", "w")
+        procs[arch] = (subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+             "--force"], cwd=ROOT, env=env, stdout=out,
+            stderr=subprocess.STDOUT, preexec_fn=lambda: os.nice(19)), out)
+    return procs
+
+
+def stop(procs) -> None:
+    """End every process of ``start_dryruns`` that still runs."""
+    for proc, out in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+        out.close()
+
+
+def phase14_prompts(cfg, n, width):
+    """The first ``n`` prompts of phase 14 (``lm_serve``'s seeded lengths
+    and tokens), left-padded with token 0 to ``width`` as ``Server`` pads a
+    batch: (n, width) int64."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    rng = np.random.default_rng(0)
+    sizes = rng.integers(SERVE_LENS[0], SERVE_LENS[1] + 1, SERVE_REQUESTS)
+    prompts = [torch.from_numpy(rng.integers(0, cfg.vocab, int(k)))
+               for k in sizes]
+    return torch.stack([F.pad(p, (width - p.shape[0], 0))
+                        for p in prompts[:n]])
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def sharded_serving(dev, sync):
+    """Phase 17: granite-moe-3b-a800m at full width and depth (phase 14's
+    weights, seed 0, and its first 4 prompts, left-padded to 2,048) through
+    ``make_prefill_step``/``make_decode_step``, first unsharded, then on a
+    real one-rank NCCL process group: ``make_host_mesh()``, parameters,
+    batch and cache placed by ``sharding`` as DTensors, the steps under
+    ``activation_mesh``.  One warm-up prefill, then with the counts set to
+    0 the prefill (32 tensor-core flash launches, through ``local_map``)
+    and 32 greedy decode steps, each fed the sharded run's own token; the
+    tokens must equal the unsharded run's."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.lm import model, sharding, transformer
+    from repro_torch.tree import tree_leaves
+    cfg = get_config(MAIN_ARCH)
+    params = transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    toks = phase14_prompts(cfg, SHARD_BATCH, SHARD_PROMPT).to(dev)
+    prefill = model.make_prefill_step(cfg, SHARD_PROMPT + SHARD_STEPS)
+    decode = model.make_decode_step(cfg)
+
+    logits, cache = prefill(params, {"tokens": toks})
+    want_logits, want_toks = [logits], []
+    for _ in range(SHARD_STEPS):
+        tok = torch.argmax(logits[:, -1:], dim=-1)
+        want_toks.append(tok)
+        logits, cache = decode(params, tok, cache)
+        want_logits.append(logits)
+    del cache
+    torch.cuda.empty_cache()
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh()
+        dparams = sharding.distribute(params, sharding.param_shardings(
+            cfg, mesh, params))
+        batch = {"tokens": toks}
+        dbatch = sharding.distribute(batch, sharding.batch_shardings(mesh,
+                                                                     batch))
+        with sharding.activation_mesh(mesh):
+            prefill(dparams, dbatch)                    # warm-up
+            sync()
+            torch.cuda.reset_peak_memory_stats(dev)
+            zero_counts()
+            t = time.perf_counter()
+            logits, cache = prefill(dparams, dbatch)
+            sync()
+            prefill_s = time.perf_counter() - t
+            counts = read_counts()
+            cache = sharding.distribute(cache, sharding.cache_shardings(mesh,
+                                                                        cache))
+            leaves = [x for x in tree_leaves((dparams, cache.entries, logits))]
+            if not all(isinstance(x, DTensor)
+                       and x.to_local().device.type == dev.type
+                       for x in leaves):
+                raise AssertionError("sharded serving: a leaf is not a DTensor "
+                                     "on the card")
+            got_toks, secs, d_max = [], [], 0.0
+            for i in range(SHARD_STEPS):
+                full = logits.full_tensor()
+                d_max = max(d_max, (full - want_logits[i]).abs().max().item())
+                tok = torch.argmax(logits[:, -1:], dim=-1)
+                got_toks.append(tok.full_tensor())
+                t = time.perf_counter()
+                logits, cache = decode(dparams, tok, cache)
+                sync()
+                secs.append(time.perf_counter() - t)
+            full = logits.full_tensor()
+            d_max = max(d_max, (full - want_logits[-1]).abs().max().item())
+            peak = torch.cuda.max_memory_allocated(dev)
+    finally:
+        dist.destroy_process_group()
+    check_flash_counts(counts, cfg.n_layers, 1, f"sharded {cfg.name}")
+    if not torch.isfinite(full).all() or full.shape != (SHARD_BATCH, 1,
+                                                        cfg.vocab):
+        raise AssertionError(f"sharded {cfg.name}: bad logits "
+                             f"{tuple(full.shape)}")
+    same = torch.equal(torch.cat(got_toks, 1), torch.cat(want_toks, 1))
+    rec = {"mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+           "backend": "nccl", "batch": SHARD_BATCH, "prompt": SHARD_PROMPT,
+           "decode_steps": SHARD_STEPS, "flash_launches": counts["flash"],
+           "flash_instances": counts["flash_instances"],
+           "max_abs_logit_d": d_max,
+           "max_abs_logit": max(x.abs().max().item() for x in want_logits),
+           "tokens_equal": same, "prefill_ms": prefill_s * 1e3,
+           "decode_step_ms_mean": sum(secs) / len(secs) * 1e3,
+           "decode_step_ms_max": max(secs) * 1e3, "peak_bytes": peak}
+    log(f"sharded {cfg.name} ({cfg.n_layers} layers) on a one-rank NCCL mesh "
+        f"{rec['mesh']}: prefill of ({SHARD_BATCH}, {SHARD_PROMPT}) "
+        f"{rec['prefill_ms']:.1f} ms, flash launches {counts['flash']} (by "
+        f"instance {counts['flash_instances']}); {SHARD_STEPS} decode steps, "
+        f"{rec['decode_step_ms_mean']:.3f} ms mean, "
+        f"{rec['decode_step_ms_max']:.3f} ms max; peak memory "
+        f"{peak / 2**30:.2f} GiB; max |logit d| against the unsharded steps "
+        f"{d_max:.3e} (max |logit| {rec['max_abs_logit']:.3f}); tokens equal "
+        f"{same}")
+    if not same:
+        raise AssertionError(f"sharded {cfg.name}: greedy tokens differ from "
+                             f"the unsharded steps'")
+    return rec
+
+
+def dryrun_cells(procs):
+    """Phase 18: wait for the dry runs of ``start_dryruns``, then print each
+    cell's status, per-device peak, FLOPs and collective bytes, and the
+    roofline's row for it.  Every supported shape must end ``ok``."""
+    from repro_torch.configs import SHAPES, get_config, shape_supported
+    from repro_torch.launch import dryrun, roofline
+    deadline = time.perf_counter() + DRYRUN_TIMEOUT_S
+    for arch, (proc, out) in procs.items():
+        rc = proc.wait(timeout=max(deadline - time.perf_counter(), 1))
+        out.close()
+        if rc != 0:
+            raise AssertionError(f"dry run {arch}: exit {rc} (log in "
+                                 f"chiprun_out/dryrun_{arch}.log)")
+    log("dry run on the fake 16x16 mesh (256 ranks, CPU; model estimates "
+        "under H100 constants, not measurements):")
+    cells = {}
+    for arch in DRYRUN_ARCHS:
+        for shape in SHAPES:
+            with open(dryrun.cell_path(arch, shape, "pod16x16")) as f:
+                art = json.load(f)
+            want = "ok" if shape_supported(get_config(arch), SHAPES[shape])[0] \
+                else "skipped"
+            if art["status"] != want:
+                raise AssertionError(f"dry run {arch} x {shape}: "
+                                     f"{art['status']}, want {want}: "
+                                     f"{art.get('error', '')[:300]}")
+            cells[f"{arch}__{shape}"] = art
+            if want == "skipped":
+                log(f"  {arch} x {shape}: skipped ({art['reason'][:60]})")
+                continue
+            row = roofline.analyse(art)
+            cost = art["cost"]
+            coll = cost["collective_bytes_per_device"]
+            log(f"  {arch} x {shape}: ok, step {art['step_seconds']:.1f} s on "
+                f"the host; per device peak "
+                f"{art['memory']['peak_estimate_bytes'] / 2**30:.2f} GiB, "
+                f"{cost['flops_per_device']:.4e} FLOP, collectives "
+                + (", ".join(f"{k} {v / 2**20:.1f} MiB"
+                             for k, v in sorted(coll.items())) or "none"))
+            log(f"    roofline (estimate): compute {row.compute_s:.3e} s, "
+                f"memory(ops) {row.memory_s:.3e} s, memory(fused) "
+                f"{row.memory_fused_s:.3e} s, collective {row.collective_s:.3e}"
+                f" s; {row.dominant}-bound, useful {row.useful_ratio:.2f}, "
+                f"roofline {row.roofline_fraction:.2f}")
+            cells[f"{arch}__{shape}"]["roofline"] = row.__dict__
+    return cells
+
+
+def examples_on_card():
+    """Phase 19: ``examples/torch/serve_lm.py`` and
+    ``schedule_and_run_cnn.py`` on the card (their default device) as
+    subprocesses; each must exit 0 and report kernel launches."""
+    import os
+    import re
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = {}
+    for name in CARD_EXAMPLES:
+        t = time.perf_counter()
+        res = subprocess.run([sys.executable, str(ROOT / "examples" / "torch" /
+                                                  name)],
+                             cwd=ROOT, env=env, capture_output=True, text=True,
+                             timeout=600)
+        wall = time.perf_counter() - t
+        for line in res.stdout.splitlines():
+            log(f"  {name}: {line}")
+        if res.returncode != 0:
+            raise AssertionError(f"example {name}: exit {res.returncode}: "
+                                 f"{res.stderr[-2000:]}")
+        launches = [int(x) for x in re.findall(
+            r"(?:flash kernel launches|conv) (\d+)", res.stdout)]
+        if not launches or min(launches) == 0:
+            raise AssertionError(f"example {name}: no kernel launch reported")
+        out[name] = {"wall_s": wall, "stdout": res.stdout}
+        log(f"example {name}: exit 0 in {wall:.1f} s (process start and "
+            f"kernel load included)")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
+    dryruns = start_dryruns()
+    try:
+        return run_phases(dryruns)
+    finally:
+        stop(dryruns)
+
+
+def run_phases(dryruns) -> int:
+    import torch
     from repro_torch.core.graph import OpKind
     from repro_torch.kernels import _build, conv2d, imc_mvm as mvm_mod, ref
     from repro_torch.kernels.conv2d import imc_conv2d, pack_weight
@@ -2315,6 +2587,13 @@ def main() -> int:
     del t3
     torch.cuda.empty_cache()
     main_launches, main_flash = other_families(dev, detail, torch.cuda.synchronize)
+
+    # ---- 17-19. launch and sharding ----------------------------------------
+    torch.cuda.empty_cache()
+    detail["sharded_serving"] = sharded_serving(dev, torch.cuda.synchronize)
+    torch.cuda.empty_cache()
+    detail["dryrun"] = dryrun_cells(dryruns)
+    detail["examples"] = examples_on_card()
 
     detail["card"] = card
     detail["device"] = torch.cuda.get_device_name(0)

@@ -28,9 +28,19 @@ Decode (one query against the cache) stays plain PyTorch, as the
 reference computes it with ``attend``.  So does cross-attention
 (``kv_from``, and ``cross_decode``): the reference sends it through the
 plain ``attend`` with no rope and no mask, never to the flash kernel,
-whose queries and keys share one length.  The reference's sharding
-hooks (``_pad_heads``, ``_constrain_attn``) are no-ops without a mesh and
-are left out on one card.
+whose queries and keys share one length.
+
+The reference's sharding hooks sit at its places: ``_pad_heads`` and
+``_constrain_attn`` in every full-sequence route (no-ops without an
+``activation_mesh``).  Under a mesh the prefill runs the kernel shard by
+shard (``_flash``, through ``local_map``): batch over the data axes,
+heads over ``model``.  The kernel maps query head h to KV head
+``h // (H / KV)``, which holds within each shard when both H and KV
+divide the model axis; otherwise K/V are expanded to H heads first, as
+the reference always does.  Rope tables and masks built here become
+replicated DTensors when their operands are DTensors
+(``sharding.replicate_like``), and a decode step writes its K/V into
+the (possibly sequence-sharded) cache with ``sharding.write_slot``.
 """
 
 from __future__ import annotations
@@ -39,10 +49,103 @@ import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ...kernels import ops
-from . import rope
+from . import rope, sharding
 from .mlp import normal
+from .sharding import constrain, constrain_tokens, replicate_like
+
+
+def _pad_heads(q, k, v):
+    """Zero-pad the head axis to the next multiple of the model-axis size
+    so attention shards by head, as the reference does.
+
+    Padded q heads see zero k/v and their output is sliced off before wo:
+    numerics are untouched; the cost is (H_pad/H - 1) extra attention
+    FLOPs.  K/V (B, S, KV, hd) are first expanded to H heads unless H and
+    KV both divide the model axis (then the kernel's head-group map holds
+    within each shard).  Without an activation mesh nothing changes.
+    Returns (q, k, v, real_H).
+    """
+    mesh = sharding._ACT_MESH.get()
+    H = q.shape[2]
+    if mesh is None:
+        return q, k, v, H
+    m = sharding.mesh_axes(mesh)["model"]
+    if H % m == 0 and k.shape[2] % m == 0:
+        return q, k, v, H
+
+    def expand_pad(q, k, v):
+        k, v = _expand_kv(k, H), _expand_kv(v, H)
+        if H % m == 0:
+            return q, k, v
+        z = (0, 0, 0, (-H) % m)
+        return F.pad(q, z), F.pad(k, z), F.pad(v, z)
+
+    if not sharding._is_dtensor(q):
+        return (*expand_pad(q, k, v), H)
+    # shard by shard, heads whole (DTensor's pad is not reliable across
+    # PyTorch releases)
+    from torch.distributed.tensor.experimental import local_map
+    dp = sharding.dp_axes(mesh)
+    q, k, v = (sharding.to_spec(t, [dp, None, None, None]) for t in (q, k, v))
+    pl = q.placements
+    return (*local_map(expand_pad, out_placements=(pl, pl, pl),
+                       in_placements=(pl, pl, pl), device_mesh=mesh)(q, k, v),
+            H)
+
+
+def _constrain_attn(q, k, v):
+    """Pin attention activation sharding: batch over data, heads over
+    'model' (head counts are pre-padded to divide the axis)."""
+    def spec(mesh, dp):
+        if q.shape[2] % sharding.mesh_axes(mesh)["model"] == 0:
+            return [dp, None, "model", None]
+        return [dp, None, None, None]
+
+    return constrain(q, spec), constrain(k, spec), constrain(v, spec)
+
+
+def _per_shard(fn, q, k, v):
+    """``fn(q, k, v)`` over (B, S, heads, hd) tensors.  DTensors run it
+    shard by shard with ``local_map``: batch over the data axes, heads over
+    ``model`` where both q's and k's head counts divide it (then query head
+    h of a shard still reads KV head ``h // (H / KV)`` of that shard), the
+    sequence whole (a sequence-sharded cache is gathered first: the port
+    runs no softmax across shards)."""
+    if not sharding._is_dtensor(q):
+        return fn(q, k, v)
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    m = sharding.mesh_axes(mesh)["model"]
+    heads = "model" if q.shape[2] % m == 0 and k.shape[2] % m == 0 else None
+    spec = [sharding.dp_axes(mesh), None, heads, None]
+    q, k, v = (sharding.to_spec(t, spec) for t in (q, k, v))
+    out, = local_map(lambda *a: (fn(*a),), out_placements=(q.placements,),
+                     in_placements=(q.placements, k.placements, v.placements),
+                     device_mesh=mesh)(q, k, v)
+    return out
+
+
+def _flash(q, k, v, **kw):
+    """``ops.attention`` over (B, S, heads, hd) q/k/v, result (B, S, H, hd)
+    f32; on DTensors the kernel launches on each rank's shard
+    (``_per_shard``)."""
+    return _per_shard(lambda q, k, v: ops.attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        **kw).transpose(1, 2), q, k, v)
+
+
+def _attend_kv(q, k, v, bias, softcap, scale):
+    """``attend`` with K/V expanded to q's heads first; on DTensors shard
+    by shard (``_per_shard``), with ``bias`` a plain (1, 1, Sq, Sk)
+    tensor."""
+    def local(q, k, v):
+        H = q.shape[2]
+        return attend(q, _expand_kv(k, H), _expand_kv(v, H), bias, softcap,
+                      scale)
+    return _per_shard(local, q, k, v)
 
 
 class AttnParams(NamedTuple):
@@ -100,9 +203,60 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, hd) x (H, hd, D) -> (B, S, D).  ``einsum`` contracts
+    (hd, H) with H innermost; where DTensor splits the heads of either
+    operand over a mesh axis that ordering makes a strided shard, which
+    DTensor's product cannot take under fake tensors, so a split operand
+    goes through one (H hd) contraction instead (the same sum in another
+    order).  That product leaves a partial sum over the model axis, which
+    is reduced here, batch over the data axes (the row-parallel
+    all-reduce): left partial, DTensor would split the following norm
+    along the sequence instead."""
+    if sharding.splits_dim(out, 2) or sharding.splits_dim(wo, 0):
+        B, S, H, hd = out.shape
+        return constrain_tokens(
+            out.reshape(B, S, H * hd) @ wo.reshape(H * hd, wo.shape[2]))
+    return torch.einsum("bqhd,hdk->bqk", out, wo)
+
+
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(B, S, D) x (D, heads, hd) -> (B, S, heads, hd)."""
-    return torch.einsum("bsd,dhk->bshk", x, w)
+    """(B, S, D) x (D, heads, hd) -> (B, S, heads, hd).  Where DTensor
+    splits either operand the product runs shard by shard (``local_map``):
+    x with its batch over the data axes, w whole but for its heads, which
+    stay split over ``model`` where they were (the same ``einsum`` on each
+    shard; DTensor's own propagation through it splits column counts that
+    the heads cannot unflatten).  x's gradient is a partial sum over
+    ``model`` where the heads split; w's over the axes that split the
+    batch."""
+    if not (sharding.splits_any(x) or sharding.splits_any(w)):
+        return torch.einsum("bsd,dhk->bshk", x, w)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    heads = "model" if sharding.splits_dim(w, 1) else None
+    x = sharding.to_spec(x, [sharding.dp_axes(mesh), None, None])
+    w = sharding.to_spec(w, [None, heads, None])
+    out, gx, gw = [], [], []
+    for xp, wp in zip(x.placements, w.placements):
+        if isinstance(xp, Shard):
+            out.append(Shard(0))
+            gx.append(Shard(0))
+            gw.append(Partial())
+        elif isinstance(wp, Shard):
+            out.append(Shard(2))
+            gx.append(Partial())
+            gw.append(Shard(1))
+        else:
+            out.append(Replicate())
+            gx.append(Replicate())
+            gw.append(Replicate())
+    y, = local_map(lambda x, w: (torch.einsum("bsd,dhk->bshk", x, w),),
+                   out_placements=(tuple(out),),
+                   in_placements=(x.placements, w.placements),
+                   in_grad_placements=(tuple(gx), tuple(gw)),
+                   device_mesh=mesh)(x, w)
+    return y
 
 
 #: sequences at least this long use q-chunked attention (bounded memory)
@@ -118,8 +272,16 @@ def _cross(p: AttnParams, x: torch.Tensor, kv_from: torch.Tensor,
     q = _project(x, p.wq)
     k = _expand_kv(_project(kv_from, p.wk), H)
     v = _expand_kv(_project(kv_from, p.wv), H)
-    out = attend(q, k, v, None, softcap, 1.0 / math.sqrt(hd))
-    return torch.einsum("bqhd,hdk->bqk", out, p.wo)
+    q, k, v, real_h = _pad_heads(q, k, v)
+    q, k, v = _constrain_attn(q, k, v)
+    out = _real_heads(_attend_kv(q, k, v, None, softcap, 1.0 / math.sqrt(hd)),
+                      real_h)
+    return _out_proj(out, p.wo)
+
+
+def _real_heads(out: torch.Tensor, real_h: int) -> torch.Tensor:
+    """(B, S, H_pad, hd) -> the first ``real_h`` heads."""
+    return out if out.shape[2] == real_h else out[:, :, :real_h]
 
 
 def forward_train(p: AttnParams, x: torch.Tensor, positions: torch.Tensor, *,
@@ -139,24 +301,32 @@ def forward_train(p: AttnParams, x: torch.Tensor, positions: torch.Tensor, *,
     k = _project(x, p.wk)
     v = _project(x, p.wv)
     if use_rope:
-        cos, sin = rope.rope_angles(positions, hd)
+        cos, sin = _rope_tables(positions, hd, q)
         q = rope.apply_rope(q, cos, sin)
         k = rope.apply_rope(k, cos, sin)
     k = _expand_kv(k, H)
     v = _expand_kv(v, H)
+    q, k, v, real_h = _pad_heads(q, k, v)
+    q, k, v = _constrain_attn(q, k, v)
     scale = 1.0 / math.sqrt(hd)
     if S < CHUNK_THRESHOLD:
         bias = _mask_bias(positions, positions, causal, window)[None, None]
-        out = attend(q, k, v, bias, softcap, scale)
+        out = _attend_kv(q, k, v, bias, softcap, scale)
     else:
         outs = []
         for i0 in range(0, S, Q_CHUNK):
             bias = _mask_bias(positions[i0:i0 + Q_CHUNK], positions, causal,
                               window)[None, None]
-            outs.append(attend(q[:, i0:i0 + Q_CHUNK], k, v, bias, softcap,
-                               scale))
+            outs.append(_attend_kv(q[:, i0:i0 + Q_CHUNK], k, v, bias,
+                                   softcap, scale))
         out = torch.cat(outs, dim=1)
-    return torch.einsum("bqhd,hdk->bqk", out, p.wo)
+    return _out_proj(_real_heads(out, real_h), p.wo)
+
+
+def _rope_tables(positions: torch.Tensor, hd: int, like: torch.Tensor):
+    """cos/sin of ``positions``, replicated DTensors when ``like`` is one."""
+    cos, sin = rope.rope_angles(positions, hd)
+    return replicate_like(cos, like), replicate_like(sin, like)
 
 
 def forward(p: AttnParams, x: torch.Tensor, positions: torch.Tensor, *,
@@ -180,14 +350,14 @@ def forward(p: AttnParams, x: torch.Tensor, positions: torch.Tensor, *,
     if use_rope:
         # the reference calls rope_angles with its default theta, whatever
         # cfg.rope_theta says; the port does the same
-        cos, sin = rope.rope_angles(positions, hd)
+        cos, sin = _rope_tables(positions, hd, q)
         q = rope.apply_rope(q, cos, sin)
         k = rope.apply_rope(k, cos, sin)
-    out = ops.attention(q.transpose(1, 2), k.transpose(1, 2),
-                        v.transpose(1, 2), causal=causal, window=window,
-                        softcap=softcap)
-    out = out.transpose(1, 2).to(v.dtype)
-    return torch.einsum("bqhd,hdk->bqk", out, p.wo)
+    q, k, v, real_h = _pad_heads(q, k, v)
+    q, k, v = _constrain_attn(q, k, v)
+    out = _flash(q, k, v, causal=causal, window=window, softcap=softcap)
+    out = _real_heads(out, real_h).to(v.dtype)
+    return _out_proj(out, p.wo)
 
 
 # ---------------------------------------------------------------------------
@@ -213,24 +383,22 @@ def prefill(p: AttnParams, x: torch.Tensor, positions: torch.Tensor,
     k = _project(x, p.wk)
     v = _project(x, p.wv)
     if use_rope:
-        cos, sin = rope.rope_angles(positions, hd)
+        cos, sin = _rope_tables(positions, hd, k)
         k = rope.apply_rope(k, cos, sin)
     pad = s_max - k.shape[1]
     if pad > 0:
-        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
-        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        k = sharding.pad(k, (0, 0, 0, 0, 0, pad))
+        v = sharding.pad(v, (0, 0, 0, 0, 0, pad))
     return KVCache(k, v)
 
 
 def cross_decode(p: AttnParams, x: torch.Tensor, cache: KVCache) -> torch.Tensor:
     """Cross-attention during decode: x (B, 1, D) over the static
     (unpadded) encoder KV cache."""
-    H, hd = p.wq.shape[1], p.wq.shape[2]
+    hd = p.wq.shape[2]
     q = _project(x, p.wq)
-    k = _expand_kv(cache.k, H)
-    v = _expand_kv(cache.v, H)
-    out = attend(q, k, v, None, None, 1.0 / math.sqrt(hd))
-    return torch.einsum("bqhd,hdk->bqk", out, p.wo)
+    out = _attend_kv(q, cache.k, cache.v, None, None, 1.0 / math.sqrt(hd))
+    return _out_proj(out, p.wo)
 
 
 def decode_step(p: AttnParams, x: torch.Tensor, cache: KVCache, cur_pos: int,
@@ -243,7 +411,7 @@ def decode_step(p: AttnParams, x: torch.Tensor, cache: KVCache, cur_pos: int,
     reference returns an updated copy; the cache is the caller's state
     either way) and attends over positions [0, cur_pos], optionally
     windowed."""
-    H, hd = p.wq.shape[1], p.wq.shape[2]
+    hd = p.wq.shape[2]
     S_max = cache.k.shape[1]
     if not 0 <= cur_pos < S_max:
         raise ValueError(f"decode position {cur_pos} outside the cache "
@@ -254,15 +422,13 @@ def decode_step(p: AttnParams, x: torch.Tensor, cache: KVCache, cur_pos: int,
     # a fill kernel: a host-to-device copy here would wait for the stream
     pos = torch.full((1,), cur_pos, device=x.device)
     if use_rope:
-        cos, sin = rope.rope_angles(pos, hd)
+        cos, sin = _rope_tables(pos, hd, q)
         q = rope.apply_rope(q, cos, sin)
         k_new = rope.apply_rope(k_new, cos, sin)
-    cache.k[:, cur_pos:cur_pos + 1] = k_new.to(cache.k.dtype)
-    cache.v[:, cur_pos:cur_pos + 1] = v_new.to(cache.v.dtype)
-    k = _expand_kv(cache.k, H)
-    v = _expand_kv(cache.v, H)
+    sharding.write_slot(cache.k, k_new.to(cache.k.dtype), 1, cur_pos)
+    sharding.write_slot(cache.v, v_new.to(cache.v.dtype), 1, cur_pos)
     k_pos = torch.arange(S_max, device=x.device)
     bias = _mask_bias(pos, k_pos, True, window)[None, None]
-    out = attend(q, k, v, bias, softcap, 1.0 / math.sqrt(hd))
-    y = torch.einsum("bqhd,hdk->bqk", out, p.wo)
+    out = _attend_kv(q, cache.k, cache.v, bias, softcap, 1.0 / math.sqrt(hd))
+    y = _out_proj(out, p.wo)
     return y, cache

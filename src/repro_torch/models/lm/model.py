@@ -4,8 +4,10 @@ serve steps, and per-(arch x shape) input specs.
 Counterpart of ``repro.models.lm.model``.  PyTorch runs eagerly, so the
 steps are plain closures where the reference returns functions to
 ``jax.jit``; autograd (``torch.autograd.grad``) takes the place of
-``jax.value_and_grad``.  The reference's ``mesh`` hooks are no-ops on one
-card and are left out, as in the serving slice.
+``jax.value_and_grad``.  ``make_train_step(..., mesh=)`` keeps every
+microbatch data-sharded, as the reference's does; the abstract trees
+(``abstract_params``, ``abstract_opt_state``, ``init_cache_spec``) are
+the reference's ``eval_shape`` trees, as meta tensors or ``TensorSpec``s.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch
 from ...configs.base import LMConfig, ShapeSpec
 from ...optim import adamw
 from ...tree import tree_leaves, tree_map, tree_unflatten
-from . import transformer
+from . import sharding, transformer
 
 
 # ---------------------------------------------------------------------------
@@ -109,7 +111,7 @@ def loss_fn(cfg: LMConfig, params, batch: Dict[str, torch.Tensor]) -> torch.Tens
     logits = logits[:, :-1]
     targets = batch["labels"][:, 1:]
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    gold = sharding.take_last(logits, targets)
     return torch.mean(logz - gold)
 
 
@@ -134,15 +136,30 @@ class TrainStepConfig:
 
 
 def make_train_step(cfg: LMConfig, tcfg: Optional[TrainStepConfig] = None,
-                    microbatch: Optional[int] = None):
+                    microbatch: Optional[int] = None, mesh=None):
     """Returns train_step(params, opt_state, batch) -> (params, opt, metrics).
 
     The global batch is split into ``min(microbatch or cfg.microbatch, B)``
     row slices run one after another, with f32 gradient accumulation
     (memory bounded by the microbatch, not the global batch); the summed
-    gradients and losses are divided by the number of slices.
+    gradients and losses are divided by the number of slices.  With a
+    ``mesh`` (a ``DeviceMesh``; parameters, state and batch placed on it as
+    DTensors) each slice is redistributed with its batch over the data
+    axes, replicated where the slice does not divide them.
     """
     tcfg = tcfg or TrainStepConfig()
+
+    def constrain_batch(b):
+        if mesh is None:
+            return b
+        dp = sharding.dp_axes(mesh)
+
+        def rule(x):
+            spec = [dp] + [None] * (x.ndim - 1)
+            if x.shape[0] % sharding._axis_size(mesh, dp) != 0:
+                spec[0] = None
+            return sharding.to_spec(x, spec)
+        return {k: rule(v) for k, v in b.items()}
 
     def train_step(params, opt_state, batch):
         B = batch["tokens"].shape[0]
@@ -152,12 +169,13 @@ def make_train_step(cfg: LMConfig, tcfg: Optional[TrainStepConfig] = None,
             loss, grads = loss_and_grads(cfg, params, batch)
             grads = tree_map(lambda g: g.to(torch.float32), grads)
         else:
-            gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                  device=p.device), params)
+            gsum = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                            params)
             lsum = torch.zeros((), dtype=torch.float32,
                                device=batch["tokens"].device)
             for i in range(n_mb):
-                mb_batch = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+                mb_batch = constrain_batch(
+                    {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()})
                 loss, grads = loss_and_grads(cfg, params, mb_batch)
                 for a, g in zip(tree_leaves(gsum), tree_leaves(grads)):
                     a.add_(g)          # in f32: a + f32(g), as the reference
@@ -189,3 +207,56 @@ def make_decode_step(cfg: LMConfig):
     def decode_step(params, token, cache):
         return transformer.decode(cfg, params, token, cache)
     return decode_step
+
+
+# ---------------------------------------------------------------------------
+# abstract trees (dry run)
+# ---------------------------------------------------------------------------
+
+def init_cache_spec(cfg: LMConfig, shape: ShapeSpec) -> transformer.ServeCache:
+    """The ``ServeCache`` a prefill of ``shape.seq_len`` tokens would
+    produce, as ``TensorSpec``s (the reference's abstract cache, entry for
+    entry; ``cur_pos`` is a () int32 spec there as here)."""
+    B, S = shape.global_batch, shape.seq_len
+    bf16 = torch.bfloat16
+
+    def attn_entry(n):
+        kv = TensorSpec((n, B, S, cfg.n_kv_heads, cfg.hd), bf16)
+        return transformer.attention.KVCache(kv, kv)
+
+    def ssm_entry(n):
+        return transformer.ssm.SSMState(
+            conv=TensorSpec((n, B, cfg.conv_k - 1, cfg.d_inner), bf16),
+            h=TensorSpec((n, B, cfg.d_inner, cfg.ssm_state), torch.float32))
+
+    def rec_entry(n):
+        return transformer.rglru.RGLRUState(
+            conv=TensorSpec((n, B, cfg.conv_k - 1, cfg.d_inner), bf16),
+            h=TensorSpec((n, B, cfg.d_inner), torch.float32))
+
+    entries = []
+    for seg in cfg.segments:
+        if seg.kind == "attn":
+            entries.append(attn_entry(seg.n))
+        elif seg.kind == "ssm":
+            entries.append(ssm_entry(seg.n))
+        elif seg.kind == "rec":
+            entries.append(rec_entry(seg.n))
+        elif seg.kind == "hybrid3":
+            entries.append((rec_entry(seg.n), rec_entry(seg.n),
+                            attn_entry(seg.n)))
+        elif seg.kind == "xattn":
+            entries.append((attn_entry(seg.n), attn_entry(seg.n)))
+        else:
+            raise ValueError(seg.kind)
+    return transformer.ServeCache(tuple(entries), TensorSpec((), torch.int32))
+
+
+def abstract_params(cfg: LMConfig):
+    """Parameter shapes and dtypes without allocation: meta tensors."""
+    return transformer.init_params(cfg, torch.Generator(), device="meta")
+
+
+def abstract_opt_state(cfg: LMConfig) -> adamw.AdamWState:
+    """Optimizer-state shapes and dtypes without allocation (meta)."""
+    return adamw.init(abstract_params(cfg))

@@ -22,8 +22,12 @@ Counterpart of ``repro.models.lm.moe``, with its design and numerics:
 At decode (S = 1) the capacity is max(ceil(k/E cf), k) = k slots per
 expert, so every expert runs k slot rows per sequence: the reference's
 design, kept.  ``dense_forward`` runs every expert on every token (the
-tests' oracle).  The reference's sharding hooks (``constrain_moe_slots``,
-``constrain_tokens``) are no-ops on one card and are left out.  On the
+tests' oracle).  The reference's sharding hooks sit at its places:
+``constrain_moe_slots`` on the gathered slots, ``constrain_tokens`` on
+the output (no-ops without an ``activation_mesh``).  Under a mesh the
+routing, the dispatch gather and the combine run per batch shard
+(``sharding.per_batch_shard``: each sequence routes on its own), and the
+expert products run on DTensors, experts or F over ``model``.  On the
 card the gathers' backward scatters with atomics, so gradients through
 the dispatch vary in their last bits from run to run.
 """
@@ -37,6 +41,8 @@ import torch
 import torch.nn.functional as F
 
 from .mlp import normal
+from .sharding import (constrain_moe_slots, constrain_tokens, per_batch_shard,
+                       splits_dim)
 
 
 class MoEParams(NamedTuple):
@@ -99,6 +105,35 @@ def forward(p: MoEParams, x: torch.Tensor, top_k: int,
     Bp = B * n_g
     xg = x.reshape(Bp, G, D)
     C = capacity(G, E, top_k, capacity_factor)
+    slots, slot, keep, gates = per_batch_shard(
+        lambda xg, w_router: _dispatch(p._replace(w_router=w_router), xg,
+                                       top_k, C), (xg,), (p.w_router,),
+        n_out=4)
+    slots = constrain_moe_slots(slots)
+
+    # --- experts: batched gated MLP ---------------------------------------
+    g = torch.einsum("becd,edf->becf", slots, p.w_gate)
+    u = torch.einsum("becd,edf->becf", slots, p.w_up)
+    h = _act(g, act) * u
+    if splits_dim(h, 1):
+        # experts split over ``model``: the shards are expert-major in
+        # memory while DTensor reasons about the global strides, and the
+        # next einsum's view of them fails; a contiguous copy agrees
+        h = h.contiguous()
+    y = torch.einsum("becf,efd->becd", h, p.w_down)
+
+    out, = per_batch_shard(lambda *a: (_combine(*a, top_k),),
+                           (y, slot, keep, gates), n_out=1)
+    return constrain_tokens(out.reshape(B, S, D))
+
+
+def _dispatch(p: MoEParams, xg: torch.Tensor, top_k: int, C: int):
+    """Route groups xg (B', G, D) (through the module's ``route``, which
+    reads only ``p.w_router``) and gather each expert's C slots: returns
+    (slots (B', E, C, D), slot (B', G*k), keep (B', G*k), gates (B', G,
+    k))."""
+    Bp, G, D = xg.shape
+    E = p.w_router.shape[1]
     gates, experts = route(p, xg, top_k)                      # (B',G,k)
 
     # --- position of each (token, choice) within its expert --------------
@@ -114,33 +149,37 @@ def forward(p: MoEParams, x: torch.Tensor, top_k: int,
 
     # --- per-slot source token: scatter small indices, gather tokens ------
     slot = flat_e * C + torch.where(keep, pos, 0)
-    token_idx = torch.arange(G * top_k, device=x.device) // top_k
-    src = torch.full((Bp, E * C + 1), G, dtype=torch.int64, device=x.device)
+    token_idx = torch.arange(G * top_k, device=xg.device) // top_k
+    src = torch.full((Bp, E * C + 1), G, dtype=torch.int64, device=xg.device)
     src.scatter_(1, torch.where(keep, slot, E * C),
                  torch.where(keep, token_idx[None, :], G))
     src = src[:, :E * C]
     # gathers by ``index_select`` over flattened rows (row b's index i is
     # row b * n + i), which the card runs faster than advanced indexing
-    rows = torch.arange(Bp, device=x.device)[:, None]
+    rows = torch.arange(Bp, device=xg.device)[:, None]
     x_pad = torch.cat([xg, xg.new_zeros((Bp, 1, D))], dim=1)
     slots = x_pad.reshape(Bp * (G + 1), D).index_select(
         0, (src + rows * (G + 1)).reshape(-1)).reshape(Bp, E, C, D)
+    return slots, slot, keep, gates
 
-    # --- experts: batched gated MLP ---------------------------------------
-    g = torch.einsum("becd,edf->becf", slots, p.w_gate)
-    u = torch.einsum("becd,edf->becf", slots, p.w_up)
-    y = torch.einsum("becf,efd->becd", _act(g, act) * u, p.w_down)
+
+def _combine(y: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
+             gates: torch.Tensor, top_k: int) -> torch.Tensor:
+    """The k choices of each token added one after another, each the
+    expert output at its slot weighted by its gate (zero if dropped):
+    y (B', E, C, D) -> (B', G, D)."""
+    Bp, E, C, D = y.shape
+    G = gates.shape[1]
+    rows = torch.arange(Bp, device=y.device)[:, None]
     y_rows = y.reshape(Bp * E * C, D)
-
-    # --- combine: one bounded gather per routing choice -------------------
-    out = torch.zeros((Bp, G, D), dtype=y.dtype, device=x.device)
+    out = torch.zeros((Bp, G, D), dtype=y.dtype, device=y.device)
     slot_k = (slot + rows * (E * C)).reshape(Bp, G, top_k).permute(2, 0, 1)
     slot_k = slot_k.reshape(top_k, Bp * G)                    # (k, B'*G)
     w = (gates * keep.reshape(Bp, G, top_k)).to(y.dtype)      # (B', G, k)
     for kk in range(top_k):
         yk = y_rows.index_select(0, slot_k[kk]).reshape(Bp, G, D)
         out = out + yk * w[:, :, kk, None]
-    return out.reshape(B, S, D)
+    return out
 
 
 def dense_forward(p: MoEParams, x: torch.Tensor, top_k: int,

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from .mlp import normal
 from .scan import linear_scan
+from .sharding import constrain, pad
 
 _C = 8.0
 
@@ -64,9 +65,16 @@ def init(generator: torch.Generator, d: int, d_inner: int, conv_k: int = 4,
     )
 
 
+def _split_di(t: torch.Tensor) -> torch.Tensor:
+    """Under a mesh, the gate pre-activations (B, S, Di), partial sums over
+    the split Di, reduced to batch over data and Di over ``model`` (a
+    reduce-scatter; left partial, DTensor splits the sequence instead)."""
+    return constrain(t, lambda mesh, dp: [dp, None, "model"])
+
+
 def _causal_conv(x, w, b):
     K = w.shape[0]
-    xp = F.pad(x, (0, 0, K - 1, 0))
+    xp = pad(x, (0, 0, K - 1, 0))
     out = torch.zeros_like(x)
     for i in range(K):
         out = out + xp[:, i:i + x.shape[1], :] * w[i]
@@ -99,8 +107,8 @@ def forward(p: RGLRUParams, x: torch.Tensor,
         conv_out = _causal_conv(ctx, p.conv_w, p.conv_b)[:, -S:]
     else:
         conv_out = _causal_conv(xs, p.conv_w, p.conv_b)
-    r = torch.sigmoid((conv_out @ p.w_r).to(torch.float32))
-    i = torch.sigmoid((conv_out @ p.w_i).to(torch.float32))
+    r = torch.sigmoid(_split_di(conv_out @ p.w_r).to(torch.float32))
+    i = torch.sigmoid(_split_di(conv_out @ p.w_i).to(torch.float32))
     h0 = state.h if state is not None else None
     y, h_last = _rglru_scan(conv_out, r, i, p.lam, h0)
     out = (y * y_gate) @ p.w_out
@@ -108,7 +116,7 @@ def forward(p: RGLRUParams, x: torch.Tensor,
     if state is not None:
         ctx_tail = torch.cat([state.conv.to(xs.dtype), xs], dim=1)
     else:
-        ctx_tail = F.pad(xs, (0, 0, K - 1, 0))
+        ctx_tail = pad(xs, (0, 0, K - 1, 0))
     return out, RGLRUState(conv=ctx_tail[:, -(K - 1):].clone(), h=h_last)
 
 

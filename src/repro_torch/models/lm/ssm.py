@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from .mlp import normal
 from .scan import linear_scan
+from .sharding import constrain_tokens, pad
 
 
 class SSMParams(NamedTuple):
@@ -80,7 +81,7 @@ def _causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     """x (B,S,Di), w (K,Di): causal depthwise conv along S, the taps added
     one after another in x's dtype."""
     K = w.shape[0]
-    xp = F.pad(x, (0, 0, K - 1, 0))
+    xp = pad(x, (0, 0, K - 1, 0))
     out = torch.zeros_like(x)
     for i in range(K):
         out = out + xp[:, i:i + x.shape[1], :] * w[i]
@@ -129,7 +130,9 @@ def forward(p: SSMParams, x: torch.Tensor, state: Optional[SSMState] = None
     xs = F.silu(conv_out)
     pre = (xs @ p.w_dt_down) @ p.w_dt_up + p.dt_bias.to(torch.float32)
     dt = torch.logaddexp(pre, torch.zeros_like(pre))     # jax.nn.softplus
-    bc = xs @ p.w_bc
+    # under a mesh the product over the split Di is a partial sum: reduce it
+    # here (B and C are small), before the scan's in-place state fold
+    bc = constrain_tokens(xs @ p.w_bc)
     bmat, cmat = bc[..., :N], bc[..., N:]
     h0 = state.h if state is not None else None
     y, h_last = _ssm_scan(dt, bmat, cmat, xs, p.a_log, h0)
@@ -141,7 +144,7 @@ def forward(p: SSMParams, x: torch.Tensor, state: Optional[SSMState] = None
     if state is not None:
         ctx_tail = torch.cat([state.conv.to(tail_src.dtype), tail_src], dim=1)
     else:
-        ctx_tail = F.pad(tail_src, (0, 0, K - 1, 0))
+        ctx_tail = pad(tail_src, (0, 0, K - 1, 0))
     return out, SSMState(conv=ctx_tail[:, -(K - 1):].clone(), h=h_last)
 
 

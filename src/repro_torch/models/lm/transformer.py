@@ -31,8 +31,13 @@ decoder).  Three modes:
 Whisper's encoder takes stub frame embeddings (B, S_enc, D) and
 PaliGemma prepends stub image-patch embeddings (B, P, D) to the token
 embeddings; ``ServeCache.cur_pos`` counts the prefix, as in the
-reference.  The reference's sharding hook ``constrain_tokens`` is a no-op
-without a mesh and is left out on one card.  As in the reference,
+reference.  The reference's sharding hook ``constrain_tokens`` opens every
+block, as there (a no-op without an ``activation_mesh``), and the port
+also applies it after each residual add inside a block and before each
+final norm, so that a partial sum over the model axis is reduced there
+and not split along the sequence by DTensor; a sinusoid
+table meeting DTensor embeddings becomes a replicated DTensor.  As in
+the reference,
 RMSNorm multiplies by ``scale`` and the embedding is not scaled by
 sqrt(D).
 """
@@ -48,7 +53,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ...configs.base import LMConfig, Segment
 from ...tree import tree_leaves, tree_map, tree_unflatten
-from . import attention, mlp, moe, rglru, ssm
+from . import attention, mlp, moe, rglru, sharding, ssm
+from .sharding import constrain_tokens, replicate_like
 
 
 # ---------------------------------------------------------------------------
@@ -136,7 +142,7 @@ def init_block(cfg: LMConfig, kind: str, generator: torch.Generator,
 
 def _stack(trees: list):
     """Trees of one structure stacked leaf by leaf on a new leading axis."""
-    return tree_map(lambda *xs: torch.stack(xs), *trees)
+    return tree_map(lambda *xs: sharding.stack(xs), *trees)
 
 
 def init_segment(cfg: LMConfig, seg: Segment, generator: torch.Generator,
@@ -190,9 +196,10 @@ def embed_tokens(cfg: LMConfig, params, tokens: torch.Tensor,
                  positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B, S) token ids -> (B, S, D) rows of ``embed`` (unscaled), plus the
     sinusoid of ``positions`` (S,) where the config uses one."""
-    x = params["embed"][tokens]
+    x = sharding.lookup_rows(params["embed"], tokens)
     if cfg.pos_embed == "sinusoid":
-        x = x + _sinusoid(positions, cfg.d_model).to(x.dtype)
+        x = x + replicate_like(_sinusoid(positions, cfg.d_model).to(x.dtype),
+                               x)
     return x
 
 
@@ -212,6 +219,7 @@ def _attn_block_fwd(cfg, p, x, positions, window, causal=True,
                     want_cache=False, s_max=0, attn_fwd=attention.forward):
     """One attention block.  ``attn_fwd`` is ``attention.forward`` (the
     flash kernel, serving) or ``attention.forward_train`` (training)."""
+    x = constrain_tokens(x)
     h = norm_apply(cfg, p["norm1"], x)
     a = attn_fwd(p["attn"], h, positions, causal=causal, window=window,
                  softcap=cfg.attn_softcap, use_rope=(cfg.pos_embed == "rope"))
@@ -221,22 +229,24 @@ def _attn_block_fwd(cfg, p, x, positions, window, causal=True,
         # consumed; as in the reference they are projected a second time
         cache = attention.prefill(p["attn"], h, positions, s_max,
                                   use_rope=(cfg.pos_embed == "rope"))
-    x = x + a
+    x = constrain_tokens(x + a)
     h = norm_apply(cfg, p["norm2"], x)
     x = x + _ffn_apply(cfg, p["ffn"], h)
     return x, cache
 
 
 def _ssm_block_fwd(cfg, p, x, state=None):
+    x = constrain_tokens(x)
     h = norm_apply(cfg, p["norm"], x)
     y, new_state = ssm.forward(p["ssm"], h, state)
     return x + y, new_state
 
 
 def _rec_block_fwd(cfg, p, x, state=None):
+    x = constrain_tokens(x)
     h = norm_apply(cfg, p["norm1"], x)
     y, new_state = rglru.forward(p["rec"], h, state)
-    x = x + y
+    x = constrain_tokens(x + y)
     h = norm_apply(cfg, p["norm2"], x)
     x = x + _ffn_apply(cfg, p["ffn"], h)
     return x, new_state
@@ -244,6 +254,7 @@ def _rec_block_fwd(cfg, p, x, state=None):
 
 def _xattn_block_fwd(cfg, p, x, positions, enc_out, want_cache=False,
                      s_max=0, attn_fwd=attention.forward):
+    x = constrain_tokens(x)
     h = norm_apply(cfg, p["norm1"], x)
     a = attn_fwd(p["self"], h, positions, causal=True,
                  use_rope=(cfg.pos_embed == "rope"))
@@ -251,7 +262,7 @@ def _xattn_block_fwd(cfg, p, x, positions, enc_out, want_cache=False,
     if want_cache:
         self_cache = attention.prefill(p["self"], h, positions, s_max,
                                        use_rope=(cfg.pos_embed == "rope"))
-    x = x + a
+    x = constrain_tokens(x + a)
     h = norm_apply(cfg, p["norm2"], x)
     c = attn_fwd(p["cross"], h, positions, kv_from=enc_out)
     cross_cache = None
@@ -260,7 +271,7 @@ def _xattn_block_fwd(cfg, p, x, positions, enc_out, want_cache=False,
         cross_cache = attention.prefill(
             p["cross"], enc_out, torch.arange(S_enc, device=enc_out.device),
             S_enc, use_rope=False)
-    x = x + c
+    x = constrain_tokens(x + c)
     h = norm_apply(cfg, p["norm3"], x)
     x = x + _ffn_apply(cfg, p["ffn"], h)
     if want_cache:
@@ -329,7 +340,8 @@ def encode(cfg: LMConfig, params, frames: torch.Tensor,
     positions = torch.arange(S, device=frames.device)
     x = frames.to(torch.bfloat16)
     if cfg.pos_embed == "sinusoid":
-        x = x + _sinusoid(positions, cfg.d_model).to(x.dtype)
+        x = x + replicate_like(_sinusoid(positions, cfg.d_model).to(x.dtype),
+                               x)
     for seg, seg_params in zip(cfg.enc_segments, params["enc_segments"]):
         if train:
             x = run_segment_train(cfg, seg, seg_params, x, positions,
@@ -339,7 +351,7 @@ def encode(cfg: LMConfig, params, frames: torch.Tensor,
             raise ValueError(f"encoder segment kind {seg.kind}")
         for p_l, w in zip(layers(seg_params), seg.windows(), strict=True):
             x, _ = _attn_block_fwd(cfg, p_l, x, positions, w, causal=False)
-    return norm_apply(cfg, params["enc_final_norm"], x)
+    return norm_apply(cfg, params["enc_final_norm"], constrain_tokens(x))
 
 
 def _embed_inputs(cfg: LMConfig, params, tokens: torch.Tensor,
@@ -366,7 +378,7 @@ def forward_train(cfg: LMConfig, params, tokens: torch.Tensor,
     for seg, seg_params in zip(cfg.segments, params["segments"]):
         x = run_segment_train(cfg, seg, seg_params, x, positions,
                               enc_out=enc_out)
-    return norm_apply(cfg, params["final_norm"], x)
+    return norm_apply(cfg, params["final_norm"], constrain_tokens(x))
 
 
 # ---------------------------------------------------------------------------
@@ -386,9 +398,11 @@ def _prefill_segment(cfg: LMConfig, seg: Segment, seg_params, x, positions,
     caches = []
     for p_l, w in zip(layers(seg_params), seg.windows(), strict=True):
         if seg.kind == "attn":
+            x = constrain_tokens(x)
             x, c = _attn_block_fwd(cfg, p_l, x, positions, w, want_cache=True,
                                    s_max=s_max)
         elif seg.kind == "ssm":
+            x = constrain_tokens(x)
             x, c = _ssm_block_fwd(cfg, p_l, x)
         elif seg.kind == "rec":
             x, c = _rec_block_fwd(cfg, p_l, x)
@@ -424,7 +438,7 @@ def prefill(cfg: LMConfig, params, tokens: torch.Tensor, s_max: int,
         x, caches = _prefill_segment(cfg, seg, seg_params, x, positions, s_max,
                                      enc_out)
         entries.append(caches)
-    x = norm_apply(cfg, params["final_norm"], x)
+    x = norm_apply(cfg, params["final_norm"], constrain_tokens(x))
     logits = logits_head(cfg, params, x[:, -1:, :])
     return logits, ServeCache(tuple(entries), total)
 
@@ -489,6 +503,6 @@ def decode(cfg: LMConfig, params, token: torch.Tensor, cache: ServeCache
                 x = x + _ffn_apply(cfg, p_l["ffn"], h)
             else:
                 raise ValueError(seg.kind)
-    x = norm_apply(cfg, params["final_norm"], x)
+    x = norm_apply(cfg, params["final_norm"], constrain_tokens(x))
     logits = logits_head(cfg, params, x)
     return logits, ServeCache(cache.entries, cur + 1)

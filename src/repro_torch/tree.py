@@ -42,6 +42,27 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_map_with_path(fn: Callable, tree, *rest,
+                       path: Tuple[str, ...] = ()):
+    """``tree_map`` whose ``fn(path, leaf, *rest_leaves)`` also gets the
+    leaf's path: the dict keys, field names and sequence indices (as
+    strings) from the root, as ``jax.tree_util.tree_map_with_path`` passes
+    its key path."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, tree[k], *(r[k] for r in rest),
+                                      path=path + (str(k),))
+                for k in sorted(tree)}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map_with_path(fn, *xs, path=path + (f,))
+                            for f, *xs in zip(tree._fields, tree, *rest)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, *xs, path=path + (str(i),))
+                          for i, xs in enumerate(zip(tree, *rest)))
+    return fn(path, tree, *rest)
+
+
 def tree_flatten_with_names(tree, prefix: Tuple[str, ...] = ()
                             ) -> List[Tuple[str, Any]]:
     """(name, leaf) pairs; a name joins the dict keys, field names and

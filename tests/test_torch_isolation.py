@@ -1,6 +1,7 @@
-"""The port stands alone: no file of ``src/repro_torch/`` nor
-``chip_smoke.py`` imports ``jax`` or anything of ``repro``; its entry
-points default to the card; and ``chip_smoke.py`` fails, printing no
+"""The port stands alone: no file of ``src/repro_torch/``, of
+``examples/torch/`` nor ``chip_smoke.py`` imports ``jax`` or anything of
+``repro``; its entry points (the host mesh and the examples' ``--device``
+included) default to the card; and ``chip_smoke.py`` fails, printing no
 result, where there is no card or no repository around it."""
 
 import ast
@@ -16,8 +17,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
+    (ROOT / "examples" / "torch").glob("*.py")) + [ROOT / "chip_smoke.py"]
+DEVICE_EXAMPLES = ["schedule_and_run_cnn.py", "serve_lm.py", "train_lm.py"]
 
 
 def _imported_modules(path):
@@ -52,7 +54,11 @@ def test_port_files_found():
             "train_loop.py", "straggler.py", "model.py", "moe.py", "ssm.py",
             "rglru.py", "scan.py", "granite_moe_3b_a800m.py",
             "qwen3_moe_235b_a22b.py", "falcon_mamba_7b.py",
-            "recurrentgemma_9b.py", "whisper_small.py", "paligemma_3b.py"} <= names
+            "recurrentgemma_9b.py", "whisper_small.py", "paligemma_3b.py",
+            "sharding.py", "mesh.py", "dryrun.py", "roofline.py",
+            "quickstart.py", "elastic_reschedule.py",
+            "replicate_bottleneck.py", "serve_two_models.py",
+            "serve_with_slos.py", *DEVICE_EXAMPLES} <= names
 
 
 CORE_FILES = sorted((ROOT / "src" / "repro_torch" / "core").rglob("*.py"))
@@ -82,6 +88,7 @@ def test_entry_points_default_to_cuda():
     from repro_torch import weights
     from repro_torch.checkpoint import ckpt
     from repro_torch.data.pipeline import DataIterator, make_batch
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
     from repro_torch.models.cnn import layers, resnet
     from repro_torch.models.lm import (attention, mlp, model, moe, rglru, ssm,
                                        transformer)
@@ -93,8 +100,23 @@ def test_entry_points_default_to_cuda():
                moe.init, ssm.init, ssm.init_state, rglru.init, rglru.init_state,
                mlp.init_gated, mlp.init_plain, mlp.normal, train, make_batch,
                DataIterator, model.synth_batch, DeadlineDataIterator,
-               ckpt.restore, ckpt.restore_latest):
+               ckpt.restore, ckpt.restore_latest, make_host_mesh):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    assert inspect.signature(make_production_mesh).parameters[
+        "device_type"].default == "cuda"
+
+
+@pytest.mark.parametrize("name", DEVICE_EXAMPLES)
+def test_device_examples_default_to_cuda(name):
+    """The examples that touch tensors take ``--device``, default ``cuda``."""
+    tree = ast.parse((ROOT / "examples" / "torch" / name).read_text())
+    defaults = [kw.value.value for node in ast.walk(tree)
+                if isinstance(node, ast.Call)
+                and getattr(node.func, "attr", None) == "add_argument"
+                and node.args and getattr(node.args[0], "value", None)
+                == "--device"
+                for kw in node.keywords if kw.arg == "default"]
+    assert defaults == ["cuda"]
 
 
 def test_server_and_attention_follow_their_tensors():
