@@ -144,10 +144,24 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
    granite-moe at every shape on the fake 16x16 mesh, started as two
    subprocesses (no card visible) before phase 1 and collected here: each
    supported cell must end ``ok``; per cell the per-device peak, FLOPs
-   and collective bytes, and ``launch.roofline``'s row (model estimates
-   under H100 constants, not measurements);
+   and collective bytes by kind, each beside the reference's dry run of
+   the same cell (``tests/data/dryrun_reference_pod16x16.json``, made by
+   ``tests/data/make_dryrun_reference.py``: there is no jax here) and the
+   port / reference ratio (the peak also against the reference's less
+   XLA:CPU's f32 copies of its bf16 arguments), and
+   ``launch.roofline``'s row (model estimates under H100 constants, not
+   measurements);
 19. ``examples/torch/serve_lm.py`` and ``schedule_and_run_cnn.py`` on the
-   card as subprocesses: each must exit 0 and report kernel launches.
+   card as subprocesses: each must exit 0 and report kernel launches;
+20. this slice's path, the port's benchmark harness: ``python -m
+   benchmarks_torch.run fig2 fig3 table1 fig4 yolo kernels`` in a
+   subprocess must exit 0; the paper's suites run on the host, and the
+   kernel bench launches ``imc_mvm`` at the reference's three shapes and
+   f32 flash at its two on the card (each case sets the kernel's launch
+   count to 0 before it runs and reports it after: it must be nonzero),
+   each case equal to its plain version (``torch.equal``; max |d| <=
+   2e-4); the table of kernel, plain, library and bound times is printed
+   with the card's name and power limit.
 
 Detail goes to ``chiprun_out/chip_smoke.json``.  The line before the last
 is ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
@@ -1842,13 +1856,15 @@ def other_families(dev, detail, sync):
 
 
 # ---------------------------------------------------------------------------
-# Launch and sharding (phases 17-19)
+# Launch and sharding, and the benchmark harness (phases 17-20)
 # ---------------------------------------------------------------------------
 
 SHARD_BATCH, SHARD_PROMPT, SHARD_STEPS = 4, 2048, 32
 DRYRUN_ARCHS = ("gemma3-1b", "granite-moe-3b-a800m")
 DRYRUN_TIMEOUT_S = 900
+DRYRUN_REFERENCE = ROOT / "tests" / "data" / "dryrun_reference_pod16x16.json"
 CARD_EXAMPLES = ("serve_lm.py", "schedule_and_run_cnn.py")
+BENCH_SUITES = ("fig2", "fig3", "table1", "fig4", "yolo", "kernels")
 
 
 def start_dryruns():
@@ -2023,7 +2039,9 @@ def dryrun_cells(procs):
             raise AssertionError(f"dry run {arch}: exit {rc} (log in "
                                  f"chiprun_out/dryrun_{arch}.log)")
     log("dry run on the fake 16x16 mesh (256 ranks, CPU; model estimates "
-        "under H100 constants, not measurements):")
+        "under H100 constants, not measurements), each figure beside the "
+        "reference's dry run of the cell [ref] and port / ref:")
+    refs = json.loads(DRYRUN_REFERENCE.read_text())["cells"]
     cells = {}
     for arch in DRYRUN_ARCHS:
         for shape in SHAPES:
@@ -2042,12 +2060,24 @@ def dryrun_cells(procs):
             row = roofline.analyse(art)
             cost = art["cost"]
             coll = cost["collective_bytes_per_device"]
+            ref = refs[f"{arch}__{shape}"]
+            vs = dryrun.against_reference(art, ref)
             log(f"  {arch} x {shape}: ok, step {art['step_seconds']:.1f} s on "
                 f"the host; per device peak "
-                f"{art['memory']['peak_estimate_bytes'] / 2**30:.2f} GiB, "
-                f"{cost['flops_per_device']:.4e} FLOP, collectives "
-                + (", ".join(f"{k} {v / 2**20:.1f} MiB"
-                             for k, v in sorted(coll.items())) or "none"))
+                f"{art['memory']['peak_estimate_bytes'] / 2**30:.2f} GiB "
+                f"[{ref['memory']['peak_estimate_bytes'] / 2**30:.2f}] "
+                f"{vs['peak']:.2f}x (against the reference less its f32 "
+                f"copies: {vs['peak_held']:.2f}x), "
+                f"{cost['flops_per_device']:.4e} FLOP "
+                f"[{ref['cost']['flops_per_device']:.4e}] {vs['flops']:.2f}x "
+                f"(matrix products {vs['matmul_flops']:.2f}x), collectives "
+                "MiB port [reference; with its tuple collectives] "
+                + (", ".join(f"{k} {g / 2**20:.1f} [{w / 2**20:.1f}; "
+                             f"{t / 2**20:.1f}] "
+                             + (f"{g / w:.2f}x" if w else "-")
+                             for k, (g, w, t) in vs["collectives"].items())
+                   or "none"))
+            art["against_reference"] = vs
             log(f"    roofline (estimate): compute {row.compute_s:.3e} s, "
                 f"memory(ops) {row.memory_s:.3e} s, memory(fused) "
                 f"{row.memory_fused_s:.3e} s, collective {row.collective_s:.3e}"
@@ -2085,6 +2115,68 @@ def examples_on_card():
         log(f"example {name}: exit 0 in {wall:.1f} s (process start and "
             f"kernel load included)")
     return out
+
+
+#: the reference's kernel-bench cases (``benchmarks/kernel_bench.py``)
+BENCH_CASES = ("imc_mvm.256x512x512", "imc_mvm.1024x1024x1024",
+               "imc_mvm.128x4096x4096", "flash.2x8x1024x128",
+               "flash.1x8x4096x128")
+
+
+def check_kernel_bench(kb):
+    """The kernel bench's record must hold every reference case, each run
+    on the card (a kernel time), launched (a nonzero count) and equal to
+    its plain version."""
+    if tuple(kb) != BENCH_CASES:
+        raise AssertionError(f"kernel bench: cases {list(kb)}, want "
+                             f"{list(BENCH_CASES)}")
+    for name, rec in kb.items():
+        if "kernel_us" not in rec or not rec.get("matches_plain") \
+                or rec.get("launches", 0) < 1:
+            raise AssertionError(f"kernel bench {name}: {rec}")
+    return kb
+
+
+def bench_on_card(card):
+    """Phase 20: the port's benchmark harness as a user runs it, in a
+    subprocess: the paper's suites on the host and the kernel bench on the
+    card.  It must exit 0, and every kernel-bench case must have launched
+    its kernel and equal its plain version."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "benchmarks_torch.run", *BENCH_SUITES]
+    t = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=900)
+    wall = time.perf_counter() - t
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "bench_torch.log").write_text(res.stdout + res.stderr)
+    if res.returncode != 0:
+        raise AssertionError(f"benchmarks_torch.run: exit {res.returncode}: "
+                             f"{res.stderr[-2000:]}")
+    for line in res.stdout.splitlines():
+        if line.startswith("CSV,") or "paper" in line:
+            log(f"  {line}")
+    art = ROOT / "artifacts" / "bench_torch"
+    kb = check_kernel_bench(json.loads((art / "kernel_bench.json")
+                                       .read_text()))
+    log(f"kernel bench on {card} (CUDA events, launches back to back, "
+        f"warm; µs):")
+    log("  case                     kernel      plain    library      bound"
+        "  bound by            launches  max |d|")
+    for name, rec in kb.items():
+        log(f"  {name:<22s} {rec['kernel_us']:10.2f} {rec['plain_us']:10.2f} "
+            f"{rec['library_us']:10.2f} {rec['bound_us']:10.2f}  "
+            f"{rec['bound']} ({rec['bound_constant']}){'':<3s} "
+            f"{rec['launches']:8d}  {rec['max_abs_err']:.2e}  "
+            f"[{rec['library']}]")
+    suites = {n: json.loads((art / f"{f}.json").read_text()) for n, f in
+              (("fig2", "fig2_resnet8"), ("fig3", "fig3_resnet18"),
+               ("table1", "table1_utilization"), ("fig4", "fig4_imc_dpu"),
+               ("yolo", "yolo_latency"))}
+    log(f"benchmarks_torch.run {' '.join(BENCH_SUITES)}: exit 0 in "
+        f"{wall:.1f} s (process start and kernel load included)")
+    return {"wall_s": wall, "kernel_bench": kb, "suites": suites}
 
 
 def main() -> int:
@@ -2594,6 +2686,10 @@ def run_phases(dryruns) -> int:
     torch.cuda.empty_cache()
     detail["dryrun"] = dryrun_cells(dryruns)
     detail["examples"] = examples_on_card()
+
+    # ---- 20. the benchmark harness: paper suites, kernel bench on the card -
+    torch.cuda.empty_cache()
+    detail["bench"] = bench_on_card(card)
 
     detail["card"] = card
     detail["device"] = torch.cuda.get_device_name(0)

@@ -15,9 +15,11 @@ port runs the step itself, the PyTorch way:
   (``sharding.distribute``) as DTensors of fake local shards, and the
   cell's step runs eagerly under ``sharding.activation_mesh``
   (``train_4k``: the train step, forward, backward and AdamW, with its
-  microbatches; prefill and decode: their serving steps).  CPU tensors
-  send ``kernels.ops.attention`` to its plain version, so attention's
-  FLOPs are the reference's jnp ``attend``;
+  microbatches; prefill and decode: their serving steps), and places its
+  outputs as the reference's ``out_shardings`` do.  CPU tensors send
+  ``kernels.ops.attention`` to its plain version (q-chunked from 8,192
+  tokens, as the reference's ``forward``), so attention's FLOPs are the
+  reference's jnp ``attend``;
 * ``CostMode``, a dispatch mode under the DTensors, sees every local aten
   op that rank 0 runs, with its local shapes.
 
@@ -27,10 +29,14 @@ in the reference's layout: ``status`` (``ok``, ``skipped`` by
 as data; the command exits 1 at the end if any cell failed), ``memory``
 (per-device argument and output bytes, exact from the local shard sizes,
 and the peak of live local storage that ``CostMode`` tracks under fake
-tensors) and ``cost`` (FLOPs, bytes accessed and collective bytes per
-device).  A decode cell runs one step at position ``seq_len - 1`` of a
-cache of ``seq_len``: the reference's abstract cache position has no
-value, and the port's decode refuses a position past its cache.
+tensors; a cache position counts as the reference's int32 scalar) and
+``cost`` (FLOPs by the reference's rule, matrix products and
+elementwise ops, with the matrix products' share apart; bytes accessed
+and collective bytes per device).  A decode cell runs one step at
+position ``seq_len - 1`` of a cache of ``seq_len``: the reference's
+abstract cache position has no value, and the port's decode refuses a
+position past its cache.  ``tests/test_torch_dryrun_parity.py`` holds
+these figures against the reference's.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch gemma3-1b --shape train_4k
@@ -104,6 +110,37 @@ def _in_sharding_propagation() -> bool:
     return False
 
 
+#: pointwise ops that move data and compute nothing (XLA counts no FLOPs
+#: for copies), and the transcendentals, which XLA's cost analysis counts
+#: apart from its FLOPs
+_NO_FLOP_POINTWISE = frozenset({
+    "clone", "copy", "copy_", "fill", "fill_", "zero_", "lift_fresh",
+    "exp", "exp_", "exp2", "expm1", "log", "log_", "log2", "log10", "log1p",
+    "tanh", "tanh_", "rsqrt", "sqrt", "sin", "cos", "tan", "sigmoid", "erf",
+    "erfinv", "pow", "atan2", "logit"})
+
+
+def _elementwise_flops(func, args, kwargs, outs) -> float:
+    """FLOPs of one op by the rule of XLA's ``HloCostAnalysis``, whose
+    count the reference's dry run reports: one per output element of an
+    arithmetic elementwise op (a compare, a select and a dtype conversion
+    included), one per input element of a reduction; none for data
+    movement or transcendentals."""
+    name = func._schema.name.split("::")[-1]
+    if torch.Tag.pointwise in func.tags:
+        if name in _NO_FLOP_POINTWISE:
+            return 0.0
+        return float(sum(t.numel() for t in outs))
+    if torch.Tag.reduction in func.tags:
+        ins = _tensors((args, kwargs))
+        return float(ins[0].numel()) if ins else 0.0
+    if name == "_to_copy" and outs:
+        src = _tensors(args)
+        if src and src[0].dtype != outs[0].dtype:
+            return float(outs[0].numel())
+    return 0.0
+
+
 class CostMode(TorchDispatchMode):
     """Counts the local aten ops that this rank runs beneath the DTensors
     (DTensor-level ops are passed on with ``NotImplemented``, so each is
@@ -112,6 +149,9 @@ class CostMode(TorchDispatchMode):
     * ``flops``: ``torch.utils.flop_counter``'s count of each local op
       (matrix products and convolutions; FlopCounterMode around DTensor
       code would count the global op);
+    * ``elementwise``: the other ops' FLOPs by the rule of XLA's cost
+      analysis (``_elementwise_flops``), so that ``flops + elementwise``
+      counts what the reference's ``flops`` counts;
     * ``bytes``: operand plus result bytes of every local op that is not
       a view, which is what XLA:CPU's pre-fusion "bytes accessed" counts;
     * ``collectives``: ``(kind, result bytes)`` of each functional
@@ -119,7 +159,11 @@ class CostMode(TorchDispatchMode):
     * ``live``/``peak``: bytes of live local storage, each new storage
       added when an op returns it and dropped by a finalizer when it is
       freed (a fake tensor's storage has a size and no data), so the peak
-      is that of this rank under the step's own allocation order.
+      is that of this rank under the step's own allocation order;
+    * ``read``: the storages some op other than a view took as an
+      input, so that an argument the step never reads (whisper's encoder
+      at decode) is not counted, as ``jax.jit`` prunes unused arguments
+      from the reference's program.
     """
 
     def __init__(self, count: bool = True) -> None:
@@ -128,10 +172,12 @@ class CostMode(TorchDispatchMode):
         self.flop_registry = flop_registry
         self.count = count
         self.flops = 0.0
+        self.elementwise = 0.0
         self.bytes = 0.0
         self.collectives: list = []
         self.live = 0
         self.peak = 0
+        self.read: set = set()
         self._storages: Dict[int, int] = {}
 
     def track(self, tensors) -> None:
@@ -160,19 +206,27 @@ class CostMode(TorchDispatchMode):
             return out
         fresh = all(r.alias_info is None for r in func._schema.returns)
         outs = _tensors(out)
+        # an op that computes (not a view, not a metadata query)
+        computes = bool(outs) and (fresh or func._schema.is_mutable)
+        if computes:
+            self.read.update(id(t.untyped_storage())
+                             for t in _tensors((args, kwargs)))
         name = func._schema.name
         if name.startswith("_c10d_functional::"):
             kind = name.split("::")[1]
             if kind != "wait_tensor" and self.count:
                 self.collectives.append((_COLLECTIVE_KINDS.get(
                     kind, kind), float(sum(_nbytes(t) for t in outs))))
-        elif self.count and outs and (fresh or func._schema.is_mutable):
+        elif self.count and computes:
             self.bytes += sum(_nbytes(t) for t in _tensors((args, kwargs)))
             self.bytes += sum(_nbytes(t) for t in outs)
             packet = func._overloadpacket
             if packet in self.flop_registry:
                 self.flops += self.flop_registry[packet](*args, **kwargs,
                                                          out_val=out)
+            else:
+                self.elementwise += _elementwise_flops(func, args, kwargs,
+                                                       outs)
         if fresh:
             self.track(outs)
         return out
@@ -210,26 +264,52 @@ def _fake(meta_tree):
 
 def build_step(cfg: LMConfig, shape: ShapeSpec, mesh):
     """Returns (step, args) for the cell: ``args`` placed by the sharding
-    rules as DTensors of fake shards (call inside ``FakeTensorMode``)."""
+    rules as DTensors of fake shards (call inside ``FakeTensorMode``).
+    The step places its outputs as the reference's ``jax.jit`` does by its
+    ``out_shardings``: parameters and optimizer state by the rules, a
+    cache by ``cache_shardings``, logits and metrics replicated (which
+    gathers the logits onto every rank, as the reference's program
+    does)."""
+    rep = sharding.replicated(mesh)
     aparams = model.abstract_params(cfg)
-    params = sharding.distribute(_fake(aparams), sharding.param_shardings(
-        cfg, mesh, aparams))
+    ps = sharding.param_shardings(cfg, mesh, aparams)
+    params = sharding.distribute(_fake(aparams), ps)
     batch_spec = _meta(model.make_batch_spec(cfg, shape))
     batch = sharding.distribute(_fake(batch_spec), sharding.batch_shardings(
         mesh, batch_spec))
+
+    def placed(step, out_shardings):
+        """``step`` with each output placed by its sharding tree (or by
+        the tree a callable makes of the output: the metrics dict)."""
+        def run(*args):
+            outs = step(*args)
+            return tuple(sharding.distribute(o, s(o) if callable(s) else s)
+                         for o, s in zip(outs, out_shardings))
+        return run
+
     if shape.mode == "train":
         aopt = model.abstract_opt_state(cfg)
-        opt = sharding.distribute(_fake(aopt), sharding.opt_shardings(
-            cfg, mesh, aopt, aparams))
-        return model.make_train_step(cfg, mesh=mesh), (params, opt, batch)
-    if shape.mode == "prefill":
-        return model.make_prefill_step(cfg, s_max=shape.seq_len), (params,
-                                                                   batch)
+        os_ = sharding.opt_shardings(cfg, mesh, aopt, aparams)
+        opt = sharding.distribute(_fake(aopt), os_)
+        met = lambda m: {k: rep for k in m}  # noqa: E731
+        return placed(model.make_train_step(cfg, mesh=mesh),
+                      (ps, os_, met)), (params, opt, batch)
     acache = _meta(model.init_cache_spec(cfg, shape))
-    cache = sharding.distribute(_fake(acache), sharding.cache_shardings(
-        mesh, acache))
+    cs = sharding.cache_shardings(mesh, acache)
+    if shape.mode == "prefill":
+        return placed(model.make_prefill_step(cfg, s_max=shape.seq_len),
+                      (rep, cs)), (params, batch)
+    cache = sharding.distribute(_fake(acache), cs)
     cache = cache._replace(cur_pos=shape.seq_len - 1)
-    return model.make_decode_step(cfg), (params, batch["token"], cache)
+    return placed(model.make_decode_step(cfg), (rep, cs)), (
+        params, batch["token"], cache)
+
+
+def _position_bytes(tree) -> int:
+    """Bytes of the reference's int32 cache positions in ``tree``: a
+    ``ServeCache``'s ``cur_pos`` is a host int here and a device scalar
+    argument and result there."""
+    return sum(4 for x in tree_leaves(tree) if type(x) is int)
 
 
 def _measure(cfg: LMConfig, shape: ShapeSpec, mesh, count: bool = True):
@@ -247,10 +327,12 @@ def _measure(cfg: LMConfig, shape: ShapeSpec, mesh, count: bool = True):
         seconds = time.perf_counter() - t0
         out_local = _local(outs)
         arg_ids = {id(t.untyped_storage()) for t in arg_local}
-        argument = sum(_nbytes(t) for t in arg_local)
-        output = sum(_nbytes(t) for t in out_local)
+        positions = _position_bytes(args)
+        argument = sum(_nbytes(t) for t in arg_local
+                       if id(t.untyped_storage()) in mode.read) + positions
+        output = sum(_nbytes(t) for t in out_local) + _position_bytes(outs)
         alias = sum(_nbytes(t) for t in out_local
-                    if id(t.untyped_storage()) in arg_ids)
+                    if id(t.untyped_storage()) in arg_ids) + positions
         peak = mode.peak
         del outs, args
     return mode, {
@@ -272,7 +354,8 @@ def _n_microbatches(cfg: LMConfig, shape: ShapeSpec) -> int:
 def _cost(cfg: LMConfig, shape: ShapeSpec, mode: CostMode) -> Dict:
     return {
         "n_microbatches": _n_microbatches(cfg, shape),
-        "flops_per_device": mode.flops,
+        "flops_per_device": mode.flops + mode.elementwise,
+        "matmul_flops_per_device": mode.flops,
         "bytes_per_device": mode.bytes,
         "collective_bytes_per_device": parse_collectives(mode.collectives),
         "segments": [],
@@ -324,6 +407,37 @@ def _fake_mesh(multi_pod: bool):
         dist.init_process_group("fake", store=FakeStore(), rank=0,
                                 world_size=n)
     return make_production_mesh(multi_pod=multi_pod, device_type="cpu")
+
+
+def against_reference(art: Dict, ref: Dict) -> Dict:
+    """Port / reference ratios of one cell: ``art`` a cell of this dry run,
+    ``ref`` the reference's (``tests/data/dryrun_reference_pod16x16.json``,
+    whose generator adds ``f32_copy_bytes``, ``dot_flops_per_device`` and
+    ``collective_bytes_with_tuples`` from the reference's own programs).
+    ``peak_held`` divides by the reference's peak less the f32 copies
+    XLA:CPU makes of its bf16 arguments, floored at what any program of
+    the step holds (arguments + outputs - aliased); ``matmul_flops``
+    divides the matrix products' FLOPs by the reference's ``dot`` FLOPs;
+    ``collectives`` maps each kind to (port, reference, reference with
+    its tuple-shaped collectives) bytes."""
+    mem, cost = ref["memory"], ref["cost"]
+    held = max(mem["peak_estimate_bytes"] - mem["f32_copy_bytes"],
+               mem["argument_bytes"] + mem["output_bytes"]
+               - mem["alias_bytes"])
+    peak = art["memory"]["peak_estimate_bytes"]
+    got = art["cost"]["collective_bytes_per_device"]
+    want = cost["collective_bytes_per_device"]
+    tuples = cost["collective_bytes_with_tuples"]
+    return {
+        "peak": peak / mem["peak_estimate_bytes"], "peak_held": peak / held,
+        "flops": art["cost"]["flops_per_device"] / cost["flops_per_device"],
+        "matmul_flops": art["cost"]["matmul_flops_per_device"]
+        / cost["dot_flops_per_device"],
+        "argument_equal": art["memory"]["argument_bytes"]
+        == mem["argument_bytes"],
+        "collectives": {k: (got.get(k, 0.0), want.get(k, 0.0),
+                            tuples.get(k, 0.0))
+                        for k in sorted(set(got) | set(want) | set(tuples))}}
 
 
 def cell_path(arch: str, shape_name: str, mesh_name: str) -> str:

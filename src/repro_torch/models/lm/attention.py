@@ -30,17 +30,24 @@ reference computes it with ``attend``.  So does cross-attention
 plain ``attend`` with no rope and no mask, never to the flash kernel,
 whose queries and keys share one length.
 
-The reference's sharding hooks sit at its places: ``_pad_heads`` and
-``_constrain_attn`` in every full-sequence route (no-ops without an
-``activation_mesh``).  Under a mesh the prefill runs the kernel shard by
-shard (``_flash``, through ``local_map``): batch over the data axes,
-heads over ``model``.  The kernel maps query head h to KV head
-``h // (H / KV)``, which holds within each shard when both H and KV
-divide the model axis; otherwise K/V are expanded to H heads first, as
-the reference always does.  Rope tables and masks built here become
-replicated DTensors when their operands are DTensors
+The reference's sharding hooks sit at its places: ``_pad_heads`` (on
+the projections' weights here) and ``_constrain_attn`` in every
+full-sequence route (no-ops without an ``activation_mesh``).  Under a
+mesh the prefill runs the kernel shard by shard (``_flash``, through
+``local_map``): batch over the data axes, heads over ``model``.  The
+kernel maps query head h to KV head ``h // (H / KV)``, which holds
+within each shard when both H and KV divide the model axis; otherwise
+K/V are expanded to H heads first, as the reference always does.
+Padded heads stay split through ``wo`` (padded with zero rows), so the
+output projection is the row-parallel partial sum the reference's is,
+and no rank gathers the heads to slice them off.  Rope tables and masks
+built here become replicated DTensors when their operands are DTensors
 (``sharding.replicate_like``), and a decode step writes its K/V into
-the (possibly sequence-sharded) cache with ``sharding.write_slot``.
+the (possibly sequence-sharded) cache with ``sharding.write_slot`` and
+attends over it where it lies (``_attend_cache``): each rank over its
+own sequence shard, the softmax reduced across shards, as GSPMD does
+for the reference's rule "decode attention reduces over S with
+collectives".
 """
 
 from __future__ import annotations
@@ -57,43 +64,52 @@ from .mlp import normal
 from .sharding import constrain, constrain_tokens, replicate_like
 
 
-def _pad_heads(q, k, v):
+def _pad_heads(wq, wk, wv):
     """Zero-pad the head axis to the next multiple of the model-axis size
     so attention shards by head, as the reference does.
 
-    Padded q heads see zero k/v and their output is sliced off before wo:
-    numerics are untouched; the cost is (H_pad/H - 1) extra attention
-    FLOPs.  K/V (B, S, KV, hd) are first expanded to H heads unless H and
-    KV both divide the model axis (then the kernel's head-group map holds
-    within each shard).  Without an activation mesh nothing changes.
-    Returns (q, k, v, real_H).
+    The port pads the projections' weights (D, heads, hd) where the
+    reference pads q/k/v: padded q heads get zero weights, so they are
+    zero and see zero k/v, their output is zero and ``wo`` gets zero rows
+    for them (``_out_proj_padded``): numerics are untouched; the cost is
+    (H_pad/H - 1) extra attention FLOPs.  K/V weights are first expanded
+    to H heads unless H and KV both divide the model axis (then the
+    kernel's head-group map holds within each shard).  The padded weights
+    are split by head over ``model``, so q/k/v are born split, each rank
+    projects only its own heads, and the projections' input gradient is
+    a partial sum over ``model`` (one all-reduce of the tokens, as GSPMD
+    reduces the reference's), where padding the activations and then
+    splitting them would gather every head's gradient onto every rank.
+    Without an activation mesh nothing changes.  Returns (wq, wk, wv,
+    real_H).
     """
     mesh = sharding._ACT_MESH.get()
-    H = q.shape[2]
+    H = wq.shape[1]
     if mesh is None:
-        return q, k, v, H
+        return wq, wk, wv, H
     m = sharding.mesh_axes(mesh)["model"]
-    if H % m == 0 and k.shape[2] % m == 0:
-        return q, k, v, H
+    if H % m == 0 and wk.shape[1] % m == 0:
+        return wq, wk, wv, H
 
-    def expand_pad(q, k, v):
-        k, v = _expand_kv(k, H), _expand_kv(v, H)
-        if H % m == 0:
-            return q, k, v
+    def expand_pad(wq, wk, wv):
+        wk, wv = (torch.repeat_interleave(w, H // w.shape[1], dim=1)
+                  for w in (wk, wv))
         z = (0, 0, 0, (-H) % m)
-        return F.pad(q, z), F.pad(k, z), F.pad(v, z)
+        return F.pad(wq, z), F.pad(wk, z), F.pad(wv, z)
 
-    if not sharding._is_dtensor(q):
-        return (*expand_pad(q, k, v), H)
+    if not sharding._is_dtensor(wq):
+        return (*expand_pad(wq, wk, wv), H)
     # shard by shard, heads whole (DTensor's pad is not reliable across
-    # PyTorch releases)
+    # PyTorch releases), then split by head
     from torch.distributed.tensor.experimental import local_map
-    dp = sharding.dp_axes(mesh)
-    q, k, v = (sharding.to_spec(t, [dp, None, None, None]) for t in (q, k, v))
-    pl = q.placements
-    return (*local_map(expand_pad, out_placements=(pl, pl, pl),
-                       in_placements=(pl, pl, pl), device_mesh=mesh)(q, k, v),
-            H)
+    wq, wk, wv = (sharding.to_spec(w, [None, None, None])
+                  for w in (wq, wk, wv))
+    pl = wq.placements
+    wq, wk, wv = local_map(expand_pad, out_placements=(pl, pl, pl),
+                           in_placements=(pl, pl, pl),
+                           device_mesh=mesh)(wq, wk, wv)
+    return (*(sharding.to_spec(w, [None, "model", None])
+              for w in (wq, wk, wv)), H)
 
 
 def _constrain_attn(q, k, v):
@@ -112,8 +128,8 @@ def _per_shard(fn, q, k, v):
     shard by shard with ``local_map``: batch over the data axes, heads over
     ``model`` where both q's and k's head counts divide it (then query head
     h of a shard still reads KV head ``h // (H / KV)`` of that shard), the
-    sequence whole (a sequence-sharded cache is gathered first: the port
-    runs no softmax across shards)."""
+    sequence whole (a cache split along its sequence goes to
+    ``_attend_cache`` instead)."""
     if not sharding._is_dtensor(q):
         return fn(q, k, v)
     from torch.distributed.tensor.experimental import local_map
@@ -146,6 +162,59 @@ def _attend_kv(q, k, v, bias, softcap, scale):
         return attend(q, _expand_kv(k, H), _expand_kv(v, H), bias, softcap,
                       scale)
     return _per_shard(local, q, k, v)
+
+
+def _attend_cache(q, k, v, bias, softcap, scale):
+    """``_attend_kv`` of q (B, Sq, H, hd) over a cache k/v (B, S_max, KV,
+    hd), ``bias`` a plain (1, 1, Sq, S_max) tensor or None.  Where DTensor
+    splits the cache's sequence over mesh axes, the cache is never
+    gathered: each rank computes, over its own sequence shard, the row
+    max, the exponentials and the partial P.V; the max is all-reduced
+    first, then the sum of exponentials and the f32 P.V (functional
+    collectives inside ``local_map``), so the probabilities are the global
+    softmax, cast to v's dtype before P.V as in ``attend``.  q's batch and
+    heads follow the cache's split of its own; its sequence is whole."""
+    if not sharding.splits_dim(k, 1):
+        return _attend_kv(q, k, v, bias, softcap, scale)
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = k.device_mesh
+    seq = [i for i, pl in enumerate(k.placements)
+           if isinstance(pl, Shard) and pl.dim == 1]
+    q_pl = tuple(Replicate() if i in seq else pl
+                 for i, pl in enumerate(k.placements))
+    bias_pl = tuple(Shard(3) if i in seq else Replicate()
+                    for i in range(mesh.ndim))
+    if bias is None:
+        bias = torch.zeros((1, 1, q.shape[1], k.shape[1]), device=q.device)
+    q = q.redistribute(mesh, q_pl)
+    v = v.redistribute(mesh, k.placements)
+    bias = replicate_like(bias, k).redistribute(mesh, bias_pl)
+
+    def reduce(t, op):
+        for i in seq:
+            t = funcol.all_reduce(t, op, (mesh, i))
+        return t
+
+    def local(q, k, v, bias):
+        H = q.shape[2]
+        k, v = _expand_kv(k, H), _expand_kv(v, H)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) \
+            * scale
+        if softcap is not None:
+            logits = torch.tanh(logits / softcap) * softcap
+        logits = logits + bias
+        e = torch.exp(logits - reduce(logits.amax(-1, keepdim=True), "max"))
+        probs = (e / reduce(e.sum(-1, keepdim=True), "sum")).to(v.dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+        return (reduce(out.to(torch.float32), "sum").to(v.dtype),)
+
+    out, = local_map(local, out_placements=(q_pl,),
+                     in_placements=(q_pl, k.placements, k.placements,
+                                    bias_pl),
+                     device_mesh=mesh)(q, k, v, bias)
+    return out
 
 
 class AttnParams(NamedTuple):
@@ -268,20 +337,27 @@ def _cross(p: AttnParams, x: torch.Tensor, kv_from: torch.Tensor,
            softcap: Optional[float]) -> torch.Tensor:
     """Cross-attention of x (B, S, D) over ``kv_from`` (B, S_enc, D): no
     rope, no mask, the plain ``attend``."""
-    H, hd = p.wq.shape[1], p.wq.shape[2]
-    q = _project(x, p.wq)
-    k = _expand_kv(_project(kv_from, p.wk), H)
-    v = _expand_kv(_project(kv_from, p.wv), H)
-    q, k, v, real_h = _pad_heads(q, k, v)
+    hd = p.wq.shape[2]
+    wq, wk, wv, real_h = _pad_heads(p.wq, p.wk, p.wv)
+    q = _project(x, wq)
+    k = _expand_kv(_project(kv_from, wk), q.shape[2])
+    v = _expand_kv(_project(kv_from, wv), q.shape[2])
     q, k, v = _constrain_attn(q, k, v)
-    out = _real_heads(_attend_kv(q, k, v, None, softcap, 1.0 / math.sqrt(hd)),
-                      real_h)
-    return _out_proj(out, p.wo)
+    out = _attend_kv(q, k, v, None, softcap, 1.0 / math.sqrt(hd))
+    return _out_proj_padded(out, p.wo, real_h)
 
 
-def _real_heads(out: torch.Tensor, real_h: int) -> torch.Tensor:
-    """(B, S, H_pad, hd) -> the first ``real_h`` heads."""
-    return out if out.shape[2] == real_h else out[:, :, :real_h]
+def _out_proj_padded(out: torch.Tensor, wo: torch.Tensor,
+                     real_h: int) -> torch.Tensor:
+    """``_out_proj`` of (B, S, H_pad, hd), whose heads from ``real_h`` on
+    are padding (``_pad_heads``): ``wo`` gets zero rows for them, so the
+    padded heads, exact zeros, add nothing, and heads split over
+    ``model`` stay split into the row-parallel product (slicing them off
+    would gather every head onto every rank)."""
+    pad = out.shape[2] - real_h
+    if pad:
+        wo = sharding.pad(wo, (0, 0, 0, 0, 0, pad))
+    return _out_proj(out, wo)
 
 
 def forward_train(p: AttnParams, x: torch.Tensor, positions: torch.Tensor, *,
@@ -296,17 +372,17 @@ def forward_train(p: AttnParams, x: torch.Tensor, positions: torch.Tensor, *,
     if kv_from is not None:
         return _cross(p, x, kv_from, softcap)
     S = x.shape[1]
-    H, hd = p.wq.shape[1], p.wq.shape[2]
-    q = _project(x, p.wq)
-    k = _project(x, p.wk)
-    v = _project(x, p.wv)
+    hd = p.wq.shape[2]
+    wq, wk, wv, real_h = _pad_heads(p.wq, p.wk, p.wv)
+    q = _project(x, wq)
+    k = _project(x, wk)
+    v = _project(x, wv)
     if use_rope:
         cos, sin = _rope_tables(positions, hd, q)
         q = rope.apply_rope(q, cos, sin)
         k = rope.apply_rope(k, cos, sin)
-    k = _expand_kv(k, H)
-    v = _expand_kv(v, H)
-    q, k, v, real_h = _pad_heads(q, k, v)
+    k = _expand_kv(k, q.shape[2])
+    v = _expand_kv(v, q.shape[2])
     q, k, v = _constrain_attn(q, k, v)
     scale = 1.0 / math.sqrt(hd)
     if S < CHUNK_THRESHOLD:
@@ -320,7 +396,7 @@ def forward_train(p: AttnParams, x: torch.Tensor, positions: torch.Tensor, *,
             outs.append(_attend_kv(q[:, i0:i0 + Q_CHUNK], k, v, bias,
                                    softcap, scale))
         out = torch.cat(outs, dim=1)
-    return _out_proj(_real_heads(out, real_h), p.wo)
+    return _out_proj_padded(out, p.wo, real_h)
 
 
 def _rope_tables(positions: torch.Tensor, hd: int, like: torch.Tensor):
@@ -340,24 +416,33 @@ def forward(p: AttnParams, x: torch.Tensor, positions: torch.Tensor, *,
     result is cast to the working dtype before ``wo``, since the
     reference's ``attend`` returns v's dtype.  With ``kv_from`` (B, S_enc,
     D) it is cross-attention, which the reference computes with the plain
-    ``attend`` (no rope, no mask) and so does the port."""
+    ``attend`` (no rope, no mask) and so does the port.
+
+    Off the card (the plain version, and the dry run's fake CPU tensors),
+    from ``CHUNK_THRESHOLD`` tokens the prefill takes ``forward_train``'s
+    q-chunked plain route, the reference's ``forward``: the plain version
+    of the kernel would hold (B, H, S, S) logits, where the kernel and the
+    reference hold O(S) and (B, H, Q_CHUNK, S).  A CUDA tensor always
+    launches the kernel."""
     if kv_from is not None:
         return _cross(p, x, kv_from, softcap)
+    if x.shape[1] >= CHUNK_THRESHOLD and x.device.type != "cuda":
+        return forward_train(p, x, positions, causal=causal, window=window,
+                             softcap=softcap, use_rope=use_rope)
     hd = p.wq.shape[2]
-    q = _project(x, p.wq)
-    k = _project(x, p.wk)
-    v = _project(x, p.wv)
+    wq, wk, wv, real_h = _pad_heads(p.wq, p.wk, p.wv)
+    q = _project(x, wq)
+    k = _project(x, wk)
+    v = _project(x, wv)
     if use_rope:
         # the reference calls rope_angles with its default theta, whatever
         # cfg.rope_theta says; the port does the same
         cos, sin = _rope_tables(positions, hd, q)
         q = rope.apply_rope(q, cos, sin)
         k = rope.apply_rope(k, cos, sin)
-    q, k, v, real_h = _pad_heads(q, k, v)
     q, k, v = _constrain_attn(q, k, v)
     out = _flash(q, k, v, causal=causal, window=window, softcap=softcap)
-    out = _real_heads(out, real_h).to(v.dtype)
-    return _out_proj(out, p.wo)
+    return _out_proj_padded(out.to(v.dtype), p.wo, real_h)
 
 
 # ---------------------------------------------------------------------------
@@ -389,7 +474,7 @@ def prefill(p: AttnParams, x: torch.Tensor, positions: torch.Tensor,
     if pad > 0:
         k = sharding.pad(k, (0, 0, 0, 0, 0, pad))
         v = sharding.pad(v, (0, 0, 0, 0, 0, pad))
-    return KVCache(k, v)
+    return KVCache(sharding.constrain_cache(k), sharding.constrain_cache(v))
 
 
 def cross_decode(p: AttnParams, x: torch.Tensor, cache: KVCache) -> torch.Tensor:
@@ -397,7 +482,7 @@ def cross_decode(p: AttnParams, x: torch.Tensor, cache: KVCache) -> torch.Tensor
     (unpadded) encoder KV cache."""
     hd = p.wq.shape[2]
     q = _project(x, p.wq)
-    out = _attend_kv(q, cache.k, cache.v, None, None, 1.0 / math.sqrt(hd))
+    out = _attend_cache(q, cache.k, cache.v, None, None, 1.0 / math.sqrt(hd))
     return _out_proj(out, p.wo)
 
 
@@ -429,6 +514,7 @@ def decode_step(p: AttnParams, x: torch.Tensor, cache: KVCache, cur_pos: int,
     sharding.write_slot(cache.v, v_new.to(cache.v.dtype), 1, cur_pos)
     k_pos = torch.arange(S_max, device=x.device)
     bias = _mask_bias(pos, k_pos, True, window)[None, None]
-    out = _attend_kv(q, cache.k, cache.v, bias, softcap, 1.0 / math.sqrt(hd))
+    out = _attend_cache(q, cache.k, cache.v, bias, softcap,
+                        1.0 / math.sqrt(hd))
     y = _out_proj(out, p.wo)
     return y, cache

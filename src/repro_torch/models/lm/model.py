@@ -110,7 +110,7 @@ def loss_fn(cfg: LMConfig, params, batch: Dict[str, torch.Tensor]) -> torch.Tens
     # shift: predict t+1 from t
     logits = logits[:, :-1]
     targets = batch["labels"][:, 1:]
-    logz = torch.logsumexp(logits, dim=-1)
+    logz = sharding.logsumexp(logits)
     gold = sharding.take_last(logits, targets)
     return torch.mean(logz - gold)
 

@@ -31,8 +31,9 @@ that express it: ``Shard(d)`` on every mesh dim named for tensor dim
 its shardings (the counterpart of ``jax.jit(in_shardings=...)``).
 
 The activation hooks (``constrain``, ``constrain_tokens``,
-``constrain_moe_slots``) redistribute a DTensor to the guarded
-placements while ``activation_mesh`` is active, the counterpart of
+``constrain_moe_slots``, and the port's ``constrain_cache``)
+redistribute a DTensor to the guarded placements while
+``activation_mesh`` is active, the counterpart of
 ``with_sharding_constraint``; without an active mesh, or on a plain
 tensor, they return their input untouched.  The rest is the port's own,
 for what GSPMD does for the reference and DTensor does not, or not on
@@ -40,8 +41,8 @@ every PyTorch release: ``replicate_like`` (DTensor refuses to mix plain
 tensors with DTensors), ``per_batch_shard`` and ``lookup_rows``
 (data-dependent indexing, run shard by shard with explicit gradient
 placements), ``write_slot`` (an in-place write into a view across a
-split dim is silently lost), ``take_last``, ``pad`` and ``stack``.  On
-plain tensors each is the plain op.
+split dim is silently lost), ``logsumexp``, ``take_last``, ``pad`` and
+``stack``.  On plain tensors each is the plain op.
 """
 
 from __future__ import annotations
@@ -413,6 +414,16 @@ def constrain_tokens(x):
     return constrain(x, lambda mesh, dp: [dp] + [None] * (x.ndim - 1))
 
 
+def constrain_cache(x):
+    """A layer's KV cache (B, S_max, KV, hd) placed by ``cache_pspec`` as
+    it is made, so a prefill never holds more of the cache than its
+    shard (GSPMD propagates the reference's cache ``out_shardings`` back
+    into its prefill the same way)."""
+    from types import SimpleNamespace
+    leaf = SimpleNamespace(shape=(1,) + tuple(x.shape))
+    return constrain(x, lambda mesh, dp: list(cache_pspec(mesh, (), leaf))[1:])
+
+
 def constrain_moe_slots(x):
     """MoE dispatch slots (B, E, C, D): batch->data, experts->model."""
     return constrain(x, lambda mesh, dp: [dp, "model", None, None])
@@ -463,35 +474,52 @@ def per_batch_shard(fn: Callable, batched: Sequence, shared: Sequence = (),
 
 def lookup_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``table[idx]``: an embedding lookup, idx (B, ...) -> (B, ..., D).
-    DTensors run it shard by shard: ``idx`` split over the data axes, the
-    table whole along its rows and split along D over ``model`` where D
-    divides; the table's gradient is a partial sum over the axes that
-    split ``idx``.  (DTensor's own strategies for this lookup, the
-    vocab-parallel mask and ``index_put`` in the backward, fail on some
-    PyTorch releases.)"""
+    DTensors run it shard by shard: ``idx`` split over the data axes; the
+    table kept split along its rows (the vocabulary) over ``model`` where
+    the rules split it so, else whole along its rows and split along D
+    over ``model`` where D divides.  A rank holding a slice of the rows
+    looks up the ids that fall in it, writes zeros for the rest, and the
+    partial rows are summed over ``model`` (the vocab-parallel lookup
+    GSPMD makes of the reference's ``embed[tokens]``: no rank gathers the
+    table).  The table's gradient is split as the table is, and a partial
+    sum over the axes that split ``idx``.  (DTensor's own strategies for
+    this lookup, the vocab-parallel mask and ``index_put`` in the
+    backward, fail on some PyTorch releases.)"""
     if not _is_dtensor(idx):
         return table[idx]
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     mesh = idx.device_mesh
     idx = to_spec(idx, [dp_axes(mesh)] + [None] * (idx.ndim - 1))
-    table = to_spec(table, [None, "model"])
+    by_rows = splits_dim(table, 0)
+    table = to_spec(table, ["model", None] if by_rows else [None, "model"])
+    lo = _local_offset(table, 0)
     out, grad = [], []
     for ip, tp in zip(idx.placements, table.placements):
         if isinstance(ip, Shard):
             out.append(Shard(0))
             grad.append(Partial())
         elif isinstance(tp, Shard):
-            out.append(Shard(idx.ndim))
-            grad.append(Shard(1))
+            out.append(Partial() if tp.dim == 0 else Shard(idx.ndim))
+            grad.append(tp)
         else:
             out.append(Replicate())
             grad.append(Replicate())
-    rows, = local_map(lambda t, i: (t[i],), out_placements=(tuple(out),),
+
+    def local(t, i):
+        if not by_rows:
+            return (t[i],)
+        inside = (i >= lo) & (i < lo + t.shape[0])
+        rows = t[torch.where(inside, i - lo, 0)]
+        return (torch.where(inside[..., None], rows, torch.zeros(
+            (), dtype=rows.dtype, device=rows.device)),)
+
+    rows, = local_map(local, out_placements=(tuple(out),),
                       in_placements=(table.placements, idx.placements),
                       in_grad_placements=(tuple(grad), idx.placements),
                       device_mesh=mesh)(table, idx)
-    return rows
+    return rows.redistribute(mesh, tuple(
+        Replicate() if isinstance(pl, Partial) else pl for pl in out))
 
 
 def pad(x: torch.Tensor, widths: Sequence[int]) -> torch.Tensor:
@@ -525,11 +553,13 @@ def stack(xs: Sequence[torch.Tensor]) -> torch.Tensor:
                          f"{[x.placements for x in xs]}")
     local = torch.stack([x.to_local() for x in xs])
     shape = (len(xs),) + tuple(xs[0].shape)
-    stride = torch.empty(shape, device="meta").stride()
+    stride = [1] * len(shape)          # contiguous, without a tensor
+    for d in range(len(shape) - 2, -1, -1):
+        stride[d] = stride[d + 1] * shape[d + 1]
     return DTensor.from_local(
         local, xs[0].device_mesh,
         [Shard(p.dim + 1) if isinstance(p, Shard) else p for p in pl],
-        run_check=False, shape=torch.Size(shape), stride=stride)
+        run_check=False, shape=torch.Size(shape), stride=tuple(stride))
 
 
 def _local_offset(t, dim: int) -> int:
@@ -565,12 +595,72 @@ def write_slot(dst: torch.Tensor, src: torch.Tensor, dim: int,
         local.narrow(dim, at, 1).copy_(new)
 
 
+def _last_dim_split(x):
+    """DTensor ``x`` with its partial sums reduced, the mesh dims that split
+    its last dim, its placements with those dims whole, and with those
+    dims a partial sum."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    if any(isinstance(pl, Partial) for pl in x.placements):
+        x = x.redistribute(x.device_mesh, tuple(
+            Replicate() if isinstance(pl, Partial) else pl
+            for pl in x.placements))
+    split = [i for i, pl in enumerate(x.placements)
+             if isinstance(pl, Shard) and pl.dim == x.ndim - 1]
+    whole = tuple(Replicate() if i in split else pl
+                  for i, pl in enumerate(x.placements))
+    partial = tuple(Partial() if i in split else pl
+                    for i, pl in enumerate(whole))
+    return x, split, whole, partial
+
+
+def logsumexp(x: torch.Tensor) -> torch.Tensor:
+    """``torch.logsumexp(x, dim=-1)``.  On a DTensor whose last dim (the
+    vocabulary) is split over mesh axes, each rank takes the max and the
+    sum of exponentials over its own slice, the max all-reduced first (no
+    gradient flows through it) and the sums added as a partial sum, as
+    GSPMD reduces the reference's: DTensor's own strategies for the fused
+    op, and for ``x - max`` broadcast over a split dim, move the operand
+    to another split, which gathers it."""
+    if not _is_dtensor(x):
+        return torch.logsumexp(x, dim=-1)
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    x, split, whole, partial = _last_dim_split(x)
+
+    def local(t):
+        m = t.detach().amax(-1)
+        for i in split:
+            m = funcol.all_reduce(m, "max", (mesh, i))
+        return torch.exp(t - m[..., None]).sum(-1), m
+
+    s, m = local_map(local, out_placements=(partial, whole),
+                     in_placements=(x.placements,), device_mesh=mesh)(x)
+    return torch.log(s.redistribute(mesh, whole)) + m
+
+
 def take_last(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``torch.gather(x, -1, idx[..., None])[..., 0]``.  On a DTensor (whose
-    last dim, the vocabulary, may be split over the model axis) the entry
-    is picked by a mask and a sum over that dim, which DTensor shards:
-    exactly one term of the sum is nonzero, so the value is the same."""
+    """``torch.gather(x, -1, idx[..., None])[..., 0]``.  On a DTensor whose
+    last dim (the vocabulary) is split over mesh axes, each rank picks the
+    entries that fall in its own slice and zeros elsewhere, and the
+    partial picks are summed: exactly one term of the sum is nonzero, so
+    the value is the same, and no rank builds a full-vocabulary mask or
+    gradient."""
     if not _is_dtensor(x):
         return torch.gather(x, -1, idx[..., None].long())[..., 0]
-    cols = replicate_like(torch.arange(x.shape[-1], device=x.device), x)
-    return torch.where(idx[..., None] == cols, x, 0.0).sum(-1)
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    x, _, whole, partial = _last_dim_split(x)
+    lo = _local_offset(x, x.ndim - 1)
+
+    def local(t, i):
+        j = i.long() - lo
+        inside = (j >= 0) & (j < t.shape[-1])
+        got = torch.gather(t, -1, j.clamp(0, t.shape[-1] - 1)[..., None])
+        return (torch.where(inside, got[..., 0], torch.zeros(
+            (), dtype=got.dtype, device=got.device)),)
+
+    out, = local_map(local, out_placements=(partial,),
+                     in_placements=(x.placements, whole),
+                     device_mesh=mesh)(x, idx.redistribute(mesh, whole))
+    return out.redistribute(mesh, whole)

@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from .mlp import normal
 from .scan import linear_scan
+from . import sharding
 from .sharding import constrain_tokens, pad
 
 
@@ -120,8 +121,19 @@ def forward(p: SSMParams, x: torch.Tensor, state: Optional[SSMState] = None
     S = x.shape[1]
     Di = p.conv_b.shape[0]
     N = p.a_log.shape[1]
-    xz = x @ p.w_in
-    xs, z = xz[..., :Di], xz[..., Di:]
+    if sharding.splits_dim(p.w_in, 1) and \
+            x.shape[0] * x.shape[1] >= p.w_in.shape[0]:
+        # the x and z columns split over model as separate weights: slicing
+        # the product across its split gathers the (B, S, 2 Di) product
+        # onto every rank, gathering the weight moves (D, 2 Di); over a
+        # sequence (B S >= D tokens) the weight is the smaller
+        w = sharding.to_spec(p.w_in, [None, None])
+        xs, z = (x @ sharding.to_spec(h, [None, "model"])
+                 for h in (w[:, :Di], w[:, Di:]))
+    else:
+        xz = x @ p.w_in
+        xs, z = xz[..., :Di], xz[..., Di:]
+    tail_src = xs
     if state is not None:
         ctx = torch.cat([state.conv.to(xs.dtype), xs], dim=1)
         conv_out = _causal_depthwise_conv(ctx, p.conv_w, p.conv_b)[:, -S:]
@@ -140,7 +152,6 @@ def forward(p: SSMParams, x: torch.Tensor, state: Optional[SSMState] = None
     y = y * F.silu(z)
     out = y @ p.w_out
     K = p.conv_w.shape[0]
-    tail_src = xz[..., :Di]
     if state is not None:
         ctx_tail = torch.cat([state.conv.to(tail_src.dtype), tail_src], dim=1)
     else:

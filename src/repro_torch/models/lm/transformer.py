@@ -450,11 +450,12 @@ def _write(view, new) -> None:
 
 
 def _attn_decode(cfg, p, x, kv, cur, window):
+    x = constrain_tokens(x)
     h = norm_apply(cfg, p["norm1"], x)
     a, _ = attention.decode_step(p["attn"], h, kv, cur, window=window,
                                  softcap=cfg.attn_softcap,
                                  use_rope=(cfg.pos_embed == "rope"))
-    x = x + a
+    x = constrain_tokens(x + a)
     h = norm_apply(cfg, p["norm2"], x)
     return x + _ffn_apply(cfg, p["ffn"], h)
 
@@ -493,12 +494,14 @@ def decode(cfg: LMConfig, params, token: torch.Tensor, cache: ServeCache
                 x = _attn_decode(cfg, p_l["attn"], x, kv, cur, w)
             elif seg.kind == "xattn":
                 kv_self, kv_cross = c
+                x = constrain_tokens(x)
                 h = norm_apply(cfg, p_l["norm1"], x)
                 a, _ = attention.decode_step(p_l["self"], h, kv_self, cur,
                                              use_rope=(cfg.pos_embed == "rope"))
-                x = x + a
+                x = constrain_tokens(x + a)
                 h = norm_apply(cfg, p_l["norm2"], x)
-                x = x + attention.cross_decode(p_l["cross"], h, kv_cross)
+                x = constrain_tokens(
+                    x + attention.cross_decode(p_l["cross"], h, kv_cross))
                 h = norm_apply(cfg, p_l["norm3"], x)
                 x = x + _ffn_apply(cfg, p_l["ffn"], h)
             else:

@@ -474,3 +474,49 @@ def test_step_path_rehearsed_on_cpu(monkeypatch):
     _, rec = chip_smoke.step_path(cfg, CPU, 2, 8, 3, 0, 2, lambda: None)
     assert rec["flash_by_causal"] == {"True": 2, "False": 0}
     assert rec["prefix"] == cfg.num_prefix_tokens
+
+
+def test_dryrun_ratios_against_the_fixture():
+    """Phase 18's ratios: a port cell equal to the reference's own figures
+    reads 1 on every ratio, the held peak is the reference's less its f32
+    copies (or the arguments + outputs - aliased floor), and a kind only
+    the port has is listed with the reference's 0."""
+    import json
+    from repro_torch.launch import dryrun
+    ref = json.loads(chip_smoke.DRYRUN_REFERENCE.read_text())["cells"][
+        "gemma3-1b__decode_32k"]
+    mem, cost = ref["memory"], ref["cost"]
+    held = max(mem["peak_estimate_bytes"] - mem["f32_copy_bytes"],
+               mem["argument_bytes"] + mem["output_bytes"]
+               - mem["alias_bytes"])
+    art = {"memory": {"peak_estimate_bytes": held,
+                      "argument_bytes": mem["argument_bytes"]},
+           "cost": {"flops_per_device": cost["flops_per_device"],
+                    "matmul_flops_per_device": cost["dot_flops_per_device"],
+                    "collective_bytes_per_device": dict(
+                        cost["collective_bytes_per_device"],
+                        **{"reduce-scatter": 8.0})}}
+    vs = dryrun.against_reference(art, ref)
+    assert vs["peak_held"] == 1.0 and vs["argument_equal"]
+    assert vs["peak"] == held / mem["peak_estimate_bytes"] < 1.0
+    assert vs["flops"] == vs["matmul_flops"] == 1.0
+    assert vs["collectives"]["reduce-scatter"] == (8.0, 0.0, 0.0)
+    for k, b in cost["collective_bytes_per_device"].items():
+        assert vs["collectives"][k][:2] == (b, b)
+
+
+def test_kernel_bench_check_fails_when_it_should():
+    good = {name: {"kernel_us": 1.0, "matches_plain": True, "launches": 3}
+            for name in chip_smoke.BENCH_CASES}
+    assert chip_smoke.check_kernel_bench(good) is good
+    for bad in ({"launches": 0}, {"matches_plain": False}):
+        case = dict(good, **{"flash.2x8x1024x128": dict(
+            good["flash.2x8x1024x128"], **bad)})
+        with pytest.raises(AssertionError, match="flash.2x8x1024x128"):
+            chip_smoke.check_kernel_bench(case)
+    with pytest.raises(AssertionError, match="cases"):     # a host-only run
+        chip_smoke.check_kernel_bench({k: good[k]
+                                       for k in chip_smoke.BENCH_CASES[:4]})
+    host = {name: {"plain_us": 1.0} for name in chip_smoke.BENCH_CASES}
+    with pytest.raises(AssertionError):
+        chip_smoke.check_kernel_bench(host)

@@ -1,9 +1,9 @@
 """The port's dry run (``repro_torch.launch.dryrun``) and roofline
 (``repro_torch.launch.roofline``):
 
-* on a fake 1x1 mesh the dry run's per-device FLOPs of a smoke train,
-  prefill and decode step equal ``FlopCounterMode``'s count of the same
-  step unsharded, and no collective is recorded;
+* on a fake 1x1 mesh the dry run's per-device matrix-product FLOPs of a
+  smoke train, prefill and decode step equal ``FlopCounterMode``'s count
+  of the same step unsharded, and no collective is recorded;
 * on a fake 2x2 mesh the argument bytes equal the sum of the local shard
   bytes computed from the sharding specs, and a train cell records
   collectives;
@@ -73,6 +73,7 @@ def test_production_cell_layout(fake_results):
                                    "temp_bytes", "alias_bytes",
                                    "peak_estimate_bytes"}
     assert set(cell["cost"]) == {"n_microbatches", "flops_per_device",
+                                 "matmul_flops_per_device",
                                  "bytes_per_device",
                                  "collective_bytes_per_device", "segments"}
     assert cell["cost"]["flops_per_device"] > 0
@@ -219,7 +220,8 @@ def _unsharded_flops(cfg, shape):
 
 def _spec_bytes(cfg, shape, mesh):
     """(local, global) bytes of the cell's arguments from the specs (the
-    cache's position is a host int in the port, not an argument tensor)."""
+    cache's position, a host int in the port, counts as the reference's
+    int32 scalar)."""
     from repro_torch.launch import dryrun
     from repro_torch.models.lm import model, sharding
     from repro_torch.tree import tree_leaves
@@ -237,7 +239,7 @@ def _spec_bytes(cfg, shape, mesh):
                              (cache.entries, sharding.cache_shardings(
                                  mesh, cache).entries)]
     sizes = sharding.mesh_axes(mesh)
-    local = total = 0
+    local = total = 4 if shape.mode == "decode" else 0
     for tree, shard in trees:
         for t, s in zip(tree_leaves(tree), tree_leaves(shard)):
             n = t.numel() * t.element_size()
@@ -268,7 +270,7 @@ def _main(out_path):
             if name == "1x1":
                 cost = dryrun.corrected_costs(cfg, shape, mesh)
                 out[name][mode] = {
-                    "flops": cost["flops_per_device"],
+                    "flops": cost["matmul_flops_per_device"],
                     "collectives": cost["collective_bytes_per_device"],
                     "unsharded_flops": _unsharded_flops(cfg, shape)}
                 continue

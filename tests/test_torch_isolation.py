@@ -1,8 +1,10 @@
 """The port stands alone: no file of ``src/repro_torch/``, of
-``examples/torch/`` nor ``chip_smoke.py`` imports ``jax`` or anything of
-``repro``; its entry points (the host mesh and the examples' ``--device``
-included) default to the card; and ``chip_smoke.py`` fails, printing no
-result, where there is no card or no repository around it."""
+``examples/torch/``, of ``benchmarks_torch/`` nor ``chip_smoke.py``
+imports ``jax``, anything of ``repro`` or the reference's
+``benchmarks``; its entry points (the host mesh, the examples' and the
+kernel bench's ``--device`` included) default to the card; and
+``chip_smoke.py`` fails, printing no result, where there is no card or
+no repository around it."""
 
 import ast
 import inspect
@@ -18,7 +20,8 @@ torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
-    (ROOT / "examples" / "torch").glob("*.py")) + [ROOT / "chip_smoke.py"]
+    (ROOT / "examples" / "torch").glob("*.py")) + sorted(
+    (ROOT / "benchmarks_torch").glob("*.py")) + [ROOT / "chip_smoke.py"]
 DEVICE_EXAMPLES = ["schedule_and_run_cnn.py", "serve_lm.py", "train_lm.py"]
 
 
@@ -37,7 +40,8 @@ def _imported_modules(path):
 def test_no_jax_or_reference_imports(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro"), f"{path}: imports {mod}"
+        assert top not in ("jax", "jaxlib", "repro", "benchmarks"), \
+            f"{path}: imports {mod}"
 
 
 def test_port_files_found():
@@ -58,7 +62,9 @@ def test_port_files_found():
             "sharding.py", "mesh.py", "dryrun.py", "roofline.py",
             "quickstart.py", "elastic_reschedule.py",
             "replicate_bottleneck.py", "serve_two_models.py",
-            "serve_with_slos.py", *DEVICE_EXAMPLES} <= names
+            "serve_with_slos.py", *DEVICE_EXAMPLES, "common.py", "run.py",
+            "fig2_resnet8.py", "fig3_resnet18.py", "table1_utilization.py",
+            "fig4_imc_dpu.py", "yolo_latency.py", "kernel_bench.py"} <= names
 
 
 CORE_FILES = sorted((ROOT / "src" / "repro_torch" / "core").rglob("*.py"))
@@ -104,12 +110,20 @@ def test_entry_points_default_to_cuda():
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     assert inspect.signature(make_production_mesh).parameters[
         "device_type"].default == "cuda"
+    from benchmarks_torch import kernel_bench
+    assert inspect.signature(kernel_bench.main).parameters[
+        "device"].default == "cuda"
 
 
-@pytest.mark.parametrize("name", DEVICE_EXAMPLES)
-def test_device_examples_default_to_cuda(name):
-    """The examples that touch tensors take ``--device``, default ``cuda``."""
-    tree = ast.parse((ROOT / "examples" / "torch" / name).read_text())
+DEVICE_SCRIPTS = [ROOT / "examples" / "torch" / n for n in DEVICE_EXAMPLES] \
+    + [ROOT / "benchmarks_torch" / "kernel_bench.py"]
+
+
+@pytest.mark.parametrize("path", DEVICE_SCRIPTS, ids=lambda p: p.name)
+def test_device_examples_default_to_cuda(path):
+    """The examples that touch tensors and the kernel bench take
+    ``--device``, default ``cuda``."""
+    tree = ast.parse(path.read_text())
     defaults = [kw.value.value for node in ast.walk(tree)
                 if isinstance(node, ast.Call)
                 and getattr(node.func, "attr", None) == "add_argument"

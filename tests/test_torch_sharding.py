@@ -19,7 +19,17 @@
   of the four block families (gemma3-1b, granite-moe, falcon-mamba,
   recurrentgemma) within 1e-5 of its max |g| of the unsharded port
   (AdamW's normalised step would hide a gradient summed over too few
-  ranks, so the gradients are compared, not the parameters).
+  ranks, so the gradients are compared, not the parameters);
+* sequence-reduced decode: on the same 4 ranks, the smoke gemma3-1b (1
+  KV head, which does not divide ``model``) prefills and decodes with
+  the cache's sequence split over ``model`` (batch 2) and over data x
+  model (batch 1): 4 decode steps within 1e-5 of max |logit| of the
+  unsharded port, the cache split as the rule says, and ``CostMode``
+  sees the softmax reduced across shards and no all-gather as large as
+  one layer's cache;
+* off the card, a prefill from ``CHUNK_THRESHOLD`` tokens takes the
+  q-chunked plain route, within 1e-6 of max |out| of the unchunked plain
+  route in f32 at 8,192 tokens.
 
 The gloo ranks run in a subprocess (this file run as a script), so no
 process group is ever opened in a test worker."""
@@ -189,9 +199,11 @@ def test_hooks_are_noops_without_a_mesh():
     x, kv = torch.randn(2, 3, 4, 5), torch.randn(2, 3, 2, 5)
     assert sharding.constrain_tokens(x) is x
     assert sharding.constrain_moe_slots(x) is x
+    assert sharding.constrain_cache(x) is x
     assert sharding.replicate_like(x, x) is x
-    q, k, v, h = attention._pad_heads(x, kv, kv)
-    assert q is x and k is kv and v is kv and h == 4
+    wq, wkv = torch.randn(5, 4, 3), torch.randn(5, 2, 3)   # (D, heads, hd)
+    q, k, v, h = attention._pad_heads(wq, wkv, wkv)
+    assert q is wq and k is wkv and v is wkv and h == 4
 
 
 def test_write_slot_plain_is_a_slice_assignment():
@@ -223,6 +235,7 @@ def gloo_results(tmp_path_factory):
     assert res.returncode == 0, res.stderr[-4000:]
     out = json.loads((tmp / "result.json").read_text())
     out["2x2"] = json.loads((tmp / "grads.json").read_text())
+    out["seq"] = json.loads((tmp / "seq.json").read_text())
     return out
 
 
@@ -249,6 +262,34 @@ def test_sharded_train_step_matches_unsharded(gloo_results, arch):
     assert r["cache_placed"]
 
 
+@pytest.mark.parametrize("batch", [2, 1])
+def test_sequence_split_decode_matches_unsharded(gloo_results, batch):
+    r = gloo_results["seq"][str(batch)]
+    assert r["cache_seq_split"] == r["want_split"], r
+    assert len(r["decode_rel"]) == 4
+    assert max(r["decode_rel"]) <= SHARD_RTOL, r["decode_rel"]
+    assert r["max_reduces"] > 0
+    assert r["gathered"] < r["cache_layer_bytes"], r
+
+
+@pytest.mark.parametrize("window", [None, 512])
+def test_chunked_cpu_prefill_equals_unchunked(monkeypatch, window):
+    """``attention.forward`` on CPU tensors at ``CHUNK_THRESHOLD`` tokens
+    (the q-chunked plain route) against the same call with the threshold
+    out of reach (the unchunked plain version of the kernel); smoke width
+    with 2 heads on 1 KV head, so the unchunked logits take 512 MiB."""
+    from repro_torch.models.lm import attention
+    S = attention.CHUNK_THRESHOLD
+    gen = torch.Generator().manual_seed(0)
+    p = attention.init(gen, 64, 2, 1, 16, dtype=torch.float32, device="cpu")
+    x = torch.randn(1, S, 64, generator=gen)
+    pos = torch.arange(S)
+    got = attention.forward(p, x, pos, window=window)
+    monkeypatch.setattr(attention, "CHUNK_THRESHOLD", 2 * S)
+    want = attention.forward(p, x, pos, window=window)
+    assert _rel(got, want) <= 1e-6
+
+
 def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
@@ -273,7 +314,7 @@ def _worker(rank, world, store_path, out_path):
 
     def spy(q, k, v):
         out = real_pad(q, k, v)
-        padded.append(out[0].shape[2] > out[3])
+        padded.append(out[0].shape[1] > out[3])    # (D, H_pad, hd) weights
         return out
 
     attention._pad_heads = spy
@@ -374,6 +415,70 @@ def _grad_worker(rank, world, store_path, out_path):
     dist.destroy_process_group()
 
 
+def _seq_worker(rank, world, store_path, out_path):
+    """Decode with the cache's sequence split (see the module docstring)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import CostMode
+    from repro_torch.models.lm import sharding, transformer
+    from repro_torch.tree import tree_map
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    cfg = get_config("gemma3-1b").smoke()
+    assert cfg.n_kv_heads % 2 != 0
+    params = tree_map(lambda t: t.float(), transformer.init_params(
+        cfg, torch.Generator().manual_seed(0), device="cpu"))
+    dparams = sharding.distribute(params, sharding.param_shardings(
+        cfg, mesh, params))
+    results, S, steps = {}, 12, 4
+    for B, want_split in ((2, ["model"]), (1, ["data", "model"])):
+        toks = torch.randint(0, cfg.vocab, (B, S),
+                             generator=torch.Generator().manual_seed(B))
+        logits, cache = transformer.prefill(cfg, params, toks, S + steps)
+        want, feed = [], []
+        for _ in range(steps):
+            tok = torch.argmax(logits[:, -1:], dim=-1)
+            feed.append(tok)
+            logits, cache = transformer.decode(cfg, params, tok, cache)
+            want.append(logits)
+        bs = sharding.batch_shardings(mesh, {"tokens": toks})
+        with sharding.activation_mesh(mesh):
+            dtoks = sharding.distribute({"tokens": toks}, bs)["tokens"]
+            _, dcache = transformer.prefill(cfg, dparams, dtoks, S + steps)
+            k = dcache.entries[0].k
+            split = [mesh.mesh_dim_names[i] for i, pl in enumerate(
+                k.placements) if getattr(pl, "dim", None) == 2]
+            got, mode = [], None
+            for i, tok in enumerate(feed):
+                dtok = sharding.distribute({"tokens": tok}, bs)["tokens"]
+                if i == 0:
+                    mode = CostMode()
+                    with mode:
+                        logits, dcache = transformer.decode(cfg, dparams,
+                                                            dtok, dcache)
+                else:
+                    logits, dcache = transformer.decode(cfg, dparams, dtok,
+                                                        dcache)
+                got.append(logits.full_tensor())
+        results[str(B)] = {
+            "want_split": want_split, "cache_seq_split": split,
+            "decode_rel": [_rel(g, w) for g, w in zip(got, want)],
+            "max_reduces": sum(1 for kind, _ in mode.collectives
+                               if kind == "all-reduce"),
+            "gathered": sum(n for kind, n in mode.collectives
+                            if kind == "all-gather"),
+            "cache_layer_bytes": B * (S + steps) * cfg.n_kv_heads
+            * cfg.hd * 4}
+    if rank == 0:
+        Path(out_path).write_text(json.dumps(results))
+    dist.destroy_process_group()
+
+
 if __name__ == "__main__":
     import torch.multiprocessing as mp
     out_dir = Path(sys.argv[1])
@@ -381,3 +486,5 @@ if __name__ == "__main__":
                             str(out_dir / "result.json")), nprocs=3)
     mp.spawn(_grad_worker, args=(4, str(out_dir / "store4"),
                                  str(out_dir / "grads.json")), nprocs=4)
+    mp.spawn(_seq_worker, args=(4, str(out_dir / "store_seq"),
+                                str(out_dir / "seq.json")), nprocs=4)
