@@ -1,11 +1,12 @@
 """Benchmark harness entry point of the port: one experiment per paper
-table/figure, and the kernel micro-benchmark.
-``python -m benchmarks_torch.run [--frames N] [names...]``
+table/figure, plus the beyond-paper studies and the kernel
+micro-benchmark.  ``python -m benchmarks_torch.run [--frames N] [names...]``
 
-Counterpart of ``benchmarks.run``, with the suites ported so far (the
-beyond-paper suites and ``sim_speed`` are not ported yet).  ``--frames
-N`` forwards a small frame count to every suite whose ``main`` accepts
-one.  The host suites run anywhere; ``kernels`` runs on the card.
+Counterpart of ``benchmarks.run``, with every suite of it, in its order.
+``--frames N`` forwards a small frame count to every suite whose
+``main`` accepts one.  The host suites run anywhere; ``kernels`` runs on
+the card.  ``sim_speed`` writes the port's ``BENCH_sim_torch.json``,
+never the reference's ``BENCH_sim.json``.
 
 Prints ``CSV,name,us_per_call,derived`` lines for machine consumption and
 writes JSON artifacts under artifacts/bench_torch/.
@@ -26,7 +27,15 @@ SUITES = {
     "table1": "table1_utilization",
     "fig4": "fig4_imc_dpu",
     "yolo": "yolo_latency",
+    "quality": "scheduler_quality",
     "kernels": "kernel_bench",
+    "elastic": "elastic_bench",
+    "multi_tenant": "multi_tenant",
+    "replication": "replication",
+    "serving": "serving",
+    "sensitivity": "sensitivity",
+    "partition": "lm_partition",
+    "sim_speed": "sim_speed",
 }
 
 

@@ -141,9 +141,11 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
    greedy decode steps whose tokens must equal the unsharded run's; max
    |logit d|, prefill and decode-step times, peak memory;
 18. the dry run (``python -m repro_torch.launch.dryrun``) of gemma3-1b and
-   granite-moe at every shape on the fake 16x16 mesh, started as two
-   subprocesses (no card visible) before phase 1 and collected here: each
-   supported cell must end ``ok``; per cell the per-device peak, FLOPs
+   granite-moe at every shape, and of gemma2-27b long_500k and
+   falcon-mamba-7b prefill_32k (no weight gathered where the reference
+   keeps it split), on the
+   fake 16x16 mesh, started as subprocesses (no card visible) before
+   phase 1 and collected here: each supported cell must end ``ok``; per cell the per-device peak, FLOPs
    and collective bytes by kind, each beside the reference's dry run of
    the same cell (``tests/data/dryrun_reference_pod16x16.json``, made by
    ``tests/data/make_dryrun_reference.py``: there is no jax here) and the
@@ -161,7 +163,21 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
    count to 0 before it runs and reports it after: it must be nonzero),
    each case equal to its plain version (``torch.equal``; max |d| <=
    2e-4); the table of kernel, plain, library and bound times is printed
-   with the card's name and power limit.
+   with the card's name and power limit; then ``python -m
+   benchmarks_torch.run --frames 16`` with the beyond-paper suites
+   (quality, elastic, multi_tenant, replication, serving, sensitivity,
+   partition) on the host must exit 0 and write their JSON, and the
+   simulator's perf gate, ``python -m benchmarks_torch.sim_speed --frames
+   64 --check BENCH_sim_torch.json``, must exit 0 and leave that baseline
+   and the reference's ``BENCH_sim.json`` unchanged (sha256);
+21. the gloo ranks of ``tests/test_torch_sharding.py`` on this machine's
+   CPU and PyTorch (``tests/test_torch_gloo_workers.py``, which imports no
+   jax, started as a subprocess before phase 1 and collected here): the
+   3-rank serving and train steps of gemma3-1b and granite-moe, the (2, 2)
+   gradients of gemma3-1b, granite-moe, falcon-mamba and recurrentgemma,
+   the sequence-split decode and gemma2-27b's batch-1 decode, each within
+   the tests' ``SHARD_RTOL`` of the unsharded port and gathering no weight
+   where the reference keeps it split; an exception in any rank fails it.
 
 Detail goes to ``chiprun_out/chip_smoke.json``.  The line before the last
 is ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
@@ -1860,32 +1876,66 @@ def other_families(dev, detail, sync):
 # ---------------------------------------------------------------------------
 
 SHARD_BATCH, SHARD_PROMPT, SHARD_STEPS = 4, 2048, 32
-DRYRUN_ARCHS = ("gemma3-1b", "granite-moe-3b-a800m")
+#: phase 18's dry-run processes: (arch, shape or None for every shape);
+#: gemma2-27b's batch-1 FSDP cell and falcon-mamba-7b's prefill show the
+#: weights kept split (falcon-mamba's train_4k takes longer than the
+#: whole run on the host)
+DRYRUN_RUNS = (("gemma3-1b", None), ("granite-moe-3b-a800m", None),
+               ("gemma2-27b", "long_500k"), ("falcon-mamba-7b", "prefill_32k"))
 DRYRUN_TIMEOUT_S = 900
 DRYRUN_REFERENCE = ROOT / "tests" / "data" / "dryrun_reference_pod16x16.json"
 CARD_EXAMPLES = ("serve_lm.py", "schedule_and_run_cnn.py")
 BENCH_SUITES = ("fig2", "fig3", "table1", "fig4", "yolo", "kernels")
+#: the beyond-paper suites, at ``--frames 16`` as CI's smoke step runs the
+#: reference's
+BENCH_SMOKE_SUITES = ("quality", "elastic", "multi_tenant", "replication",
+                      "serving", "sensitivity", "partition")
+SIM_BASELINE = ROOT / "BENCH_sim_torch.json"
+GLOO_WORKERS = ROOT / "tests" / "test_torch_gloo_workers.py"
+GLOO_TIMEOUT_S = 900
 
 
 def start_dryruns():
     """Phase 18's dry runs, started before phase 1 so that they run on the
-    host's cores while the card phases run: one subprocess per arch, each
-    on a fake process group with no card visible (the fake group never
-    shares a process with the card's), one thread, at the lowest CPU
-    priority (the card phases' host-bound timings keep the cores they
-    need).  Returns {arch: (process, log)}."""
+    host's cores while the card phases run: one subprocess per entry of
+    ``DRYRUN_RUNS`` (``background``), each on a fake process group (the
+    fake group never shares a process with the card's).  Returns {name:
+    (process, log)}."""
+    procs = {}
+    for arch, shape in DRYRUN_RUNS:
+        name = arch if shape is None else f"{arch}__{shape}"
+        procs[name] = background(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+             "--force"] + ([] if shape is None else ["--shape", shape]),
+            OUT_DIR / f"dryrun_{name}.log")
+    return procs
+
+
+def background(cmd, log_path):
+    """``cmd`` started from the repo root with no card visible, one thread,
+    at the lowest CPU priority (the card phases' host-bound timings keep
+    the cores they need); returns (process, log file)."""
     import os
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
     OUT_DIR.mkdir(exist_ok=True)
-    procs = {}
-    for arch in DRYRUN_ARCHS:
-        out = open(OUT_DIR / f"dryrun_{arch}.log", "w")
-        procs[arch] = (subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-             "--force"], cwd=ROOT, env=env, stdout=out,
-            stderr=subprocess.STDOUT, preexec_fn=lambda: os.nice(19)), out)
-    return procs
+    out = open(log_path, "w")
+    return (subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=out,
+                             stderr=subprocess.STDOUT,
+                             preexec_fn=lambda: os.nice(19)), out)
+
+
+def start_gloo():
+    """Phase 21's gloo ranks (``tests/test_torch_gloo_workers.py``, which
+    imports no jax), started before phase 1 as the dry runs are: three sets
+    of CPU ranks, one after another, under this machine's PyTorch.
+    Returns {"gloo": (process, log)}."""
+    import shutil
+    out_dir = OUT_DIR / "gloo"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    return {"gloo": background([sys.executable, str(GLOO_WORKERS),
+                                str(out_dir)], OUT_DIR / "gloo.log")}
 
 
 def stop(procs) -> None:
@@ -2028,23 +2078,23 @@ def sharded_serving(dev, sync):
 def dryrun_cells(procs):
     """Phase 18: wait for the dry runs of ``start_dryruns``, then print each
     cell's status, per-device peak, FLOPs and collective bytes, and the
-    roofline's row for it.  Every supported shape must end ``ok``."""
+    roofline's row for it.  Every supported cell must end ``ok``."""
     from repro_torch.configs import SHAPES, get_config, shape_supported
     from repro_torch.launch import dryrun, roofline
     deadline = time.perf_counter() + DRYRUN_TIMEOUT_S
-    for arch, (proc, out) in procs.items():
+    for name, (proc, out) in procs.items():
         rc = proc.wait(timeout=max(deadline - time.perf_counter(), 1))
         out.close()
         if rc != 0:
-            raise AssertionError(f"dry run {arch}: exit {rc} (log in "
-                                 f"chiprun_out/dryrun_{arch}.log)")
+            raise AssertionError(f"dry run {name}: exit {rc} (log in "
+                                 f"{OUT_DIR.name}/dryrun_{name}.log)")
     log("dry run on the fake 16x16 mesh (256 ranks, CPU; model estimates "
         "under H100 constants, not measurements), each figure beside the "
         "reference's dry run of the cell [ref] and port / ref:")
     refs = json.loads(DRYRUN_REFERENCE.read_text())["cells"]
     cells = {}
-    for arch in DRYRUN_ARCHS:
-        for shape in SHAPES:
+    for arch, only in DRYRUN_RUNS:
+        for shape in SHAPES if only is None else (only,):
             with open(dryrun.cell_path(arch, shape, "pod16x16")) as f:
                 art = json.load(f)
             want = "ok" if shape_supported(get_config(arch), SHAPES[shape])[0] \
@@ -2176,7 +2226,152 @@ def bench_on_card(card):
                ("yolo", "yolo_latency"))}
     log(f"benchmarks_torch.run {' '.join(BENCH_SUITES)}: exit 0 in "
         f"{wall:.1f} s (process start and kernel load included)")
-    return {"wall_s": wall, "kernel_bench": kb, "suites": suites}
+    rec = {"wall_s": wall, "kernel_bench": kb, "suites": suites}
+    rec.update(bench_host_suites())
+    return rec
+
+
+def run_logged(cmd, name, timeout=900):
+    """``cmd`` from the repo root with ``src/`` on the path; its output
+    goes to ``OUT_DIR/<name>.log``.  It must exit 0.  Returns (stdout,
+    wall seconds)."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=timeout)
+    wall = time.perf_counter() - t
+    (OUT_DIR / f"{name}.log").write_text(res.stdout + res.stderr)
+    if res.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd[1:])}: exit {res.returncode}: "
+                             f"{res.stdout[-1500:]} {res.stderr[-1500:]}")
+    return res.stdout, wall
+
+
+def bench_host_suites():
+    """Phase 20, continued: the beyond-paper suites on the host at
+    ``--frames 16`` (each writes its JSON), then the simulator's perf gate,
+    ``python -m benchmarks_torch.sim_speed --frames 64 --check
+    BENCH_sim_torch.json``: it must exit 0 (each suite's speedup within
+    its slack of the committed baseline's, after one re-measure) and leave
+    the committed baseline, and the reference's ``BENCH_sim.json``,
+    byte for byte as they were (sha256 before and after)."""
+    import hashlib
+    out, wall = run_logged([sys.executable, "-m", "benchmarks_torch.run",
+                            "--frames", "16", *BENCH_SMOKE_SUITES],
+                           "bench_torch_smoke")
+    for line in out.splitlines():
+        if line.startswith("CSV,"):
+            log(f"  {line}")
+    art = ROOT / "artifacts" / "bench_torch"
+    missing = [f for f in ("scheduler_quality", "elastic_bench",
+                           "multi_tenant", "replication", "serving",
+                           "sensitivity", "lm_partition")
+               if not (art / f"{f}.json").exists()]
+    if missing:
+        raise AssertionError(f"benchmarks_torch.run: no artifact {missing}")
+    log(f"benchmarks_torch.run --frames 16 {' '.join(BENCH_SMOKE_SUITES)}: "
+        f"exit 0 in {wall:.1f} s on the host ({host_cpu()})")
+
+    def digests():
+        return {p.name: hashlib.sha256(p.read_bytes()).hexdigest()
+                for p in (SIM_BASELINE, ROOT / "BENCH_sim.json")}
+    before = digests()
+    out, gate_wall = run_logged([sys.executable, "-m",
+                                 "benchmarks_torch.sim_speed", "--frames",
+                                 "64", "--check", SIM_BASELINE.name],
+                                "sim_speed_check")
+    after = digests()
+    if after != before:
+        raise AssertionError(f"sim_speed --check changed {before} -> {after}")
+    for line in out.splitlines():
+        if line.startswith(("yolo", "mt ", "event loop", "benchmarks_torch",
+                            "  ", "perf gate", "re-measuring")):
+            log(f"  {line}")
+    sim = json.loads((art / "sim_speed.json").read_text())
+    log(f"sim_speed --frames 64 --check {SIM_BASELINE.name}: exit 0 in "
+        f"{gate_wall:.1f} s on the host ({host_cpu()}), "
+        f"{sim['check']['regressions']} regressions; both baselines "
+        f"unchanged (sha256 {before[SIM_BASELINE.name][:12]}, "
+        f"{before['BENCH_sim.json'][:12]})")
+    return {"smoke_wall_s": wall, "sim_speed": sim,
+            "sim_speed_wall_s": gate_wall, "host_cpu": host_cpu()}
+
+
+def gloo_ranks(procs):
+    """Phase 21: wait for the gloo ranks of ``start_gloo`` (the 3-rank
+    serving and train steps of ``GLOO_ARCHS``, the (2, 2) gradients of
+    every ``GRAD_ARCHS`` family, the sequence-split decode and the FSDP
+    arch's batch-1 decode, all on this machine's CPU and PyTorch) and hold
+    them to ``tests/test_torch_sharding.py``'s limits: ``SHARD_RTOL``
+    against the unsharded port, and no weight gathered where the
+    reference keeps it split."""
+    import importlib.util
+    proc, out = procs["gloo"]
+    rc = proc.wait(timeout=GLOO_TIMEOUT_S)
+    out.close()
+    if rc != 0:
+        tail = (OUT_DIR / "gloo.log").read_text()[-3000:]
+        raise AssertionError(f"gloo ranks: exit {rc} (log in "
+                             f"{OUT_DIR.name}/gloo.log): {tail}")
+    spec = importlib.util.spec_from_file_location("gloo_workers",
+                                                  GLOO_WORKERS)
+    w = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(w)
+    r = w.load(OUT_DIR / "gloo")
+    tol = w.SHARD_RTOL
+    bad = []
+
+    def need(ok, what):
+        if not ok:
+            bad.append(what)
+
+    for arch in w.GLOO_ARCHS:
+        a = r[arch]
+        need(a["padded"] and len(a["serve_rel"]) == 5
+             and max(a["serve_rel"]) <= tol, f"{arch} serving {a['serve_rel']}")
+        need(a["loss_rel"] <= tol and a["param_rel"] <= tol
+             and a["cache_placed"], f"{arch} train step {a}")
+        need(max(a["train_gathers"], default=0.0)
+             < min(a["weight_bytes"].values()),
+             f"{arch} train step gathers {a['train_gathers']}")
+        log(f"  {arch} on 3 gloo ranks (1, 3): prefill + 4 decode steps max "
+            f"rel {max(a['serve_rel']):.2e}, train step loss rel "
+            f"{a['loss_rel']:.2e}, params rel {a['param_rel']:.2e}, "
+            f"all-gathers {len(a['train_gathers'])} "
+            f"({sum(a['train_gathers']):.0f} B)")
+    for arch in w.GRAD_ARCHS:
+        a = r["2x2"][arch]
+        need(a["loss_rel"] <= tol and a["grad_rel"] <= tol,
+             f"{arch} gradients {a}")
+        if a["w_in_bytes"]:
+            need(max(a["gathers"], default=0.0) < a["w_in_bytes"],
+                 f"{arch} gathers {a['gathers']}")
+        log(f"  {arch} on 4 gloo ranks (2, 2): loss rel {a['loss_rel']:.2e}, "
+            f"worst gradient leaf {a['worst_leaf']} rel {a['grad_rel']:.2e}, "
+            f"largest all-gather {max(a['gathers'], default=0.0):.0f} B")
+    for batch in ("2", "1"):
+        a = r["seq"][batch]
+        need(a["cache_seq_split"] == a["want_split"]
+             and len(a["decode_rel"]) == 4 and max(a["decode_rel"]) <= tol
+             and a["max_reduces"] > 0
+             and a["gathered"] < a["cache_layer_bytes"],
+             f"sequence-split decode batch {batch}: {a}")
+    a = r["seq"]["fsdp_1"]
+    need(a["wq_d_split"] and len(a["decode_rel"]) == 4
+         and max(a["decode_rel"]) <= tol
+         and a["gathered"] < a["wq_layer_bytes"], f"fsdp batch 1: {a}")
+    log(f"  sequence-split decode (batch 2, 1) max rel "
+        f"{max(r['seq']['2']['decode_rel'] + r['seq']['1']['decode_rel']):.2e}"
+        f"; {w.FSDP_ARCH} batch-1 decode max rel {max(a['decode_rel']):.2e}, "
+        f"gathered {a['gathered']:.0f} B a step (one layer's wq "
+        f"{a['wq_layer_bytes']} B)")
+    if bad:
+        raise AssertionError(f"gloo ranks outside the tests' limits: {bad}")
+    import torch
+    log(f"gloo ranks on this machine's CPU (torch {torch.__version__}): "
+        f"every case within SHARD_RTOL {tol:g}")
+    return r
 
 
 def main() -> int:
@@ -2185,13 +2380,15 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 1
     dryruns = start_dryruns()
+    gloo = start_gloo()
     try:
-        return run_phases(dryruns)
+        return run_phases(dryruns, gloo)
     finally:
         stop(dryruns)
+        stop(gloo)
 
 
-def run_phases(dryruns) -> int:
+def run_phases(dryruns, gloo) -> int:
     import torch
     from repro_torch.core.graph import OpKind
     from repro_torch.kernels import _build, conv2d, imc_mvm as mvm_mod, ref
@@ -2690,6 +2887,9 @@ def run_phases(dryruns) -> int:
     # ---- 20. the benchmark harness: paper suites, kernel bench on the card -
     torch.cuda.empty_cache()
     detail["bench"] = bench_on_card(card)
+
+    # ---- 21. the gloo ranks on this machine's PyTorch (started before 1) --
+    detail["gloo"] = gloo_ranks(gloo)
 
     detail["card"] = card
     detail["device"] = torch.cuda.get_device_name(0)

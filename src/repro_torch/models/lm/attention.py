@@ -80,8 +80,9 @@ def _pad_heads(wq, wk, wv):
     a partial sum over ``model`` (one all-reduce of the tokens, as GSPMD
     reduces the reference's), where padding the activations and then
     splitting them would gather every head's gradient onto every rank.
-    Without an activation mesh nothing changes.  Returns (wq, wk, wv,
-    real_H).
+    Under a mesh each rank builds only its own slice of the padded heads
+    (``_head_slice``), from the rows it holds.  Without an activation
+    mesh nothing changes.  Returns (wq, wk, wv, real_H).
     """
     mesh = sharding._ACT_MESH.get()
     H = wq.shape[1]
@@ -90,26 +91,53 @@ def _pad_heads(wq, wk, wv):
     m = sharding.mesh_axes(mesh)["model"]
     if H % m == 0 and wk.shape[1] % m == 0:
         return wq, wk, wv, H
-
-    def expand_pad(wq, wk, wv):
+    if not sharding._is_dtensor(wq):
         wk, wv = (torch.repeat_interleave(w, H // w.shape[1], dim=1)
                   for w in (wk, wv))
         z = (0, 0, 0, (-H) % m)
-        return F.pad(wq, z), F.pad(wk, z), F.pad(wv, z)
+        return F.pad(wq, z), F.pad(wk, z), F.pad(wv, z), H
+    if H % m:
+        wq = _head_slice(wq, 1, H)
+    return wq, _head_slice(wk, 1, H), _head_slice(wv, 1, H), H
 
-    if not sharding._is_dtensor(wq):
-        return (*expand_pad(wq, wk, wv), H)
-    # shard by shard, heads whole (DTensor's pad is not reliable across
-    # PyTorch releases), then split by head
+
+def _head_slice(w, dim: int, n_heads: int):
+    """DTensor ``w`` with its head axis ``dim`` (``w.shape[dim]`` heads,
+    not split over ``model``: the rules split no head count that the axis
+    does not divide, and K/V heads that divide it come with q heads that
+    do) made ``n_heads`` heads, K/V heads repeated in groups of ``n_heads
+    / w.shape[dim]``, then zero-padded to a multiple of the model axis and
+    split over it, each rank building only its own slice of the padded
+    heads (real heads copied, padding heads zeros) from the rows it holds:
+    no rank gathers the weight, and its gradient is a partial sum over
+    ``model`` (each rank's slice covers only its own heads), where
+    splitting a padded weight whole would gather the padded gradient onto
+    every rank."""
+    from torch.distributed.tensor import Partial, Shard
     from torch.distributed.tensor.experimental import local_map
-    wq, wk, wv = (sharding.to_spec(w, [None, None, None])
-                  for w in (wq, wk, wv))
-    pl = wq.placements
-    wq, wk, wv = local_map(expand_pad, out_placements=(pl, pl, pl),
-                           in_placements=(pl, pl, pl),
-                           device_mesh=mesh)(wq, wk, wv)
-    return (*(sharding.to_spec(w, [None, "model", None])
-              for w in (wq, wk, wv)), H)
+    mesh = w.device_mesh
+    mdim = mesh.mesh_dim_names.index("model")
+    m = mesh.size(mdim)
+    per = (n_heads + (-n_heads) % m) // m
+    lo = mesh.get_coordinate()[mdim] * per
+    group = n_heads // w.shape[dim]
+    src = torch.arange(lo, min(lo + per, n_heads)) // group
+
+    def local(t):
+        t = t.index_select(dim, src.to(t.device))
+        widths = [0, 0] * (t.ndim - 1 - dim) + [0, per - src.numel()]
+        return (F.pad(t, widths),)
+
+    out, = local_map(
+        local, out_placements=(tuple(
+            Shard(dim) if i == mdim else pl
+            for i, pl in enumerate(w.placements)),),
+        in_placements=(w.placements,),
+        in_grad_placements=(tuple(
+            Partial() if i == mdim else pl
+            for i, pl in enumerate(w.placements)),),
+        device_mesh=mesh)(w)
+    return out
 
 
 def _constrain_attn(q, k, v):
@@ -292,27 +320,48 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(B, S, D) x (D, heads, hd) -> (B, S, heads, hd).  Where DTensor
     splits either operand the product runs shard by shard (``local_map``):
-    x with its batch over the data axes, w whole but for its heads, which
-    stay split over ``model`` where they were (the same ``einsum`` on each
-    shard; DTensor's own propagation through it splits column counts that
-    the heads cannot unflatten).  x's gradient is a partial sum over
-    ``model`` where the heads split; w's over the axes that split the
-    batch."""
+    x with its batch over the data axes, w whole along D where the batch
+    is split too, its heads split over ``model`` where they were (the same
+    ``einsum`` on each shard; DTensor's own propagation through it splits
+    column counts that the heads cannot unflatten).  Where w's D is split
+    over an axis that does not split the batch (an ``fsdp`` weight at
+    batch 1), w stays split: x is sliced along D to match, each rank
+    contracts its slice, and the small product is summed over that axis,
+    as GSPMD does, instead of gathering the weight.  x's gradient is a
+    partial sum over ``model`` where the heads split; w's over the axes
+    that split the batch."""
     if not (sharding.splits_any(x) or sharding.splits_any(w)):
         return torch.einsum("bsd,dhk->bshk", x, w)
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     mesh = x.device_mesh
-    heads = "model" if sharding.splits_dim(w, 1) else None
     x = sharding.to_spec(x, [sharding.dp_axes(mesh), None, None])
-    w = sharding.to_spec(w, [None, heads, None])
-    out, gx, gw = [], [], []
-    for xp, wp in zip(x.placements, w.placements):
+    names = mesh.mesh_dim_names
+    w_pl, x_pl = [], []
+    for i, (xp, wp) in enumerate(zip(x.placements, w.placements)):
         if isinstance(xp, Shard):
+            w_pl.append(Replicate())
+            x_pl.append(xp)
+        elif wp == Shard(0):                     # D split, batch whole
+            w_pl.append(wp)
+            x_pl.append(Shard(2))
+        else:
+            w_pl.append(wp if wp == Shard(1) and names[i] == "model"
+                        else Replicate())
+            x_pl.append(xp)
+    x = x.redistribute(mesh, tuple(x_pl))
+    w = w.redistribute(mesh, tuple(w_pl))
+    out, gx, gw = [], [], []
+    for xp, wp in zip(x_pl, w_pl):
+        if xp == Shard(0):
             out.append(Shard(0))
             gx.append(Shard(0))
             gw.append(Partial())
-        elif isinstance(wp, Shard):
+        elif wp == Shard(0):
+            out.append(Partial())
+            gx.append(Shard(2))
+            gw.append(Shard(0))
+        elif wp == Shard(1):
             out.append(Shard(2))
             gx.append(Partial())
             gw.append(Shard(1))
@@ -325,6 +374,9 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                    in_placements=(x.placements, w.placements),
                    in_grad_placements=(tuple(gx), tuple(gw)),
                    device_mesh=mesh)(x, w)
+    if Partial() in out:
+        y = y.redistribute(mesh, tuple(Replicate() if pl == Partial() else pl
+                                       for pl in out))
     return y
 
 
@@ -353,10 +405,14 @@ def _out_proj_padded(out: torch.Tensor, wo: torch.Tensor,
     are padding (``_pad_heads``): ``wo`` gets zero rows for them, so the
     padded heads, exact zeros, add nothing, and heads split over
     ``model`` stay split into the row-parallel product (slicing them off
-    would gather every head onto every rank)."""
+    would gather every head onto every rank).  A DTensor ``wo`` is padded
+    rank by rank (``_head_slice``)."""
     pad = out.shape[2] - real_h
     if pad:
-        wo = sharding.pad(wo, (0, 0, 0, 0, 0, pad))
+        if sharding._is_dtensor(wo):
+            wo = _head_slice(wo, 0, real_h)
+        else:
+            wo = F.pad(wo, (0, 0, 0, 0, 0, pad))
     return _out_proj(out, wo)
 
 

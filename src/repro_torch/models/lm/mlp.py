@@ -1,7 +1,8 @@
 """MLP blocks: gated (SiLU/GeLU-GLU, llama/gemma-style) and plain
 two-matrix (GPT-style), plus RMSNorm / LayerNorm.
 
-Counterpart of ``repro.models.lm.mlp``.  GeLU is the tanh approximation,
+Counterpart of ``repro.models.lm.mlp``.  Under a mesh the products run
+shard by shard (``sharding.matmul``).  GeLU is the tanh approximation,
 which is ``jax.nn.gelu``'s default (PyTorch's default is the exact erf
 form).  RMSNorm multiplies by ``scale`` (not ``1 + scale``).
 """
@@ -13,6 +14,8 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from .sharding import matmul
 
 
 class GatedMLP(NamedTuple):
@@ -57,16 +60,16 @@ def init_plain(generator: torch.Generator, d: int, f: int, dtype=torch.bfloat16,
 
 
 def gated(p: GatedMLP, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    g = x @ p.w_gate
-    u = x @ p.w_up
+    g = matmul(x, p.w_gate)
+    u = matmul(x, p.w_up)
     g = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
-    return (g * u) @ p.w_down
+    return matmul(g * u, p.w_down)
 
 
 def plain(p: PlainMLP, x: torch.Tensor, act: str = "gelu") -> torch.Tensor:
-    h = x @ p.w_in + p.b_in
+    h = matmul(x, p.w_in) + p.b_in
     h = F.gelu(h, approximate="tanh") if act == "gelu" else F.relu(h)
-    return h @ p.w_out + p.b_out
+    return matmul(h, p.w_out) + p.b_out
 
 
 # ---------------------------------------------------------------------------

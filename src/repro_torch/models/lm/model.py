@@ -144,8 +144,10 @@ def make_train_step(cfg: LMConfig, tcfg: Optional[TrainStepConfig] = None,
     (memory bounded by the microbatch, not the global batch); the summed
     gradients and losses are divided by the number of slices.  With a
     ``mesh`` (a ``DeviceMesh``; parameters, state and batch placed on it as
-    DTensors) each slice is redistributed with its batch over the data
-    axes, replicated where the slice does not divide them.
+    DTensors) each slice takes its rows from every rank's own batch shard
+    (``sharding.microbatch_rows``: no rank gathers the batch) and is
+    redistributed with its batch over the data axes, replicated where the
+    slice does not divide them.
     """
     tcfg = tcfg or TrainStepConfig()
 
@@ -175,7 +177,8 @@ def make_train_step(cfg: LMConfig, tcfg: Optional[TrainStepConfig] = None,
                                device=batch["tokens"].device)
             for i in range(n_mb):
                 mb_batch = constrain_batch(
-                    {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()})
+                    {k: sharding.microbatch_rows(v, i, mb)
+                     for k, v in batch.items()})
                 loss, grads = loss_and_grads(cfg, params, mb_batch)
                 for a, g in zip(tree_leaves(gsum), tree_leaves(grads)):
                     a.add_(g)          # in f32: a + f32(g), as the reference

@@ -472,6 +472,81 @@ def per_batch_shard(fn: Callable, batched: Sequence, shared: Sequence = (),
                      device_mesh=mesh)(*args)
 
 
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``, x (B, ..., K) and w (K, N).  Where no mesh axis splits
+    both x's batch and w (an ``fsdp`` weight under a split batch, which
+    DTensor's product gathers or not by its own cost), DTensors run it
+    shard by shard with each axis's split chosen here, not by DTensor's
+    strategies (which differ between PyTorch releases; some gather the
+    weight, or in the backward the weight and the tokens): on an axis
+    that splits x's batch the product is split by batch; on an axis that
+    splits w's K, x is sliced to match and the product is a partial sum
+    (the row-parallel product, and an ``fsdp`` weight at batch 1, as
+    GSPMD keeps it); on an axis that splits w's N, the product is split
+    along N (column-parallel).  The partial sums are left for the next op
+    to reduce, as DTensor's own product leaves them."""
+    if not (splits_any(x) or splits_any(w)):
+        return x @ w
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    if any(xp == Shard(0) and isinstance(wp, Shard)
+           for xp, wp in zip(x.placements, w.placements)):
+        return x @ w
+    mesh = x.device_mesh
+    last = x.ndim - 1
+    rules = []          # per mesh axis: x, w, product, x's and w's grads
+    for xp, wp in zip(x.placements, w.placements):
+        if xp == Shard(0):
+            rules.append((xp, wp, Shard(0), Shard(0), Partial()))
+        elif wp == Shard(0):
+            rules.append((Shard(last), wp, Partial(), Shard(last), wp))
+        elif wp == Shard(1):
+            rules.append((Replicate(), wp, Shard(last), Partial(), wp))
+        else:
+            rules.append((Replicate(),) * 5)
+    x_pl, w_pl, out, gx, gw = zip(*rules)
+    x = x.redistribute(mesh, x_pl)
+    w = w.redistribute(mesh, w_pl)
+    y, = local_map(lambda x, w: (x @ w,), out_placements=(out,),
+                   in_placements=(x_pl, w_pl), in_grad_placements=(gx, gw),
+                   device_mesh=mesh)(x, w)
+    return y
+
+
+def microbatch_rows(x: torch.Tensor, i: int, mb: int) -> torch.Tensor:
+    """Microbatch ``i`` of ``mb`` rows of the batch ``x`` (batch first):
+    ``x[i * mb:(i + 1) * mb]`` on a plain tensor.  A DTensor split along
+    its batch over n ranks (n dividing ``mb``) takes rows ``[i * mb / n,
+    (i + 1) * mb / n)`` of each rank's shard, so no rank gathers the batch
+    (slicing the global rows would); the microbatches hold other rows than
+    the plain slices, each row in exactly one, so the summed gradient and
+    the mean loss are the same sums in another order."""
+    if not splits_dim(x, 0):
+        return x[i * mb:(i + 1) * mb]
+    from torch.distributed.tensor import DTensor, Shard
+    mesh = x.device_mesh
+    n = 1
+    for d, pl in enumerate(x.placements):
+        if pl == Shard(0):
+            n *= mesh.size(d)
+    if mb % n or x.shape[0] % n:
+        return x[i * mb:(i + 1) * mb]
+    local = x.to_local()
+    rows = mb // n
+    part = local[i * rows:(i + 1) * rows]
+    return DTensor.from_local(part, mesh, x.placements, run_check=False,
+                              shape=torch.Size((mb,) + tuple(x.shape[1:])),
+                              stride=_contiguous((mb,) + tuple(x.shape[1:])))
+
+
+def _contiguous(shape) -> tuple:
+    """Strides of a contiguous tensor of ``shape``."""
+    stride = [1] * len(shape)
+    for d in range(len(shape) - 2, -1, -1):
+        stride[d] = stride[d + 1] * shape[d + 1]
+    return tuple(stride)
+
+
 def lookup_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``table[idx]``: an embedding lookup, idx (B, ...) -> (B, ..., D).
     DTensors run it shard by shard: ``idx`` split over the data axes; the
@@ -481,10 +556,13 @@ def lookup_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     looks up the ids that fall in it, writes zeros for the rest, and the
     partial rows are summed over ``model`` (the vocab-parallel lookup
     GSPMD makes of the reference's ``embed[tokens]``: no rank gathers the
-    table).  The table's gradient is split as the table is, and a partial
-    sum over the axes that split ``idx``.  (DTensor's own strategies for
-    this lookup, the vocab-parallel mask and ``index_put`` in the
-    backward, fail on some PyTorch releases.)"""
+    table).  A table split along D over a data axis that does not split
+    ``idx`` (an ``fsdp`` table at batch 1) stays split: each rank looks
+    up its slice of D, and the rows are gathered along D.  The table's
+    gradient is split as the table is, and a partial sum over the axes
+    that split ``idx``.  (DTensor's own strategies for this lookup, the
+    vocab-parallel mask and ``index_put`` in the backward, fail on some
+    PyTorch releases.)"""
     if not _is_dtensor(idx):
         return table[idx]
     from torch.distributed.tensor import Partial, Replicate, Shard
@@ -492,7 +570,19 @@ def lookup_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     mesh = idx.device_mesh
     idx = to_spec(idx, [dp_axes(mesh)] + [None] * (idx.ndim - 1))
     by_rows = splits_dim(table, 0)
-    table = to_spec(table, ["model", None] if by_rows else [None, "model"])
+    names = mesh.mesh_dim_names
+    t_pl = []
+    for i, (name, ip, tp) in enumerate(zip(names, idx.placements,
+                                           table.placements)):
+        if name == "model":
+            t_pl.append(Shard(0) if by_rows else Shard(1)
+                        if mesh.size(i) > 1 and table.shape[1] % mesh.size(i)
+                        == 0 else Replicate())
+        elif tp == Shard(1) and not isinstance(ip, Shard):
+            t_pl.append(tp)
+        else:
+            t_pl.append(Replicate())
+    table = table.redistribute(mesh, tuple(t_pl))
     lo = _local_offset(table, 0)
     out, grad = [], []
     for ip, tp in zip(idx.placements, table.placements):
@@ -519,7 +609,8 @@ def lookup_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                       in_grad_placements=(tuple(grad), idx.placements),
                       device_mesh=mesh)(table, idx)
     return rows.redistribute(mesh, tuple(
-        Replicate() if isinstance(pl, Partial) else pl for pl in out))
+        pl if isinstance(pl, Shard) and name == "model" or pl == Shard(0)
+        else Replicate() for name, pl in zip(names, out)))
 
 
 def pad(x: torch.Tensor, widths: Sequence[int]) -> torch.Tensor:
@@ -553,13 +644,10 @@ def stack(xs: Sequence[torch.Tensor]) -> torch.Tensor:
                          f"{[x.placements for x in xs]}")
     local = torch.stack([x.to_local() for x in xs])
     shape = (len(xs),) + tuple(xs[0].shape)
-    stride = [1] * len(shape)          # contiguous, without a tensor
-    for d in range(len(shape) - 2, -1, -1):
-        stride[d] = stride[d + 1] * shape[d + 1]
     return DTensor.from_local(
         local, xs[0].device_mesh,
         [Shard(p.dim + 1) if isinstance(p, Shard) else p for p in pl],
-        run_check=False, shape=torch.Size(shape), stride=tuple(stride))
+        run_check=False, shape=torch.Size(shape), stride=_contiguous(shape))
 
 
 def _local_offset(t, dim: int) -> int:

@@ -35,7 +35,7 @@ import torch.nn.functional as F
 from .mlp import normal
 from .scan import linear_scan
 from . import sharding
-from .sharding import constrain_tokens, pad
+from .sharding import constrain_tokens, matmul, pad
 
 
 class SSMParams(NamedTuple):
@@ -115,24 +115,81 @@ def _ssm_scan(dt: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
     return y.to(xin.dtype), hs[:, -1].clone()
 
 
+def _in_proj(w_in: torch.Tensor, x: torch.Tensor, Di: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, D) @ w_in (D, 2 Di) -> (xs, z), each (B, S, Di).
+
+    Under a mesh, ``w_in``'s columns are split over ``model``, so a rank's
+    product holds whole blocks of xs (the first half of the ranks) or of z
+    (the second half), where xs and z must each end split over ``model``.
+    Of the two ways to get there, the one that moves fewer bytes a rank a
+    call is taken: gather the weight (D x 2 Di), or compute the local
+    column block and exchange its two Di / m halves with the ranks that
+    own them (one all-to-all of the rank's B / dp x S tokens, GSPMD's
+    permute of the activations).  Neither slices the product across its
+    split, which would gather it whole."""
+    if not sharding.splits_dim(w_in, 1):
+        xz = x @ w_in
+        return xz[..., :Di], xz[..., Di:]
+    mesh = w_in.device_mesh
+    m = sharding.mesh_axes(mesh)["model"]
+    x = sharding.to_spec(x, [sharding.dp_axes(mesh), None, None])
+    w = sharding.to_spec(w_in, [None, "model"])
+    tokens = x.to_local().shape[0] * x.shape[1]
+    act_bytes = tokens * 2 * Di // m * x.element_size()
+    w_bytes = w.shape[0] * w.shape[1] * w.element_size()
+    if Di % m or act_bytes >= w_bytes:
+        w = sharding.to_spec(w, [None, None])
+        return tuple(x @ sharding.to_spec(h, [None, "model"])
+                     for h in (w[:, :Di], w[:, Di:]))
+    return _exchange_halves(x, w, Di)
+
+
+def _exchange_halves(x, w, Di: int):
+    """``_in_proj``'s exchange: rank r of the ``model`` axis (size m) holds
+    w's column blocks 2r and 2r + 1 (each Di / m wide; block g < m is
+    xs's shard g, block g >= m is z's shard g - m) and sends block g to
+    rank g mod m, so rank r receives xs's shard r from rank r // 2 and
+    z's shard r from rank (m + r) // 2, in that order."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    mdim = mesh.mesh_dim_names.index("model")
+    m = mesh.size(mdim)
+    r = mesh.get_coordinate()[mdim]
+    dest = [(2 * r + c) % m for c in (0, 1)]
+    order = sorted((0, 1), key=lambda c: dest[c])
+    send = [dest.count(d) for d in range(m)]
+    recv = [int(s == r // 2) + int(s == (m + r) // 2) for s in range(m)]
+
+    def local(x, w):
+        y = (x @ w).unflatten(-1, (2, Di // m)).movedim(-2, 0)
+        got = funcol.all_to_all_single_autograd(
+            y[order].contiguous(), recv, send, (mesh, mdim))
+        # copies, which wait for the collective: views of its pending
+        # result would be read before it lands (in the backward too)
+        return got[0].clone(), got[1].clone()
+
+    out = tuple(Shard(2) if i == mdim else pl
+                for i, pl in enumerate(x.placements))
+    gx = tuple(Partial() if i == mdim else pl
+               for i, pl in enumerate(x.placements))
+    gw = tuple(Shard(1) if i == mdim else
+               Partial() if isinstance(pl, Shard) else Replicate()
+               for i, pl in enumerate(x.placements))
+    return local_map(local, out_placements=(out, out),
+                     in_placements=(x.placements, w.placements),
+                     in_grad_placements=(gx, gw), device_mesh=mesh)(x, w)
+
+
 def forward(p: SSMParams, x: torch.Tensor, state: Optional[SSMState] = None
             ) -> Tuple[torch.Tensor, SSMState]:
     """Full-sequence pass (training/prefill); x (B,S,D)."""
     S = x.shape[1]
     Di = p.conv_b.shape[0]
     N = p.a_log.shape[1]
-    if sharding.splits_dim(p.w_in, 1) and \
-            x.shape[0] * x.shape[1] >= p.w_in.shape[0]:
-        # the x and z columns split over model as separate weights: slicing
-        # the product across its split gathers the (B, S, 2 Di) product
-        # onto every rank, gathering the weight moves (D, 2 Di); over a
-        # sequence (B S >= D tokens) the weight is the smaller
-        w = sharding.to_spec(p.w_in, [None, None])
-        xs, z = (x @ sharding.to_spec(h, [None, "model"])
-                 for h in (w[:, :Di], w[:, Di:]))
-    else:
-        xz = x @ p.w_in
-        xs, z = xz[..., :Di], xz[..., Di:]
+    xs, z = _in_proj(p.w_in, x, Di)
     tail_src = xs
     if state is not None:
         ctx = torch.cat([state.conv.to(xs.dtype), xs], dim=1)
@@ -140,17 +197,22 @@ def forward(p: SSMParams, x: torch.Tensor, state: Optional[SSMState] = None
     else:
         conv_out = _causal_depthwise_conv(xs, p.conv_w, p.conv_b)
     xs = F.silu(conv_out)
-    pre = (xs @ p.w_dt_down) @ p.w_dt_up + p.dt_bias.to(torch.float32)
+    # under a mesh the products run shard by shard (``sharding.matmul``;
+    # DTensor's own backward of them gathers w_out and the tokens), and
+    # those over the split Di are partial sums: the small (B, S, R) one is
+    # reduced before the second product (DTensor cannot feed a partial sum
+    # into it on some PyTorch releases), B and C before the scan's
+    # in-place state fold
+    low = constrain_tokens(matmul(xs, p.w_dt_down))
+    pre = matmul(low, p.w_dt_up) + p.dt_bias.to(torch.float32)
     dt = torch.logaddexp(pre, torch.zeros_like(pre))     # jax.nn.softplus
-    # under a mesh the product over the split Di is a partial sum: reduce it
-    # here (B and C are small), before the scan's in-place state fold
-    bc = constrain_tokens(xs @ p.w_bc)
+    bc = constrain_tokens(matmul(xs, p.w_bc))
     bmat, cmat = bc[..., :N], bc[..., N:]
     h0 = state.h if state is not None else None
     y, h_last = _ssm_scan(dt, bmat, cmat, xs, p.a_log, h0)
     y = y + xs * p.d_skip
     y = y * F.silu(z)
-    out = y @ p.w_out
+    out = matmul(y, p.w_out)
     K = p.conv_w.shape[0]
     if state is not None:
         ctx_tail = torch.cat([state.conv.to(tail_src.dtype), tail_src], dim=1)

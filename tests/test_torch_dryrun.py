@@ -10,6 +10,15 @@
 * a production cell (gemma3-1b decode_32k on the fake 16x16 mesh) ends
   ``ok`` in the reference's JSON layout, and a cell that
   ``shape_supported`` refuses is ``skipped``;
+* on the fake 16x16 mesh at full width and cut depth (one layer per
+  segment, a global batch of 16 in one microbatch), no weight is gathered
+  where the reference's GSPMD keeps it split: falcon-mamba's train step
+  gathers nothing as large as half of one layer's in-projection (its
+  halves are exchanged, an all-to-all); gemma3-1b's train step (4 heads
+  padded to 16) gathers nothing in its backward (the padded weights'
+  gradients stay split); gemma2-27b's batch-1 decode (an ``fsdp`` arch)
+  gathers less in the whole step than one layer's query projection
+  holds on one rank;
 * ``model_flops`` and ``fused_memory_bytes`` equal the reference's on all
   40 cells, and ``analyse`` equals the reference's on synthetic artifacts
   once the reference's constants are the port's.
@@ -78,6 +87,22 @@ def test_production_cell_layout(fake_results):
                                  "collective_bytes_per_device", "segments"}
     assert cell["cost"]["flops_per_device"] > 0
     assert fake_results["skipped"]["status"] == "skipped"
+
+
+def test_falcon_mamba_cut_train_gathers_no_in_projection(fake_results):
+    r = fake_results["mechanisms"]["falcon_train"]
+    assert max(n for n, _ in r["gathers"]) < r["w_in_half"], r
+    assert r["kinds"].get("all-to-all", 0) > 0, r["kinds"]
+
+
+def test_gemma3_cut_train_gathers_no_padded_gradient(fake_results):
+    r = fake_results["mechanisms"]["gemma3_train"]
+    assert [n for n, backward in r["gathers"] if backward] == [], r
+
+
+def test_gemma2_cut_batch1_decode_gathers_no_fsdp_weight(fake_results):
+    r = fake_results["mechanisms"]["gemma2_long"]
+    assert sum(n for n, _ in r["gathers"]) < r["wq_shard"], r
 
 
 def test_parse_collectives_sums_by_kind():
@@ -251,6 +276,60 @@ def _spec_bytes(cfg, shape, mesh):
     return local, total
 
 
+#: cut-depth production cells on the fake 16x16 mesh: arch, shape, config
+#: overrides (one layer per segment besides)
+MECHANISM_CELLS = {
+    "falcon_train": ("falcon-mamba-7b", ("t", 2048, 16, "train"),
+                     {"microbatch": 16}),
+    "gemma3_train": ("gemma3-1b", ("t", 4096, 16, "train"),
+                     {"microbatch": 16}),
+    "gemma2_long": ("gemma2-27b", ("long_500k", 524_288, 1, "decode"), {}),
+}
+
+
+def _mechanisms():
+    """Each ``MECHANISM_CELLS`` cell's step under a ``CostMode`` that also
+    notes, for every all-gather, its bytes and whether autograd's backward
+    issued it; with the byte sizes the checks compare against."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+
+    class Spy(dryrun.CostMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            if out is not NotImplemented and func._schema.name == \
+                    "_c10d_functional::all_gather_into_tensor":
+                self.gathers.append((out.numel() * out.element_size(),
+                                     torch._C._current_autograd_node()
+                                     is not None))
+            return out
+
+    Spy.gathers = []
+    mesh = dryrun._fake_mesh(False)
+    model_size = dict(zip(mesh.mesh_dim_names, mesh.shape))["model"]
+    real = dryrun.CostMode
+    dryrun.CostMode = Spy
+    out = {}
+    try:
+        for name, (arch, dims, over) in MECHANISM_CELLS.items():
+            cfg = get_config(arch)
+            cfg = dataclasses.replace(cfg, segments=tuple(
+                dataclasses.replace(s, n=1) for s in cfg.segments), **over)
+            Spy.gathers = []
+            mode, _, _ = dryrun._measure(cfg, ShapeSpec(*dims), mesh)
+            out[name] = {
+                "gathers": Spy.gathers,
+                "kinds": dryrun.parse_collectives(mode.collectives),
+                # bf16 weights of one layer
+                "w_in_half": cfg.d_model * cfg.d_inner * 2,
+                "wq_shard": cfg.d_model * cfg.n_heads * cfg.hd * 2
+                // model_size}
+    finally:
+        dryrun.CostMode = real
+    return out
+
+
 def _main(out_path):
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -286,6 +365,7 @@ def _main(out_path):
     out["production"] = dryrun.run_cell("gemma3-1b", "decode_32k", False)
     out["skipped"] = dryrun.run_cell("granite-moe-3b-a800m", "long_500k",
                                      False)
+    out["mechanisms"] = _mechanisms()
     Path(out_path).write_text(json.dumps(out))
 
 

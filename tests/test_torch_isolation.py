@@ -1,7 +1,7 @@
 """The port stands alone: no file of ``src/repro_torch/``, of
-``examples/torch/``, of ``benchmarks_torch/`` nor ``chip_smoke.py``
-imports ``jax``, anything of ``repro`` or the reference's
-``benchmarks``; its entry points (the host mesh, the examples' and the
+``examples/torch/``, of ``benchmarks_torch/``, nor ``chip_smoke.py`` and
+the gloo workers it runs (``tests/test_torch_gloo_workers.py``) imports
+``jax``, anything of ``repro`` or the reference's ``benchmarks``; its entry points (the host mesh, the examples' and the
 kernel bench's ``--device`` included) default to the card; and
 ``chip_smoke.py`` fails, printing no result, where there is no card or
 no repository around it."""
@@ -21,7 +21,8 @@ torch = pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
     (ROOT / "examples" / "torch").glob("*.py")) + sorted(
-    (ROOT / "benchmarks_torch").glob("*.py")) + [ROOT / "chip_smoke.py"]
+    (ROOT / "benchmarks_torch").glob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_gloo_workers.py"]
 DEVICE_EXAMPLES = ["schedule_and_run_cnn.py", "serve_lm.py", "train_lm.py"]
 
 
@@ -64,7 +65,10 @@ def test_port_files_found():
             "replicate_bottleneck.py", "serve_two_models.py",
             "serve_with_slos.py", *DEVICE_EXAMPLES, "common.py", "run.py",
             "fig2_resnet8.py", "fig3_resnet18.py", "table1_utilization.py",
-            "fig4_imc_dpu.py", "yolo_latency.py", "kernel_bench.py"} <= names
+            "fig4_imc_dpu.py", "yolo_latency.py", "kernel_bench.py",
+            "scheduler_quality.py", "elastic_bench.py", "multi_tenant.py",
+            "replication.py", "sensitivity.py", "lm_partition.py",
+            "sim_speed.py", "test_torch_gloo_workers.py"} <= names
 
 
 CORE_FILES = sorted((ROOT / "src" / "repro_torch" / "core").rglob("*.py"))

@@ -20,6 +20,11 @@
   recurrentgemma) within 1e-5 of its max |g| of the unsharded port
   (AdamW's normalised step would hide a gradient summed over too few
   ranks, so the gradients are compared, not the parameters);
+* no weight gathered where the reference's GSPMD keeps it split: the
+  padded-head archs' train step on the 3 ranks gathers no projection
+  weight or gradient; falcon-mamba's training on the (2, 2) mesh gathers
+  no in-projection; the smoke FSDP arch decodes at batch 1 with its
+  weights split along D, within 1e-5 of the unsharded logits;
 * sequence-reduced decode: on the same 4 ranks, the smoke gemma3-1b (1
   KV head, which does not divide ``model``) prefills and decodes with
   the cache's sequence split over ``model`` (batch 2) and over data x
@@ -31,12 +36,13 @@
   q-chunked plain route, within 1e-6 of max |out| of the unchunked plain
   route in f32 at 8,192 tokens.
 
-The gloo ranks run in a subprocess (this file run as a script), so no
-process group is ever opened in a test worker."""
+The gloo ranks run in a subprocess (``test_torch_gloo_workers.py`` run as
+a script, which imports no jax, so ``chip_smoke.py`` runs the same ranks
+on the card machine), so no process group is ever opened in a test
+worker."""
 
 import dataclasses
 import functools
-import json
 import os
 import subprocess
 import sys
@@ -47,8 +53,11 @@ import pytest
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
+from test_torch_gloo_workers import (GLOO_ARCHS, GRAD_ARCHS, SHARD_RTOL,
+                                     _rel, load)
+
 ROOT = Path(__file__).resolve().parents[1]
-SHARD_RTOL = 1e-5
+WORKERS = ROOT / "tests" / "test_torch_gloo_workers.py"
 
 
 class Mesh16:
@@ -220,23 +229,15 @@ def test_write_slot_plain_is_a_slice_assignment():
 # real collectives: 3 gloo ranks on a (1, 3) mesh
 # ---------------------------------------------------------------------------
 
-GLOO_ARCHS = ("gemma3-1b", "granite-moe-3b-a800m")
-#: every block family: attention, MoE, the Mamba SSM, the RG-LRU hybrid
-GRAD_ARCHS = GLOO_ARCHS + ("falcon-mamba-7b", "recurrentgemma-9b")
-
-
 @pytest.fixture(scope="module")
 def gloo_results(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("gloo")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1",
                CUDA_VISIBLE_DEVICES="")
-    res = subprocess.run([sys.executable, __file__, str(tmp)], env=env,
+    res = subprocess.run([sys.executable, str(WORKERS), str(tmp)], env=env,
                          capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stderr[-4000:]
-    out = json.loads((tmp / "result.json").read_text())
-    out["2x2"] = json.loads((tmp / "grads.json").read_text())
-    out["seq"] = json.loads((tmp / "seq.json").read_text())
-    return out
+    return load(tmp)
 
 
 @pytest.mark.parametrize("arch", GLOO_ARCHS)
@@ -262,6 +263,15 @@ def test_sharded_train_step_matches_unsharded(gloo_results, arch):
     assert r["cache_placed"]
 
 
+def test_data_parallel_microbatches_match_unsharded(gloo_results):
+    """Microbatches of a data-split batch take their rows from each rank's
+    own shard: the step gathers nothing and equals the unsharded step."""
+    r = gloo_results["2x2"][GRAD_ARCHS[0]]["train"]
+    assert r["loss_rel"] <= SHARD_RTOL
+    assert r["param_rel"] <= SHARD_RTOL, r["param_rel"]
+    assert r["gathers"] == [], r["gathers"]
+
+
 @pytest.mark.parametrize("batch", [2, 1])
 def test_sequence_split_decode_matches_unsharded(gloo_results, batch):
     r = gloo_results["seq"][str(batch)]
@@ -270,6 +280,40 @@ def test_sequence_split_decode_matches_unsharded(gloo_results, batch):
     assert max(r["decode_rel"]) <= SHARD_RTOL, r["decode_rel"]
     assert r["max_reduces"] > 0
     assert r["gathered"] < r["cache_layer_bytes"], r
+
+
+@pytest.mark.parametrize("arch", GLOO_ARCHS)
+def test_padded_heads_train_step_gathers_no_weight(gloo_results, arch):
+    """Smoke H = 4 on the 3-wide model axis: each rank builds its own
+    slice of the padded heads, so neither the train step's forward nor its
+    backward gathers a projection weight or its gradient (splitting a
+    whole padded weight would gather its gradient back)."""
+    r = gloo_results[arch]
+    assert r["padded"]
+    smallest = min(r["weight_bytes"].values())
+    assert max(r["train_gathers"], default=0.0) < smallest, r
+
+
+def test_falcon_mamba_training_gathers_no_in_projection(gloo_results):
+    """On the (2, 2) mesh the in-projection's halves are exchanged between
+    ranks (the rank's 2 x 16 tokens move less than the weight): no
+    all-gather as large as one layer's ``w_in``, and the gradients match
+    as before."""
+    r = gloo_results["2x2"]["falcon-mamba-7b"]
+    assert max(r["gathers"], default=0.0) < r["w_in_bytes"], r
+    assert r["grad_rel"] <= SHARD_RTOL, r["worst_leaf"]
+
+
+def test_fsdp_batch1_decode_keeps_weights_split(gloo_results):
+    """The smoke FSDP arch at batch 1 on the (2, 2) mesh: its projection
+    weights stay split along D over data; each rank contracts its slice,
+    so a decode step gathers less than one layer's query projection, and
+    its logits match the unsharded port's."""
+    r = gloo_results["seq"]["fsdp_1"]
+    assert r["wq_d_split"]
+    assert len(r["decode_rel"]) == 4
+    assert max(r["decode_rel"]) <= SHARD_RTOL, r["decode_rel"]
+    assert r["gathered"] < r["wq_layer_bytes"], r
 
 
 @pytest.mark.parametrize("window", [None, 512])
@@ -290,201 +334,3 @@ def test_chunked_cpu_prefill_equals_unchunked(monkeypatch, window):
     assert _rel(got, want) <= 1e-6
 
 
-def _rel(a, b):
-    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
-
-
-def _worker(rank, world, store_path, out_path):
-    import torch.distributed as dist
-    from torch.distributed.tensor import DTensor
-
-    from repro_torch.configs import get_config
-    from repro_torch.configs.base import ShapeSpec
-    from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models.lm import attention, model, sharding, transformer
-    from repro_torch.optim import adamw
-    from repro_torch.tree import tree_leaves, tree_map
-
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
-                            rank=rank, world_size=world)
-    mesh = make_host_mesh(device="cpu")
-    padded = []
-    real_pad = attention._pad_heads
-
-    def spy(q, k, v):
-        out = real_pad(q, k, v)
-        padded.append(out[0].shape[1] > out[3])    # (D, H_pad, hd) weights
-        return out
-
-    attention._pad_heads = spy
-    results = {}
-    B, S, steps = 2, 12, 4
-    for arch in GLOO_ARCHS:
-        cfg = get_config(arch).smoke()
-        params = tree_map(lambda t: t.float(), transformer.init_params(
-            cfg, torch.Generator().manual_seed(0), device="cpu"))
-        toks = torch.randint(0, cfg.vocab, (B, S),
-                             generator=torch.Generator().manual_seed(1))
-        logits, cache = transformer.prefill(cfg, params, toks, S + steps)
-        want, feed = [logits], []
-        for _ in range(steps):
-            tok = torch.argmax(logits[:, -1:], dim=-1)
-            feed.append(tok)
-            logits, cache = transformer.decode(cfg, params, tok, cache)
-            want.append(logits)
-
-        ps = sharding.param_shardings(cfg, mesh, params)
-        dparams = sharding.distribute(params, ps)
-        bs = sharding.batch_shardings(mesh, {"tokens": toks})
-        padded.clear()
-        with sharding.activation_mesh(mesh):
-            dtoks = sharding.distribute({"tokens": toks}, bs)["tokens"]
-            logits, dcache = transformer.prefill(cfg, dparams, dtoks, S + steps)
-            got = [logits.full_tensor()]
-            for tok in feed:
-                dtok = sharding.distribute({"tokens": tok}, bs)["tokens"]
-                logits, dcache = transformer.decode(cfg, dparams, dtok, dcache)
-                got.append(logits.full_tensor())
-        cache_placed = all(isinstance(t, DTensor)
-                           for t in tree_leaves(dcache.entries))
-        serve_padded = bool(padded) and all(padded)
-
-        batch = {"tokens": torch.randint(
-            0, cfg.vocab, (4, 16), generator=torch.Generator().manual_seed(3))}
-        batch["labels"] = batch["tokens"]
-        opt = adamw.init(params)
-        p1, _, m1 = model.make_train_step(cfg, microbatch=2)(params, opt,
-                                                             batch)
-        dopt = sharding.distribute(opt, sharding.opt_shardings(cfg, mesh, opt,
-                                                               params))
-        dbatch = sharding.distribute(batch, sharding.batch_shardings(mesh,
-                                                                     batch))
-        with sharding.activation_mesh(mesh):
-            p2, _, m2 = model.make_train_step(cfg, microbatch=2, mesh=mesh)(
-                dparams, dopt, dbatch)
-        results[arch] = {
-            "padded": serve_padded,
-            "serve_rel": [_rel(g, w) for g, w in zip(got, want)],
-            "loss_rel": abs(float(m2["loss"].full_tensor()) - float(m1["loss"]))
-            / abs(float(m1["loss"])),
-            "param_rel": max(_rel(a.full_tensor(), b) for a, b in zip(
-                tree_leaves(p2), tree_leaves(p1))),
-            "cache_placed": cache_placed,
-        }
-    if rank == 0:
-        Path(out_path).write_text(json.dumps(results))
-    dist.destroy_process_group()
-
-
-def _grad_worker(rank, world, store_path, out_path):
-    import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
-
-    from repro_torch.configs import get_config
-    from repro_torch.models.lm import model, sharding, transformer
-    from repro_torch.tree import tree_flatten_with_names, tree_leaves, tree_map
-
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
-                            rank=rank, world_size=world)
-    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
-    results = {}
-    for arch in GRAD_ARCHS:
-        cfg = get_config(arch).smoke()
-        params = tree_map(lambda t: t.float(), transformer.init_params(
-            cfg, torch.Generator().manual_seed(0), device="cpu"))
-        gen = torch.Generator().manual_seed(3)
-        batch = {"tokens": torch.randint(0, cfg.vocab, (4, 16), generator=gen),
-                 "labels": torch.randint(0, cfg.vocab, (4, 16), generator=gen)}
-        loss, grads = model.loss_and_grads(cfg, params, batch)
-        dparams = sharding.distribute(params, sharding.param_shardings(
-            cfg, mesh, params))
-        dbatch = sharding.distribute(batch, sharding.batch_shardings(mesh,
-                                                                     batch))
-        with sharding.activation_mesh(mesh):
-            dloss, dgrads = model.loss_and_grads(cfg, dparams, dbatch)
-        rel = [(_rel(a.full_tensor(), b), name) for (name, a), b in zip(
-            tree_flatten_with_names(dgrads), tree_leaves(grads))]
-        results[arch] = {
-            "loss_rel": abs(float(dloss.full_tensor()) - float(loss))
-            / abs(float(loss)),
-            "grad_rel": max(rel)[0], "worst_leaf": max(rel)[1]}
-    if rank == 0:
-        Path(out_path).write_text(json.dumps(results))
-    dist.destroy_process_group()
-
-
-def _seq_worker(rank, world, store_path, out_path):
-    """Decode with the cache's sequence split (see the module docstring)."""
-    import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
-
-    from repro_torch.configs import get_config
-    from repro_torch.launch.dryrun import CostMode
-    from repro_torch.models.lm import sharding, transformer
-    from repro_torch.tree import tree_map
-
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
-                            rank=rank, world_size=world)
-    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
-    cfg = get_config("gemma3-1b").smoke()
-    assert cfg.n_kv_heads % 2 != 0
-    params = tree_map(lambda t: t.float(), transformer.init_params(
-        cfg, torch.Generator().manual_seed(0), device="cpu"))
-    dparams = sharding.distribute(params, sharding.param_shardings(
-        cfg, mesh, params))
-    results, S, steps = {}, 12, 4
-    for B, want_split in ((2, ["model"]), (1, ["data", "model"])):
-        toks = torch.randint(0, cfg.vocab, (B, S),
-                             generator=torch.Generator().manual_seed(B))
-        logits, cache = transformer.prefill(cfg, params, toks, S + steps)
-        want, feed = [], []
-        for _ in range(steps):
-            tok = torch.argmax(logits[:, -1:], dim=-1)
-            feed.append(tok)
-            logits, cache = transformer.decode(cfg, params, tok, cache)
-            want.append(logits)
-        bs = sharding.batch_shardings(mesh, {"tokens": toks})
-        with sharding.activation_mesh(mesh):
-            dtoks = sharding.distribute({"tokens": toks}, bs)["tokens"]
-            _, dcache = transformer.prefill(cfg, dparams, dtoks, S + steps)
-            k = dcache.entries[0].k
-            split = [mesh.mesh_dim_names[i] for i, pl in enumerate(
-                k.placements) if getattr(pl, "dim", None) == 2]
-            got, mode = [], None
-            for i, tok in enumerate(feed):
-                dtok = sharding.distribute({"tokens": tok}, bs)["tokens"]
-                if i == 0:
-                    mode = CostMode()
-                    with mode:
-                        logits, dcache = transformer.decode(cfg, dparams,
-                                                            dtok, dcache)
-                else:
-                    logits, dcache = transformer.decode(cfg, dparams, dtok,
-                                                        dcache)
-                got.append(logits.full_tensor())
-        results[str(B)] = {
-            "want_split": want_split, "cache_seq_split": split,
-            "decode_rel": [_rel(g, w) for g, w in zip(got, want)],
-            "max_reduces": sum(1 for kind, _ in mode.collectives
-                               if kind == "all-reduce"),
-            "gathered": sum(n for kind, n in mode.collectives
-                            if kind == "all-gather"),
-            "cache_layer_bytes": B * (S + steps) * cfg.n_kv_heads
-            * cfg.hd * 4}
-    if rank == 0:
-        Path(out_path).write_text(json.dumps(results))
-    dist.destroy_process_group()
-
-
-if __name__ == "__main__":
-    import torch.multiprocessing as mp
-    out_dir = Path(sys.argv[1])
-    mp.spawn(_worker, args=(3, str(out_dir / "store"),
-                            str(out_dir / "result.json")), nprocs=3)
-    mp.spawn(_grad_worker, args=(4, str(out_dir / "store4"),
-                                 str(out_dir / "grads.json")), nprocs=4)
-    mp.spawn(_seq_worker, args=(4, str(out_dir / "store_seq"),
-                                str(out_dir / "seq.json")), nprocs=4)
