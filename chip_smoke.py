@@ -174,10 +174,13 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
    CPU and PyTorch (``tests/test_torch_gloo_workers.py``, which imports no
    jax, started as a subprocess before phase 1 and collected here): the
    3-rank serving and train steps of gemma3-1b and granite-moe, the (2, 2)
-   gradients of gemma3-1b, granite-moe, falcon-mamba and recurrentgemma,
-   the sequence-split decode and gemma2-27b's batch-1 decode, each within
-   the tests' ``SHARD_RTOL`` of the unsharded port and gathering no weight
-   where the reference keeps it split; an exception in any rank fails it.
+   gradients of gemma3-1b, granite-moe, falcon-mamba, recurrentgemma and
+   qwen3-moe (an fsdp MoE arch, also served and trained there, by the
+   rule's ways and with its fsdp weights kept split and its experts
+   exchanged), the sequence-split decode and gemma2-27b's batch-1 and
+   batch-2 decodes, each within the tests' ``SHARD_RTOL`` of the
+   unsharded port and gathering no weight where the reference keeps it
+   split; an exception in any rank fails it.
 
 Detail goes to ``chiprun_out/chip_smoke.json``.  The line before the last
 is ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
@@ -2340,7 +2343,7 @@ def gloo_ranks(procs):
             f"{a['loss_rel']:.2e}, params rel {a['param_rel']:.2e}, "
             f"all-gathers {len(a['train_gathers'])} "
             f"({sum(a['train_gathers']):.0f} B)")
-    for arch in w.GRAD_ARCHS:
+    for arch in w.GRAD_ARCHS + (w.EXCHANGE_CASE,):
         a = r["2x2"][arch]
         need(a["loss_rel"] <= tol and a["grad_rel"] <= tol,
              f"{arch} gradients {a}")
@@ -2350,6 +2353,21 @@ def gloo_ranks(procs):
         log(f"  {arch} on 4 gloo ranks (2, 2): loss rel {a['loss_rel']:.2e}, "
             f"worst gradient leaf {a['worst_leaf']} rel {a['grad_rel']:.2e}, "
             f"largest all-gather {max(a['gathers'], default=0.0):.0f} B")
+    for case in (w.MOE_FSDP_ARCH, w.EXCHANGE_CASE):
+        a = r["2x2"][case]
+        need(len(a["serve_rel"]) == 5 and max(a["serve_rel"]) <= tol
+             and a["train"]["loss_rel"] <= tol
+             and a["train"]["param_rel"] <= tol,
+             f"{case} serving and train step {a}")
+        log(f"  {case} on 4 gloo ranks (2, 2): prefill + 4 decode steps max "
+            f"rel {max(a['serve_rel']):.2e}, train step params rel "
+            f"{a['train']['param_rel']:.2e}, experts exchanged with F cut in "
+            f"{a['experts_exchanged'] or 'none'}")
+    a = r["2x2"][w.EXCHANGE_CASE]
+    need(a["experts_exchanged"] == [2],
+         f"{w.EXCHANGE_CASE} exchanged no experts")
+    need([n for n in a["gathers"] if n >= a["wq_layer_bytes"]]
+         == [a["embed_gathered"]], f"{w.EXCHANGE_CASE} gathers {a['gathers']}")
     for batch in ("2", "1"):
         a = r["seq"][batch]
         need(a["cache_seq_split"] == a["want_split"]
@@ -2361,11 +2379,17 @@ def gloo_ranks(procs):
     need(a["wq_d_split"] and len(a["decode_rel"]) == 4
          and max(a["decode_rel"]) <= tol
          and a["gathered"] < a["wq_layer_bytes"], f"fsdp batch 1: {a}")
+    b = r["seq"]["fsdp_2"]
+    need(len(b["decode_rel"]) == 4 and max(b["decode_rel"]) <= tol
+         and b["all_to_alls"] > 0
+         and [n for n in b["gathers"] if n >= b["wq_layer_bytes"]]
+         == [b["embed_gathered"]], f"fsdp batch 2: {b}")
     log(f"  sequence-split decode (batch 2, 1) max rel "
         f"{max(r['seq']['2']['decode_rel'] + r['seq']['1']['decode_rel']):.2e}"
         f"; {w.FSDP_ARCH} batch-1 decode max rel {max(a['decode_rel']):.2e}, "
         f"gathered {a['gathered']:.0f} B a step (one layer's wq "
-        f"{a['wq_layer_bytes']} B)")
+        f"{a['wq_layer_bytes']} B); batch-2 decode max rel "
+        f"{max(b['decode_rel']):.2e}, {b['all_to_alls']} all-to-alls")
     if bad:
         raise AssertionError(f"gloo ranks outside the tests' limits: {bad}")
     import torch

@@ -306,78 +306,48 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     operand over a mesh axis that ordering makes a strided shard, which
     DTensor's product cannot take under fake tensors, so a split operand
     goes through one (H hd) contraction instead (the same sum in another
-    order).  That product leaves a partial sum over the model axis, which
-    is reduced here, batch over the data axes (the row-parallel
-    all-reduce): left partial, DTensor would split the following norm
-    along the sequence instead."""
+    order), by ``sharding.matmul``'s rules (an ``fsdp`` ``wo``, D split
+    over the data axes, is gathered or kept split by
+    ``gather_or_exchange``).  That product leaves a partial sum over the
+    model axis, which is reduced here, batch over the data axes (the
+    row-parallel all-reduce): left partial, DTensor would split the
+    following norm along the sequence instead."""
     if sharding.splits_dim(out, 2) or sharding.splits_dim(wo, 0):
         B, S, H, hd = out.shape
-        return constrain_tokens(
-            out.reshape(B, S, H * hd) @ wo.reshape(H * hd, wo.shape[2]))
+        return constrain_tokens(sharding.matmul(
+            out.reshape(B, S, H * hd), wo.reshape(H * hd, wo.shape[2])))
     return torch.einsum("bqhd,hdk->bqk", out, wo)
 
 
-def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(B, S, D) x (D, heads, hd) -> (B, S, heads, hd).  Where DTensor
-    splits either operand the product runs shard by shard (``local_map``):
-    x with its batch over the data axes, w whole along D where the batch
-    is split too, its heads split over ``model`` where they were (the same
-    ``einsum`` on each shard; DTensor's own propagation through it splits
-    column counts that the heads cannot unflatten).  Where w's D is split
-    over an axis that does not split the batch (an ``fsdp`` weight at
-    batch 1), w stays split: x is sliced along D to match, each rank
-    contracts its slice, and the small product is summed over that axis,
-    as GSPMD does, instead of gathering the weight.  x's gradient is a
-    partial sum over ``model`` where the heads split; w's over the axes
-    that split the batch."""
-    if not (sharding.splits_any(x) or sharding.splits_any(w)):
+def _project(x: torch.Tensor, *ws: torch.Tensor) -> list:
+    """(B, S, D) x each (D, heads, hd) of ``ws`` -> a list of (B, S, heads,
+    hd).  Where DTensor splits an operand the products run shard by
+    shard, by ``sharding.matmuls``'s rules (the same ``einsum`` on each
+    shard; DTensor's own propagation through it splits column counts that
+    the heads cannot unflatten): x with its batch over the data axes and
+    D whole elsewhere, placed once for all the products, so that its
+    gradient (a partial sum over ``model`` where the heads split) is
+    reduced once; heads split over ``model`` stay split.  Where w's D is
+    split over an axis that also splits the batch (an ``fsdp`` weight),
+    ``sharding.gather_or_exchange`` decides: at decode the rows move and w
+    stays split, at training w is gathered.  Where it is split over an
+    axis that does not split the batch (an ``fsdp`` weight at batch 1), w
+    stays split: x is sliced along D to match, each rank contracts its slice,
+    and the small product is summed over that axis here, as GSPMD does,
+    instead of gathering the weight."""
+    def local(x, w):
         return torch.einsum("bsd,dhk->bshk", x, w)
-    from torch.distributed.tensor import Partial, Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
+
+    if not (sharding.splits_any(x) or any(map(sharding.splits_any, ws))):
+        return [local(x, w) for w in ws]
+    from torch.distributed.tensor import Partial, Replicate
     mesh = x.device_mesh
     x = sharding.to_spec(x, [sharding.dp_axes(mesh), None, None])
-    names = mesh.mesh_dim_names
-    w_pl, x_pl = [], []
-    for i, (xp, wp) in enumerate(zip(x.placements, w.placements)):
-        if isinstance(xp, Shard):
-            w_pl.append(Replicate())
-            x_pl.append(xp)
-        elif wp == Shard(0):                     # D split, batch whole
-            w_pl.append(wp)
-            x_pl.append(Shard(2))
-        else:
-            w_pl.append(wp if wp == Shard(1) and names[i] == "model"
-                        else Replicate())
-            x_pl.append(xp)
-    x = x.redistribute(mesh, tuple(x_pl))
-    w = w.redistribute(mesh, tuple(w_pl))
-    out, gx, gw = [], [], []
-    for xp, wp in zip(x_pl, w_pl):
-        if xp == Shard(0):
-            out.append(Shard(0))
-            gx.append(Shard(0))
-            gw.append(Partial())
-        elif wp == Shard(0):
-            out.append(Partial())
-            gx.append(Shard(2))
-            gw.append(Shard(0))
-        elif wp == Shard(1):
-            out.append(Shard(2))
-            gx.append(Partial())
-            gw.append(Shard(1))
-        else:
-            out.append(Replicate())
-            gx.append(Replicate())
-            gw.append(Replicate())
-    y, = local_map(lambda x, w: (torch.einsum("bsd,dhk->bshk", x, w),),
-                   out_placements=(tuple(out),),
-                   in_placements=(x.placements, w.placements),
-                   in_grad_placements=(tuple(gx), tuple(gw)),
-                   device_mesh=mesh)(x, w)
-    if Partial() in out:
-        y = y.redistribute(mesh, tuple(Replicate() if pl == Partial() else pl
-                                       for pl in out))
-    return y
+    return [y.redistribute(mesh, tuple(
+        Replicate() if isinstance(pl, Partial) else pl
+        for pl in y.placements))
+        if any(isinstance(pl, Partial) for pl in y.placements) else y
+        for y in sharding.matmuls(x, ws, local)]
 
 
 #: sequences at least this long use q-chunked attention (bounded memory)
@@ -391,9 +361,8 @@ def _cross(p: AttnParams, x: torch.Tensor, kv_from: torch.Tensor,
     rope, no mask, the plain ``attend``."""
     hd = p.wq.shape[2]
     wq, wk, wv, real_h = _pad_heads(p.wq, p.wk, p.wv)
-    q = _project(x, wq)
-    k = _expand_kv(_project(kv_from, wk), q.shape[2])
-    v = _expand_kv(_project(kv_from, wv), q.shape[2])
+    q, = _project(x, wq)
+    k, v = (_expand_kv(t, q.shape[2]) for t in _project(kv_from, wk, wv))
     q, k, v = _constrain_attn(q, k, v)
     out = _attend_kv(q, k, v, None, softcap, 1.0 / math.sqrt(hd))
     return _out_proj_padded(out, p.wo, real_h)
@@ -430,9 +399,7 @@ def forward_train(p: AttnParams, x: torch.Tensor, positions: torch.Tensor, *,
     S = x.shape[1]
     hd = p.wq.shape[2]
     wq, wk, wv, real_h = _pad_heads(p.wq, p.wk, p.wv)
-    q = _project(x, wq)
-    k = _project(x, wk)
-    v = _project(x, wv)
+    q, k, v = _project(x, wq, wk, wv)
     if use_rope:
         cos, sin = _rope_tables(positions, hd, q)
         q = rope.apply_rope(q, cos, sin)
@@ -487,9 +454,7 @@ def forward(p: AttnParams, x: torch.Tensor, positions: torch.Tensor, *,
                              softcap=softcap, use_rope=use_rope)
     hd = p.wq.shape[2]
     wq, wk, wv, real_h = _pad_heads(p.wq, p.wk, p.wv)
-    q = _project(x, wq)
-    k = _project(x, wk)
-    v = _project(x, wv)
+    q, k, v = _project(x, wq, wk, wv)
     if use_rope:
         # the reference calls rope_angles with its default theta, whatever
         # cfg.rope_theta says; the port does the same
@@ -521,8 +486,7 @@ def prefill(p: AttnParams, x: torch.Tensor, positions: torch.Tensor,
             s_max: int, *, use_rope: bool = True) -> KVCache:
     """Compute and store K/V for the prompt (zero-padded to s_max)."""
     hd = p.wk.shape[2]
-    k = _project(x, p.wk)
-    v = _project(x, p.wv)
+    k, v = _project(x, p.wk, p.wv)
     if use_rope:
         cos, sin = _rope_tables(positions, hd, k)
         k = rope.apply_rope(k, cos, sin)
@@ -537,7 +501,7 @@ def cross_decode(p: AttnParams, x: torch.Tensor, cache: KVCache) -> torch.Tensor
     """Cross-attention during decode: x (B, 1, D) over the static
     (unpadded) encoder KV cache."""
     hd = p.wq.shape[2]
-    q = _project(x, p.wq)
+    q, = _project(x, p.wq)
     out = _attend_cache(q, cache.k, cache.v, None, None, 1.0 / math.sqrt(hd))
     return _out_proj(out, p.wo)
 
@@ -557,9 +521,7 @@ def decode_step(p: AttnParams, x: torch.Tensor, cache: KVCache, cur_pos: int,
     if not 0 <= cur_pos < S_max:
         raise ValueError(f"decode position {cur_pos} outside the cache "
                          f"(s_max {S_max})")
-    q = _project(x, p.wq)
-    k_new = _project(x, p.wk)
-    v_new = _project(x, p.wv)
+    q, k_new, v_new = _project(x, p.wq, p.wk, p.wv)
     # a fill kernel: a host-to-device copy here would wait for the stream
     pos = torch.full((1,), cur_pos, device=x.device)
     if use_rope:

@@ -2,7 +2,8 @@
 two-matrix (GPT-style), plus RMSNorm / LayerNorm.
 
 Counterpart of ``repro.models.lm.mlp``.  Under a mesh the products run
-shard by shard (``sharding.matmul``).  GeLU is the tanh approximation,
+shard by shard (``sharding.matmul``; the gate and up products place
+their input once, ``sharding.matmuls``).  GeLU is the tanh approximation,
 which is ``jax.nn.gelu``'s default (PyTorch's default is the exact erf
 form).  RMSNorm multiplies by ``scale`` (not ``1 + scale``).
 """
@@ -15,7 +16,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from .sharding import matmul
+from .sharding import matmul, matmuls
 
 
 class GatedMLP(NamedTuple):
@@ -60,8 +61,7 @@ def init_plain(generator: torch.Generator, d: int, f: int, dtype=torch.bfloat16,
 
 
 def gated(p: GatedMLP, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    g = matmul(x, p.w_gate)
-    u = matmul(x, p.w_up)
+    g, u = matmuls(x, (p.w_gate, p.w_up))
     g = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
     return matmul(g * u, p.w_down)
 

@@ -30,28 +30,37 @@ that express it: ``Shard(d)`` on every mesh dim named for tensor dim
 ``d`` and ``Replicate()`` elsewhere.  ``distribute`` places a tree by
 its shardings (the counterpart of ``jax.jit(in_shardings=...)``).
 
-The activation hooks (``constrain``, ``constrain_tokens``,
-``constrain_moe_slots``, and the port's ``constrain_cache``)
+The activation hooks (``constrain``, ``constrain_tokens``, and the
+port's ``constrain_cache``; the reference's ``constrain_moe_slots`` is
+where each rank's MoE slots already lie, ``moe._sharded``)
 redistribute a DTensor to the guarded placements while
 ``activation_mesh`` is active, the counterpart of
 ``with_sharding_constraint``; without an active mesh, or on a plain
 tensor, they return their input untouched.  The rest is the port's own,
 for what GSPMD does for the reference and DTensor does not, or not on
 every PyTorch release: ``replicate_like`` (DTensor refuses to mix plain
-tensors with DTensors), ``per_batch_shard`` and ``lookup_rows``
-(data-dependent indexing, run shard by shard with explicit gradient
-placements), ``write_slot`` (an in-place write into a view across a
-split dim is silently lost), ``logsumexp``, ``take_last``, ``pad`` and
-``stack``.  On plain tensors each is the plain op.
+tensors with DTensors), ``lookup_rows`` (data-dependent indexing, run
+shard by shard with explicit gradient placements), ``matmul`` (every
+product whose operands DTensor splits, each mesh axis's split chosen
+here: DTensor's strategies, which differ between releases, choose none;
+``gather_or_exchange`` decides whether an ``fsdp`` weight under a split
+batch is gathered or kept split while the rows move, by ``all_to_all``
+and the other functional collectives inside ``local_map``; it also
+decides the MoE's ``fsdp`` experts and the SSM's in-projection),
+``write_slot`` (an
+in-place write into a view across a split dim is silently lost),
+``logsumexp``, ``take_last``, ``pad`` and ``stack``.  On plain tensors
+each is the plain op.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
 import sys
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Mapping, Sequence, Tuple
+from typing import Any, Dict, Mapping, Sequence, Tuple
 
 import torch
 
@@ -424,11 +433,6 @@ def constrain_cache(x):
     return constrain(x, lambda mesh, dp: list(cache_pspec(mesh, (), leaf))[1:])
 
 
-def constrain_moe_slots(x):
-    """MoE dispatch slots (B, E, C, D): batch->data, experts->model."""
-    return constrain(x, lambda mesh, dp: [dp, "model", None, None])
-
-
 def replicate_like(t: torch.Tensor, ref) -> torch.Tensor:
     """``t`` (a plain tensor built inside a block: rope tables, masks,
     positions) as a replicated DTensor on ``ref``'s mesh when ``ref`` is a
@@ -441,76 +445,201 @@ def replicate_like(t: torch.Tensor, ref) -> torch.Tensor:
                               run_check=False)
 
 
-def per_batch_shard(fn: Callable, batched: Sequence, shared: Sequence = (),
-                    n_out: int = 1):
-    """``fn(*batched, *shared)``, which returns a tuple of ``n_out``
-    tensors with the batch first, with every ``batched`` tensor split over
-    the data axes along dim 0 (replicated where the batch does not divide)
-    and every ``shared`` tensor replicated; the outputs come back split the
-    same way.  A shared tensor's gradient is a partial sum over the axes
-    that split the batch.  For the data-dependent indexing that DTensor
-    cannot shard (MoE routing, dispatch and combine): each batch row routes
-    on its own, so running it shard by shard is exact.  Without DTensors
-    it is just ``fn``."""
-    if not any(_is_dtensor(x) for x in batched):
-        return fn(*batched, *shared)
-    from torch.distributed.tensor import Partial, Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
-    mesh = batched[0].device_mesh
-    b_pl = NamedSharding(mesh, batch_pspec(mesh, tuple(batched[0].shape))
-                         ).placements
-    rep = (Replicate(),) * mesh.ndim
-    part = tuple(Partial() if isinstance(p, Shard) else Replicate()
-                 for p in b_pl)
-    args = [x.redistribute(mesh, b_pl) for x in batched] \
-        + [x.redistribute(mesh, rep) for x in shared]
-    return local_map(fn, out_placements=tuple(b_pl for _ in range(n_out)),
-                     in_placements=tuple(b_pl for _ in batched)
-                     + tuple(rep for _ in shared),
-                     in_grad_placements=tuple(b_pl for _ in batched)
-                     + tuple(part for _ in shared),
-                     device_mesh=mesh)(*args)
+def _local_bytes(shape, placements, mesh, itemsize: int) -> int:
+    """Bytes of one rank's shard of a tensor of ``shape`` placed by
+    ``placements`` on ``mesh`` (even shards; a placement of a dim past
+    ``shape`` is ignored, so a prefix of a shape counts its own dims)."""
+    from torch.distributed.tensor import Shard
+    dims = list(shape)
+    for i, pl in enumerate(placements):
+        if isinstance(pl, Shard) and pl.dim < len(dims):
+            dims[pl.dim] //= mesh.size(i)
+    n = itemsize
+    for d in dims:
+        n *= d
+    return n
 
 
-def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w``, x (B, ..., K) and w (K, N).  Where no mesh axis splits
-    both x's batch and w (an ``fsdp`` weight under a split batch, which
-    DTensor's product gathers or not by its own cost), DTensors run it
-    shard by shard with each axis's split chosen here, not by DTensor's
-    strategies (which differ between PyTorch releases; some gather the
-    weight, or in the backward the weight and the tokens): on an axis
-    that splits x's batch the product is split by batch; on an axis that
-    splits w's K, x is sliced to match and the product is a partial sum
-    (the row-parallel product, and an ``fsdp`` weight at batch 1, as
-    GSPMD keeps it); on an axis that splits w's N, the product is split
-    along N (column-parallel).  The partial sums are left for the next op
-    to reduce, as DTensor's own product leaves them."""
-    if not (splits_any(x) or splits_any(w)):
-        return x @ w
-    from torch.distributed.tensor import Partial, Replicate, Shard
+def all_to_all(t: torch.Tensor, group, n: int, split_dim: int,
+               cat_dim: int) -> torch.Tensor:
+    """Inside ``local_map``: chunk p of ``t`` along ``split_dim`` (``n``
+    equal chunks) goes to rank p of ``group`` (a ``(mesh, mesh dim)``
+    pair of ``n`` ranks); the chunks this rank receives are concatenated
+    along ``cat_dim`` (a dim of ``t``, counted from 0) in rank order.
+    Differentiable: the backward is the opposite exchange."""
+    from torch.distributed import _functional_collectives as funcol
+    parts = t.unflatten(split_dim, (n, -1)).movedim(split_dim, 0)
+    got = funcol.all_to_all_single_autograd(parts.contiguous(), None, None,
+                                            group)
+    return got.movedim(0, cat_dim).flatten(cat_dim, cat_dim + 1)
+
+
+def _all_gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Inside ``local_map``: ``t`` gathered from every rank of ``group``
+    along ``dim`` (differentiable; the backward reduce-scatters)."""
+    from torch.distributed import _functional_collectives as funcol
+    gather = getattr(funcol, "all_gather_single_autograd", None) \
+        or funcol.all_gather_tensor_autograd
+    return gather(t.contiguous(), dim, group)
+
+
+def _reduce_scatter(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Inside ``local_map``: ``t`` summed over the ranks of ``group`` and
+    split along ``dim``, this rank keeping its chunk (differentiable; the
+    backward all-gathers)."""
+    from torch.distributed import _functional_collectives as funcol
+    scatter = getattr(funcol, "reduce_scatter_single_autograd", None) \
+        or funcol.reduce_scatter_tensor_autograd
+    out = scatter(t.contiguous(), "sum", dim, group)
+    # a copy once it has landed: a pending result (an
+    # ``AsyncCollectiveTensor``) leaving ``local_map`` drops the gradient
+    # of the ops that DTensor later runs on it
+    return out.clone() if isinstance(out, funcol.AsyncCollectiveTensor) \
+        else out
+
+
+def gather_or_exchange(gather: int, exchange: int) -> str:
+    """How a product meets a weight split over a mesh axis where its rows
+    cannot simply be contracted against the local slice (an ``fsdp``
+    weight under a batch split over the same axis: ``matmul``, the MoE's
+    experts; the SSM's in-projection), from the bytes each way moves a
+    rank a call (sent or received, in the forward; each way's backward
+    mirrors it), which the caller counts for its shapes: ``"gather"``
+    (gather the weight; for ``fsdp``, reduce-scatter its gradient back)
+    where that moves strictly fewer bytes, else ``"exchange"`` (keep the
+    weight split and move the rows).  The one rule for every such
+    choice."""
+    return "gather" if gather < exchange else "exchange"
+
+
+def matmul_bytes(x_bytes: int, w_bytes: int, y_bytes: int, n: int,
+                 w_dim: int) -> Tuple[int, int]:
+    """(gather, exchange): the bytes a rank moves a call in ``matmul``'s two
+    ways over a mesh axis of ``n`` ranks that splits the batch of x
+    (``x_bytes`` on a rank) and dim ``w_dim`` of w (``w_bytes``), the
+    product ``y_bytes`` on a rank.  The gather receives n - 1 shards of
+    w.  The exchange, where w's contracted dim (``w_dim`` 0) is split,
+    sends (n - 1) / n of x's rows for a slice of every rank's rows and
+    reduce-scatters the partial product back over the batch (n - 1 times
+    a rank's share); where an output dim is split, it gathers every
+    rank's rows and exchanges the output's column slices back for
+    rows."""
+    if w_dim == 0:
+        exchange = (n - 1) * x_bytes // n + (n - 1) * y_bytes
+    else:
+        exchange = (n - 1) * x_bytes + (n - 1) * y_bytes // n
+    return (n - 1) * w_bytes, exchange
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor, local=None) -> torch.Tensor:
+    """``x @ w``, x (B, ..., K) and w (K, N); or ``local(x, w)`` for a w
+    with several output dims (K, N1, N2, ...), whose product is (B, ...,
+    N1, N2, ...) (the attention projections).  DTensors run it shard by
+    shard, with each mesh axis's split chosen here, never by DTensor's
+    strategies (which differ between PyTorch releases):
+
+    * an axis that splits x's batch and not w: the product is split by
+      batch, w's gradient a partial sum;
+    * an axis that splits w's K and not the batch: x is sliced along K to
+      match and the product is a partial sum (the row-parallel product,
+      and an ``fsdp`` weight at batch 1, as GSPMD keeps it);
+    * an axis that splits an output dim of w and not the batch: the
+      product is split along that dim (column-parallel), x's gradient a
+      partial sum;
+    * an axis that splits both the batch and w (an ``fsdp`` weight under a
+      data-split batch): ``gather_or_exchange`` picks the way that moves
+      fewer bytes a rank (``matmul_bytes``).  At decode a rank's rows are
+      few and the rows move (the weight stays split); at training the
+      weight is gathered.  With more than one such axis (the multi-pod
+      mesh) the weight is gathered.
+
+    The partial sums are left for the next op to reduce, as DTensor's own
+    product leaves them."""
+    return matmuls(x, (w,), local)[0]
+
+
+def matmuls(x: torch.Tensor, ws: Sequence[torch.Tensor], local=None) -> list:
+    """``[matmul(x, w, local) for w in ws]``, x read once: under a mesh x
+    is placed once for every product that takes it in the same placement
+    (q, k and v; gate and up), so the partial sums of its gradient from
+    each are added up before one reduction, where placing it for each
+    would reduce each apart."""
+    if local is None:
+        local = torch.matmul
+    if not (splits_any(x) or any(splits_any(w) for w in ws)):
+        return [local(x, w) for w in ws]
     from torch.distributed.tensor.experimental import local_map
-    if any(xp == Shard(0) and isinstance(wp, Shard)
-           for xp, wp in zip(x.placements, w.placements)):
-        return x @ w
+    mesh = x.device_mesh
+    placed = {}
+    out = []
+    for w in ws:
+        x_pl, w_pl, y_pl, gx, gw, ex = _product_plan(x, w)
+        if x_pl not in placed:
+            placed[x_pl] = x.redistribute(mesh, x_pl)
+        y, = local_map(functools.partial(_product, local, ex),
+                       out_placements=(y_pl,), in_placements=(x_pl, w_pl),
+                       in_grad_placements=(gx, gw), device_mesh=mesh)(
+            placed[x_pl], w.redistribute(mesh, w_pl))
+        out.append(y)
+    return out
+
+
+def _product_plan(x, w):
+    """``matmul``'s placements of x, w, the product and x's and w's
+    gradients, one entry a mesh axis, and its exchange (None, or the
+    group, size and w's split dim of the axis whose rows move)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
     mesh = x.device_mesh
     last = x.ndim - 1
-    rules = []          # per mesh axis: x, w, product, x's and w's grads
-    for xp, wp in zip(x.placements, w.placements):
-        if xp == Shard(0):
-            rules.append((xp, wp, Shard(0), Shard(0), Partial()))
+    both = [i for i, (xp, wp) in enumerate(zip(x.placements, w.placements))
+            if xp == Shard(0) and isinstance(wp, Shard)]
+    rules = []
+    for i, (xp, wp) in enumerate(zip(x.placements, w.placements)):
+        if i in both:
+            rules.append((xp, wp, Shard(0), Shard(0), wp))
+        elif xp == Shard(0):
+            rules.append((xp, Replicate(), Shard(0), Shard(0), Partial()))
         elif wp == Shard(0):
             rules.append((Shard(last), wp, Partial(), Shard(last), wp))
-        elif wp == Shard(1):
-            rules.append((Replicate(), wp, Shard(last), Partial(), wp))
+        elif isinstance(wp, Shard):
+            rules.append((Replicate(), wp, Shard(last + wp.dim - 1),
+                          Partial(), wp))
         else:
             rules.append((Replicate(),) * 5)
-    x_pl, w_pl, out, gx, gw = zip(*rules)
-    x = x.redistribute(mesh, x_pl)
-    w = w.redistribute(mesh, w_pl)
-    y, = local_map(lambda x, w: (x @ w,), out_placements=(out,),
-                   in_placements=(x_pl, w_pl), in_grad_placements=(gx, gw),
-                   device_mesh=mesh)(x, w)
-    return y
+    x_pl, w_pl, y_pl, gx, gw = (list(r) for r in zip(*rules))
+    ex = None
+    if len(both) == 1:
+        i = both[0]
+        n, w_dim = mesh.size(i), w.placements[i].dim
+        y_shape = tuple(x.shape[:-1]) + tuple(w.shape[1:])
+        itemsize = torch.promote_types(x.dtype, w.dtype).itemsize
+        if gather_or_exchange(*matmul_bytes(
+                _local_bytes(x.shape, x_pl, mesh, x.element_size()),
+                _local_bytes(w.shape, w_pl, mesh, w.element_size()),
+                _local_bytes(y_shape, y_pl, mesh, itemsize), n,
+                w_dim)) == "exchange":
+            ex = ((mesh, i), n, w_dim)
+    if ex is None:
+        for i in both:
+            w_pl[i], gw[i] = Replicate(), Partial()
+    return (tuple(x_pl), tuple(w_pl), tuple(y_pl), tuple(gx), tuple(gw),
+            ex)
+
+
+def _product(local, ex, x, w):
+    """One rank's ``local(x, w)`` for ``matmul``, with its exchange: where
+    w's K is split, x's rows for a slice of K and the partial products
+    of every rank's rows summed and split back by rows; where an output
+    dim is split, every rank's rows and the output's column slices
+    exchanged back for rows."""
+    if ex is None:
+        return (local(x, w),)
+    group, n, w_dim = ex
+    if w_dim == 0:
+        x = all_to_all(x, group, n, x.ndim - 1, 0)
+        return (_reduce_scatter(local(x, w), group, 0),)
+    y = local(_all_gather(x, group, 0), w)
+    return (all_to_all(y, group, n, 0, x.ndim - 2 + w_dim),)
 
 
 def microbatch_rows(x: torch.Tensor, i: int, mb: int) -> torch.Tensor:

@@ -122,12 +122,16 @@ def _in_proj(w_in: torch.Tensor, x: torch.Tensor, Di: int
     Under a mesh, ``w_in``'s columns are split over ``model``, so a rank's
     product holds whole blocks of xs (the first half of the ranks) or of z
     (the second half), where xs and z must each end split over ``model``.
-    Of the two ways to get there, the one that moves fewer bytes a rank a
-    call is taken: gather the weight (D x 2 Di), or compute the local
+    Of the two ways to get there, ``sharding.gather_or_exchange`` takes
+    the one that moves fewer bytes a rank a call: gather the weight (D x 2
+    Di; the gather receives its m - 1 other shards), or compute the local
     column block and exchange its two Di / m halves with the ranks that
     own them (one all-to-all of the rank's B / dp x S tokens, GSPMD's
-    permute of the activations).  Neither slices the product across its
-    split, which would gather it whole."""
+    permute of the activations; it sends (m - 1) / m of the two halves).
+    The weight is gathered only where that moves strictly fewer bytes: at
+    a tie (falcon-mamba's prefill of 2 x 32,768 tokens a rank) the halves
+    are exchanged, as GSPMD keeps the weight split.  Neither slices the
+    product across its split, which would gather it whole."""
     if not sharding.splits_dim(w_in, 1):
         xz = x @ w_in
         return xz[..., :Di], xz[..., Di:]
@@ -136,9 +140,10 @@ def _in_proj(w_in: torch.Tensor, x: torch.Tensor, Di: int
     x = sharding.to_spec(x, [sharding.dp_axes(mesh), None, None])
     w = sharding.to_spec(w_in, [None, "model"])
     tokens = x.to_local().shape[0] * x.shape[1]
-    act_bytes = tokens * 2 * Di // m * x.element_size()
-    w_bytes = w.shape[0] * w.shape[1] * w.element_size()
-    if Di % m or act_bytes >= w_bytes:
+    halves = tokens * 2 * Di // m * x.element_size()
+    shard = w.shape[0] * w.shape[1] // m * w.element_size()
+    if Di % m or sharding.gather_or_exchange(
+            (m - 1) * shard, (m - 1) * halves // m) == "gather":
         w = sharding.to_spec(w, [None, None])
         return tuple(x @ sharding.to_spec(h, [None, "model"])
                      for h in (w[:, :Di], w[:, Di:]))

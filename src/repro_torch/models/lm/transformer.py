@@ -205,7 +205,7 @@ def embed_tokens(cfg: LMConfig, params, tokens: torch.Tensor,
 
 def logits_head(cfg: LMConfig, params, x: torch.Tensor) -> torch.Tensor:
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = (x @ w).to(torch.float32)
+    logits = sharding.matmul(x, w).to(torch.float32)
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     return logits

@@ -19,7 +19,9 @@ by default, from ``python -m repro_torch.launch.dryrun --all``), the
 port / reference ratios of peak (raw, and against the reference's less
 its f32 copies), FLOPs and matrix-product FLOPs, the collective bytes
 by kind of the port, of the reference and of the reference with its
-tuple collectives, and how many cells fall within 1.2x and 2x.
+tuple collectives, how many cells fall within 1.2x and 2x, and per
+collective kind how many cells the port moves at most 2x, and within 2x
+of, the reference with its tuple collectives.
 
 ``tests/test_torch_dryrun_parity.py`` checks two cells of the file
 against a live run, holds the port's dry run against two cells, and
@@ -197,6 +199,18 @@ def compare(art_dir: Path) -> None:
     for key in ("flops", "matmul_flops", "peak", "peak_held"):
         print(f"  {key}: within 1.2x {within(key, 1.2)}, within 2x "
               f"{within(key, 2)}")
+    # per kind, over the cells where the port or the reference (with its
+    # tuple collectives) moves some: the port at most 2x the reference
+    # with tuples, and within 2x of it
+    kinds = sorted({k for r in rows for k in r["collectives"]})
+    for kind in kinds:
+        pairs = [(g, t) for r in rows
+                 for k, (g, _, t) in r["collectives"].items()
+                 if k == kind and (g or t)]
+        print(f"  {kind}: {len(pairs)} cells; port at most 2x the "
+              f"reference with tuples in "
+              f"{sum(g <= 2 * t for g, t in pairs)}, within 2x in "
+              f"{sum(t / 2 <= g <= 2 * t for g, t in pairs)}")
 
 
 def main() -> None:

@@ -11,14 +11,26 @@
   ``ok`` in the reference's JSON layout, and a cell that
   ``shape_supported`` refuses is ``skipped``;
 * on the fake 16x16 mesh at full width and cut depth (one layer per
-  segment, a global batch of 16 in one microbatch), no weight is gathered
-  where the reference's GSPMD keeps it split: falcon-mamba's train step
-  gathers nothing as large as half of one layer's in-projection (its
-  halves are exchanged, an all-to-all); gemma3-1b's train step (4 heads
-  padded to 16) gathers nothing in its backward (the padded weights'
-  gradients stay split); gemma2-27b's batch-1 decode (an ``fsdp`` arch)
-  gathers less in the whole step than one layer's query projection
-  holds on one rank;
+  segment, one microbatch), no weight is gathered where the reference's
+  GSPMD keeps it split: falcon-mamba's train step, and its prefill of
+  prefill_32k's 2 x 32,768 tokens a rank, gather nothing as large as half
+  of one layer's in-projection (its halves are exchanged, an
+  all-to-all); gemma3-1b's train step (4 heads padded to 16) gathers
+  nothing in its backward (the padded weights' gradients stay split);
+  gemma2-27b's batch-1 decode (an ``fsdp`` arch) gathers less in the
+  whole step than one layer's query projection holds on one rank;
+  qwen3-moe's train step (one sequence a data rank) gathers nothing as
+  large as one layer's dispatch slots on a rank, and in its backward no
+  expert weight beyond its FSDP gather (the experts are exchanged, an
+  all-to-all);
+* an ``fsdp`` product under a split batch (gemma2-27b's ``w_gate`` at
+  decode_32k's and train_4k's rows a rank) takes the way
+  ``sharding.gather_or_exchange`` names: at decode the rows move
+  (all-to-all and reduce-scatter, nothing gathered), at train size the
+  weight is gathered (one all-gather of its size);
+* the reference's train-cell all-reduce counted with its tuple-shaped
+  collectives, spread over its layers and microbatches, bounds gemma3-1b's
+  one-layer microbatch of the same rows (4 a data rank);
 * ``model_flops`` and ``fused_memory_bytes`` equal the reference's on all
   40 cells, and ``analyse`` equals the reference's on synthetic artifacts
   once the reference's constants are the port's.
@@ -103,6 +115,54 @@ def test_gemma3_cut_train_gathers_no_padded_gradient(fake_results):
 def test_gemma2_cut_batch1_decode_gathers_no_fsdp_weight(fake_results):
     r = fake_results["mechanisms"]["gemma2_long"]
     assert sum(n for n, _ in r["gathers"]) < r["wq_shard"], r
+
+
+def test_qwen3_moe_cut_train_gathers_no_dispatch_slots(fake_results):
+    r = fake_results["mechanisms"]["qwen3_train"]
+    assert max(n for n, _ in r["gathers"]) < r["slots_rank"], r
+    # the backward gathers no expert weight beyond its FSDP gather
+    assert max((n for n, backward in r["gathers"] if backward),
+               default=0) <= r["expert_gathered"], r
+    assert r["kinds"].get("all-to-all", 0) > 0, r["kinds"]
+
+
+def test_falcon_mamba_cut_prefill_gathers_no_in_projection(fake_results):
+    r = fake_results["mechanisms"]["falcon_prefill"]
+    assert max((n for n, _ in r["gathers"]), default=0) < r["w_in_half"], r
+    assert r["kinds"].get("all-to-all", 0) > 0, r["kinds"]
+
+
+@pytest.mark.parametrize("batch", ["decode", "train"])
+def test_fsdp_product_takes_the_way_the_rule_names(fake_results, batch):
+    r = fake_results["mechanisms"]["fsdp_ways"][batch]
+    assert r["named"] == {"decode": "exchange", "train": "gather"}[batch]
+    if r["named"] == "gather":
+        assert [n for n, _ in r["gathers"]] == [r["w_gathered"]], r
+        assert "all-to-all" not in r["kinds"], r
+    else:
+        assert r["gathers"] == [], r
+        assert r["kinds"].get("all-to-all", 0) > 0, r
+        assert r["kinds"].get("reduce-scatter", 0) > 0, r
+
+
+def test_gemma3_cut_train_all_reduce_within_reference_with_tuples(
+        fake_results):
+    """The reference's train-cell all-reduce counted with its
+    tuple-shaped collectives (``collective_bytes_with_tuples``; its
+    ``parse_collectives`` misses them), spread over its layers and
+    microbatches, bounds the port's one-layer microbatch of the same rows
+    (4 a data rank), which counts in full the step's once-a-step
+    collectives (the optimizer's, the outputs' placement) and the
+    microbatch's embedding and head besides its one layer."""
+    from repro_torch.configs import get_config
+    ref = json.loads((ROOT / "tests" / "data" /
+                      "dryrun_reference_pod16x16.json").read_text())
+    cost = ref["cells"]["gemma3-1b__train_4k"]["cost"]
+    layers = sum(seg.n for seg in get_config("gemma3-1b").segments)
+    bound = cost["collective_bytes_with_tuples"]["all-reduce"] / (
+        layers * cost["n_microbatches"])
+    got = fake_results["mechanisms"]["gemma3_train"]["kinds"]["all-reduce"]
+    assert got <= bound, (got, bound)
 
 
 def test_parse_collectives_sums_by_kind():
@@ -281,9 +341,13 @@ def _spec_bytes(cfg, shape, mesh):
 MECHANISM_CELLS = {
     "falcon_train": ("falcon-mamba-7b", ("t", 2048, 16, "train"),
                      {"microbatch": 16}),
-    "gemma3_train": ("gemma3-1b", ("t", 4096, 16, "train"),
-                     {"microbatch": 16}),
+    # train_4k's own microbatch: 64 rows, 4 a data rank
+    "gemma3_train": ("gemma3-1b", ("t", 4096, 64, "train"), {}),
     "gemma2_long": ("gemma2-27b", ("long_500k", 524_288, 1, "decode"), {}),
+    # train_4k's microbatch of 16 rows, one a data rank
+    "qwen3_train": ("qwen3-moe-235b-a22b", ("t", 4096, 16, "train"), {}),
+    # prefill_32k's 2 x 32,768 tokens a data rank
+    "falcon_prefill": ("falcon-mamba-7b", ("p", 32_768, 32, "prefill"), {}),
 }
 
 
@@ -294,6 +358,7 @@ def _mechanisms():
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch import dryrun
+    from repro_torch.models.lm import moe
 
     class Spy(dryrun.CostMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -308,6 +373,7 @@ def _mechanisms():
     Spy.gathers = []
     mesh = dryrun._fake_mesh(False)
     model_size = dict(zip(mesh.mesh_dim_names, mesh.shape))["model"]
+    data_size = dict(zip(mesh.mesh_dim_names, mesh.shape))["data"]
     real = dryrun.CostMode
     dryrun.CostMode = Spy
     out = {}
@@ -317,7 +383,8 @@ def _mechanisms():
             cfg = dataclasses.replace(cfg, segments=tuple(
                 dataclasses.replace(s, n=1) for s in cfg.segments), **over)
             Spy.gathers = []
-            mode, _, _ = dryrun._measure(cfg, ShapeSpec(*dims), mesh)
+            shape = ShapeSpec(*dims)
+            mode, _, _ = dryrun._measure(cfg, shape, mesh)
             out[name] = {
                 "gathers": Spy.gathers,
                 "kinds": dryrun.parse_collectives(mode.collectives),
@@ -325,8 +392,66 @@ def _mechanisms():
                 "w_in_half": cfg.d_model * cfg.d_inner * 2,
                 "wq_shard": cfg.d_model * cfg.n_heads * cfg.hd * 2
                 // model_size}
+            if cfg.n_experts:
+                # one layer's dispatch slots on a rank, (B' / dp, E, C,
+                # D), and one expert weight gathered whole along D, bf16
+                C = moe.capacity(min(shape.seq_len, moe.GROUP),
+                                 cfg.n_experts, cfg.top_k)
+                out[name]["slots_rank"] = (shape.global_batch // data_size
+                                           * cfg.n_experts * C
+                                           * cfg.d_model * 2)
+                out[name]["expert_gathered"] = (cfg.n_experts // model_size
+                                                * cfg.d_model * cfg.d_ff * 2)
+        out["fsdp_ways"] = _fsdp_ways(mesh, Spy)
     finally:
         dryrun.CostMode = real
+    return out
+
+
+#: decode_32k's and train_4k's rows of gemma2-27b (an fsdp arch): 128
+#: one-token rows, and a microbatch of 16 rows of 4,096 tokens
+FSDP_BATCHES = {"decode": (128, 1), "train": (16, 4096)}
+
+
+def _fsdp_ways(mesh, spy):
+    """gemma2-27b's ``w_gate`` (D, F), placed by its rules (D over
+    ``data``, F over ``model``), times each ``FSDP_BATCHES`` batch of bf16
+    rows split over ``data``, under ``spy`` (a ``CostMode`` noting every
+    all-gather): the way ``gather_or_exchange`` names from
+    ``matmul_bytes``, the collectives the product issued, and the
+    weight's bytes gathered whole along D."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models.lm import sharding
+    cfg = get_config("gemma2-27b")
+    D, F = cfg.d_model, cfg.d_ff
+    sizes = sharding.mesh_axes(mesh)
+    n, m = sizes["data"], sizes["model"]
+    out = {}
+    with FakeTensorMode():
+        w = distribute_tensor(torch.empty(D, F, dtype=torch.bfloat16), mesh,
+                              sharding.NamedSharding(
+                                  mesh, sharding.param_pspec(
+                                      cfg, mesh, ("w_gate",),
+                                      torch.empty(D, F))).placements)
+        for name, (B, S) in FSDP_BATCHES.items():
+            x = distribute_tensor(torch.empty(B, S, D, dtype=torch.bfloat16),
+                                  mesh, sharding.NamedSharding(
+                                      mesh, sharding.P("data")).placements)
+            spy.gathers = []
+            mode = spy()
+            with mode:
+                sharding.matmul(x, w)
+            out[name] = {
+                "named": sharding.gather_or_exchange(*sharding.matmul_bytes(
+                    B // n * S * D * 2, D // n * F // m * 2,
+                    B // n * S * F // m * 2, n, 0)),
+                "kinds": dryrun.parse_collectives(mode.collectives),
+                "gathers": spy.gathers,
+                "w_gathered": D * F // m * 2}
     return out
 
 

@@ -48,11 +48,20 @@ Each takes a few seconds a side.  Per cell:
   reduce decode attention over the cache's sequence shards (max, sum of
   exponentials, P.V) and gather the replicated logits.  No all-gather
   of the cache is left: the port's all-gather bytes are at most the
-  replicated logits'.  Exception, named in ``ALL_GATHER_AT_MOST``:
-  granite's GSPMD program gathers the MoE dispatch slots, (8, 320, 1536)
-  f32 a layer (503 of its 505 MiB); the port dispatches each batch shard
-  where it lies and gathers only the logits, so there the bound is one
-  sided (port at most 2x the reference).
+  replicated logits'.  Exceptions, named in ``OWN_BYTES``: granite's
+  GSPMD program gathers the MoE dispatch slots, (8, 320, 1536) f32 a
+  layer (503 of its 505 MiB), and all-reduces the experts' outputs (B',
+  E, C, D) a layer (483 MiB); the port dispatches each batch shard where
+  it lies, gathers only the logits, and combines each rank's experts
+  before it reduces.  For those kinds the port is held within 2x of the
+  reference above (at most 2x) and within 2x of its own figure, summed
+  from the shapes of the collectives its design makes, both ways: the
+  gathered logits (B, 1, V) f32; and a layer's combine, a (B', 1, D)
+  partial sum in the activations' dtype, with its decode attention's
+  reductions over the cache's shards, (B', 1, H, hd) f32 for P.V and
+  two (B', H, 1, 1) f32 for the max and the sum of exponentials, times
+  the layers, with the logits' (B', 1, V) f32 partial sum over
+  ``model``'s slices of D (3.8 MiB in all).  B' is a data rank's rows.
 """
 
 import json
@@ -73,9 +82,26 @@ import make_dryrun_reference  # noqa: E402
 
 DENSE = (("gemma3-1b", "decode_32k"), ("gemma3-1b", "long_500k"))
 CELLS = DENSE + (("granite-moe-3b-a800m", "decode_32k"),)
-#: cells whose all-gather bound is one sided (see the module docstring)
-ALL_GATHER_AT_MOST = {("granite-moe-3b-a800m", "decode_32k")}
 MiB = 2**20
+#: data ranks of the pod16x16 mesh
+DATA = 16
+
+
+def _logits_bytes(cfg, shape):
+    return shape.global_batch * cfg.vocab * 4
+
+
+def _decode_all_reduce_bytes(cfg, shape):
+    rows = shape.global_batch // DATA
+    layer = rows * (cfg.d_model * 2 + cfg.n_heads * cfg.hd * 4
+                    + 2 * cfg.n_heads * 4)
+    return cfg.n_layers * layer + rows * cfg.vocab * 4
+
+
+#: cells and collective kinds held to the port's own figure beside the
+#: reference's upper side (see the module docstring)
+OWN_BYTES = {("granite-moe-3b-a800m", "decode_32k"): {
+    "all-gather": _logits_bytes, "all-reduce": _decode_all_reduce_bytes}}
 FIXTURE = ROOT / "tests" / "data" / "dryrun_reference_pod16x16.json"
 
 
@@ -135,8 +161,11 @@ def test_collectives_within_bound(reference, port, cell):
     got = port[cell]["cost"]["collective_bytes_per_device"]
     for kind in set(ref) | set(got):
         r, g = ref.get(kind, 0.0), got.get(kind, 0.0)
-        if kind == "all-gather" and cell in ALL_GATHER_AT_MOST:
-            assert g <= 2 * r, (kind, g, r)
+        own = OWN_BYTES.get(cell, {}).get(kind)
+        if own is not None:
+            from repro_torch.configs import SHAPES, get_config
+            o = own(get_config(cell[0]), SHAPES[cell[1]])
+            assert g <= 2 * r and o / 2 <= g <= 2 * o, (kind, g, r, o)
             continue
         assert abs(g - r) <= MiB or r / 2 <= g <= 2 * r, (kind, g, r)
 

@@ -16,16 +16,23 @@ another, each writing one JSON file into ``OUT_DIR``:
   beside the bytes of the attention weights, padded and unpadded
   (``weight_bytes``);
 * ``grads.json``, 4 ranks on a (2, 2) mesh: for each of ``GRAD_ARCHS``
-  the loss and the worst gradient leaf of ``loss_and_grads`` against the
-  unsharded port, and the all-gathers of that call beside the bytes of
-  one layer's in-projection where the arch has one (``w_in_bytes``); for
-  the first arch also one train step in microbatches of 2 rows (one row
-  of each data rank's shard a microbatch) against the unsharded step
-  (``train``);
+  and ``EXCHANGE_CASE`` the loss and the worst gradient leaf of
+  ``loss_and_grads`` against the unsharded port, and the all-gathers and
+  all-to-alls of that call, beside the bytes of one layer's
+  in-projection where the arch has one (``w_in_bytes``); for the first
+  arch, the fsdp MoE arch and ``EXCHANGE_CASE`` also one train step in
+  microbatches of 2 rows (one row of each data rank's shard a
+  microbatch) against the unsharded step (``train``), for the last two
+  a prefill and 4 decode steps (``serve_rel``), and for each case the
+  F slices of every exchange of fsdp expert weights it made
+  (``experts_exchanged``), with, for ``EXCHANGE_CASE``, the bytes of one
+  layer's query projection and of the embedding's gathered slice;
 * ``seq.json``, the same 4 ranks: the smoke gemma3-1b decoding with its
   cache's sequence split (batch 2 and 1), and the smoke gemma2-27b (an
-  FSDP arch) decoding at batch 1 (``fsdp_1``): relative errors of the
-  decode steps, the cache's split, and one decode step's collectives.
+  FSDP arch) decoding at batch 1 (``fsdp_1``) and 2 (``fsdp_2``, one row
+  a data rank: its weights stay split and the rows move): relative
+  errors of the decode steps, the cache's split, and one decode step's
+  collectives.
 
 Each worker records what it measured and raises only on an error of the
 sharded path itself; the limits are the caller's (``SHARD_RTOL`` and the
@@ -40,8 +47,22 @@ import torch
 #: the gloo tests' relative limit against the unsharded port (f32)
 SHARD_RTOL = 1e-5
 GLOO_ARCHS = ("gemma3-1b", "granite-moe-3b-a800m")
-#: every block family: attention, MoE, the Mamba SSM, the RG-LRU hybrid
-GRAD_ARCHS = GLOO_ARCHS + ("falcon-mamba-7b", "recurrentgemma-9b")
+#: the fsdp MoE arch, also served and trained on the (2, 2) ranks
+MOE_FSDP_ARCH = "qwen3-moe-235b-a22b"
+#: every block family: attention, MoE (with and without fsdp), the Mamba
+#: SSM, the RG-LRU hybrid
+GRAD_ARCHS = GLOO_ARCHS + ("falcon-mamba-7b", "recurrentgemma-9b",
+                           MOE_FSDP_ARCH)
+#: ``MOE_FSDP_ARCH`` with F below D, so that its fsdp expert weights split
+#: along D, and 2 experts, one a model rank, each one's F over both data
+#: ranks; with a wider D and a batch of one row of 8 tokens a data rank
+#: (``EXCHANGE_SIZES``), ``sharding.gather_or_exchange`` keeps every fsdp
+#: weight split and moves the rows (the ways it takes at full width at
+#: decode and, for qwen3-moe's experts, in training)
+EXCHANGE_CASE = MOE_FSDP_ARCH + "/exchange"
+#: ``EXCHANGE_CASE``'s smoke sizes and its (B, S) batch
+EXCHANGE_SIZES = {"d_model": 128, "d_ff": 64, "n_experts": 2}
+EXCHANGE_BATCH = (2, 8)
 #: the FSDP arch whose batch-1 decode keeps its weights split
 FSDP_ARCH = "gemma2-27b"
 OUT_FILES = {"result": "result.json", "2x2": "grads.json", "seq": "seq.json"}
@@ -56,15 +77,66 @@ def _gathers(mode):
     return [n for kind, n in mode.collectives if kind == "all-gather"]
 
 
+def _serve(cfg, params, dparams, mesh, B=2, S=12, steps=4):
+    """A prefill of B x S tokens and ``steps`` greedy decode steps,
+    unsharded and then with the sharded parameters and batch under the
+    activation mesh (each step fed the unsharded run's token): (relative
+    errors of the sharded logits, prefill's first, the sharded cache)."""
+    from repro_torch.models.lm import sharding, transformer
+    toks = torch.randint(0, cfg.vocab, (B, S),
+                         generator=torch.Generator().manual_seed(1))
+    logits, cache = transformer.prefill(cfg, params, toks, S + steps)
+    want, feed = [logits], []
+    for _ in range(steps):
+        tok = torch.argmax(logits[:, -1:], dim=-1)
+        feed.append(tok)
+        logits, cache = transformer.decode(cfg, params, tok, cache)
+        want.append(logits)
+    bs = sharding.batch_shardings(mesh, {"tokens": toks})
+    with sharding.activation_mesh(mesh):
+        dtoks = sharding.distribute({"tokens": toks}, bs)["tokens"]
+        logits, dcache = transformer.prefill(cfg, dparams, dtoks, S + steps)
+        got = [logits.full_tensor()]
+        for tok in feed:
+            dtok = sharding.distribute({"tokens": tok}, bs)["tokens"]
+            logits, dcache = transformer.decode(cfg, dparams, dtok, dcache)
+            got.append(logits.full_tensor())
+    return [_rel(g, w) for g, w in zip(got, want)], dcache
+
+
+def _train_step(cfg, params, dparams, mesh, batch):
+    """One AdamW train step in microbatches of 2 rows, unsharded and with
+    the sharded parameters, optimizer state and batch (``mesh=``; on 2
+    data ranks one row of each rank's batch shard a microbatch): the
+    relative errors of the loss and of the worst parameter, and the
+    sharded step's all-gathers."""
+    from repro_torch.launch.dryrun import CostMode
+    from repro_torch.models.lm import model, sharding
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_leaves
+    opt = adamw.init(params)
+    p1, _, m1 = model.make_train_step(cfg, microbatch=2)(params, opt, batch)
+    dopt = sharding.distribute(opt, sharding.opt_shardings(cfg, mesh, opt,
+                                                           params))
+    dbatch = sharding.distribute(batch, sharding.batch_shardings(mesh, batch))
+    mode = CostMode()
+    with sharding.activation_mesh(mesh), mode:
+        p2, _, m2 = model.make_train_step(cfg, microbatch=2, mesh=mesh)(
+            dparams, dopt, dbatch)
+    return {"loss_rel": abs(float(m2["loss"].full_tensor())
+                            - float(m1["loss"])) / abs(float(m1["loss"])),
+            "param_rel": max(_rel(a.full_tensor(), b) for a, b in zip(
+                tree_leaves(p2), tree_leaves(p1))),
+            "gathers": _gathers(mode)}
+
+
 def _worker(rank, world, store_path, out_path):
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
 
     from repro_torch.configs import get_config
-    from repro_torch.launch.dryrun import CostMode
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models.lm import attention, model, sharding, transformer
-    from repro_torch.optim import adamw
+    from repro_torch.models.lm import attention, sharding, transformer
     from repro_torch.tree import tree_flatten_with_names, tree_leaves, tree_map
 
     torch.set_num_threads(1)
@@ -76,38 +148,20 @@ def _worker(rank, world, store_path, out_path):
 
     def spy(q, k, v):
         out = real_pad(q, k, v)
-        padded.append(out[0].shape[1] > out[3])    # (D, H_pad, hd) weights
+        if sharding._ACT_MESH.get() is not None:   # the sharded steps
+            padded.append(out[0].shape[1] > out[3])    # (D, H_pad, hd)
         return out
 
     attention._pad_heads = spy
     results = {}
-    B, S, steps = 2, 12, 4
     for arch in GLOO_ARCHS:
         cfg = get_config(arch).smoke()
         params = tree_map(lambda t: t.float(), transformer.init_params(
             cfg, torch.Generator().manual_seed(0), device="cpu"))
-        toks = torch.randint(0, cfg.vocab, (B, S),
-                             generator=torch.Generator().manual_seed(1))
-        logits, cache = transformer.prefill(cfg, params, toks, S + steps)
-        want, feed = [logits], []
-        for _ in range(steps):
-            tok = torch.argmax(logits[:, -1:], dim=-1)
-            feed.append(tok)
-            logits, cache = transformer.decode(cfg, params, tok, cache)
-            want.append(logits)
-
         ps = sharding.param_shardings(cfg, mesh, params)
         dparams = sharding.distribute(params, ps)
-        bs = sharding.batch_shardings(mesh, {"tokens": toks})
         padded.clear()
-        with sharding.activation_mesh(mesh):
-            dtoks = sharding.distribute({"tokens": toks}, bs)["tokens"]
-            logits, dcache = transformer.prefill(cfg, dparams, dtoks, S + steps)
-            got = [logits.full_tensor()]
-            for tok in feed:
-                dtok = sharding.distribute({"tokens": tok}, bs)["tokens"]
-                logits, dcache = transformer.decode(cfg, dparams, dtok, dcache)
-                got.append(logits.full_tensor())
+        serve_rel, dcache = _serve(cfg, params, dparams, mesh)
         cache_placed = all(isinstance(t, DTensor)
                            for t in tree_leaves(dcache.entries))
         serve_padded = bool(padded) and all(padded)
@@ -115,17 +169,7 @@ def _worker(rank, world, store_path, out_path):
         batch = {"tokens": torch.randint(
             0, cfg.vocab, (4, 16), generator=torch.Generator().manual_seed(3))}
         batch["labels"] = batch["tokens"]
-        opt = adamw.init(params)
-        p1, _, m1 = model.make_train_step(cfg, microbatch=2)(params, opt,
-                                                             batch)
-        dopt = sharding.distribute(opt, sharding.opt_shardings(cfg, mesh, opt,
-                                                               params))
-        dbatch = sharding.distribute(batch, sharding.batch_shardings(mesh,
-                                                                     batch))
-        mode = CostMode()
-        with sharding.activation_mesh(mesh), mode:
-            p2, _, m2 = model.make_train_step(cfg, microbatch=2, mesh=mesh)(
-                dparams, dopt, dbatch)
+        train = _train_step(cfg, params, dparams, mesh, batch)
         m = sharding.mesh_axes(mesh)["model"]
         h_pad = cfg.n_heads + (-cfg.n_heads) % m
         # one layer's projection weights, f32
@@ -138,13 +182,10 @@ def _worker(rank, world, store_path, out_path):
                           else cfg.n_kv_heads) for k, v in weights.items())})
         results[arch] = {
             "padded": serve_padded,
-            "serve_rel": [_rel(g, w) for g, w in zip(got, want)],
-            "loss_rel": abs(float(m2["loss"].full_tensor()) - float(m1["loss"]))
-            / abs(float(m1["loss"])),
-            "param_rel": max(_rel(a.full_tensor(), b) for a, b in zip(
-                tree_leaves(p2), tree_leaves(p1))),
+            "serve_rel": serve_rel,
+            "loss_rel": train["loss_rel"], "param_rel": train["param_rel"],
             "cache_placed": cache_placed,
-            "train_gathers": _gathers(mode),
+            "train_gathers": train["gathers"],
             "weight_bytes": weights,
         }
     if rank == 0:
@@ -153,27 +194,39 @@ def _worker(rank, world, store_path, out_path):
 
 
 def _grad_worker(rank, world, store_path, out_path):
+    import dataclasses
+
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.configs import get_config
     from repro_torch.launch.dryrun import CostMode
-    from repro_torch.models.lm import model, sharding, transformer
-    from repro_torch.optim import adamw
+    from repro_torch.models.lm import model, moe, sharding, transformer
     from repro_torch.tree import tree_flatten_with_names, tree_leaves, tree_map
 
     torch.set_num_threads(1)
     dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
                             rank=rank, world_size=world)
     mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    exchange_experts = moe._exchange_experts
+    exchanged = []
+
+    def spy(*args):
+        exchanged.append(args[-1])                 # s, F's slices an expert
+        return exchange_experts(*args)
+
+    moe._exchange_experts = spy
     results = {}
-    for arch in GRAD_ARCHS:
-        cfg = get_config(arch).smoke()
+    cases = [(arch, get_config(arch).smoke(), (4, 16)) for arch in GRAD_ARCHS]
+    cases.append((EXCHANGE_CASE, dataclasses.replace(
+        get_config(MOE_FSDP_ARCH).smoke(), **EXCHANGE_SIZES), EXCHANGE_BATCH))
+    for arch, cfg, shape in cases:
+        exchanged.clear()
         params = tree_map(lambda t: t.float(), transformer.init_params(
             cfg, torch.Generator().manual_seed(0), device="cpu"))
         gen = torch.Generator().manual_seed(3)
-        batch = {"tokens": torch.randint(0, cfg.vocab, (4, 16), generator=gen),
-                 "labels": torch.randint(0, cfg.vocab, (4, 16), generator=gen)}
+        batch = {"tokens": torch.randint(0, cfg.vocab, shape, generator=gen),
+                 "labels": torch.randint(0, cfg.vocab, shape, generator=gen)}
         loss, grads = model.loss_and_grads(cfg, params, batch)
         dparams = sharding.distribute(params, sharding.param_shardings(
             cfg, mesh, params))
@@ -191,27 +244,25 @@ def _grad_worker(rank, world, store_path, out_path):
             / abs(float(loss)),
             "grad_rel": max(rel)[0], "worst_leaf": max(rel)[1],
             "gathers": _gathers(mode),
+            "all_to_alls": sum(1 for kind, _ in mode.collectives
+                               if kind == "all-to-all"),
             # one layer's (D, 2 Di) in-projection, f32
             "w_in_bytes": w_in[0][0].numel() * 4 if w_in else None}
-        if arch == GRAD_ARCHS[0]:
+        if arch in (GRAD_ARCHS[0], MOE_FSDP_ARCH, EXCHANGE_CASE):
             # microbatches of 2 rows over the 2 data ranks: one row of
             # each rank's batch shard a microbatch
-            opt = adamw.init(params)
-            p1, _, m1 = model.make_train_step(cfg, microbatch=2)(
-                params, opt, batch)
-            dopt = sharding.distribute(opt, sharding.opt_shardings(
-                cfg, mesh, opt, params))
-            mode = CostMode()
-            with sharding.activation_mesh(mesh), mode:
-                p2, _, m2 = model.make_train_step(cfg, microbatch=2,
-                                                  mesh=mesh)(
-                    dparams, dopt, dbatch)
-            results[arch]["train"] = {
-                "loss_rel": abs(float(m2["loss"].full_tensor())
-                                - float(m1["loss"])) / abs(float(m1["loss"])),
-                "param_rel": max(_rel(a.full_tensor(), b) for a, b in zip(
-                    tree_leaves(p2), tree_leaves(p1))),
-                "gathers": _gathers(mode)}
+            results[arch]["train"] = _train_step(cfg, params, dparams, mesh,
+                                                 batch)
+        if arch in (MOE_FSDP_ARCH, EXCHANGE_CASE):
+            results[arch]["serve_rel"], _ = _serve(cfg, params, dparams, mesh)
+        if arch == EXCHANGE_CASE:
+            results[arch].update(
+                # one layer's query projection (D, H, hd), and the
+                # embedding table's vocabulary slice gathered along D, f32
+                wq_layer_bytes=cfg.d_model * cfg.n_heads * cfg.hd * 4,
+                embed_gathered=cfg.vocab // 2 * cfg.d_model * 4)
+        results[arch]["experts_exchanged"] = sorted(set(exchanged))
+    moe._exchange_experts = exchange_experts
     if rank == 0:
         Path(out_path).write_text(json.dumps(results))
     dist.destroy_process_group()
@@ -301,6 +352,16 @@ def _seq_worker(rank, world, store_path, out_path):
         "decode_rel": rel, "gathered": sum(_gathers(mode)),
         # one layer's query projection (D, H, hd), f32
         "wq_layer_bytes": cfg.d_model * cfg.n_heads * cfg.hd * 4}
+    # batch 2, one row a data rank: the fsdp products keep their weights
+    # split and move the rows (``sharding.gather_or_exchange``)
+    rel, _, mode = _decode_run(cfg, params, dparams, mesh, 2, S, steps)
+    results["fsdp_2"] = {
+        "decode_rel": rel, "gathers": _gathers(mode),
+        "all_to_alls": sum(1 for kind, _ in mode.collectives
+                           if kind == "all-to-all"),
+        "wq_layer_bytes": cfg.d_model * cfg.n_heads * cfg.hd * 4,
+        # the embedding table's vocabulary slice, gathered along D, f32
+        "embed_gathered": cfg.vocab // 2 * cfg.d_model * 4}
     if rank == 0:
         Path(out_path).write_text(json.dumps(results))
     dist.destroy_process_group()

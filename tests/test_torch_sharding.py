@@ -17,14 +17,18 @@
   batch, the heads, the FFN, the experts, the SSM/RG-LRU channels and
   the vocabulary split, give every gradient leaf of ``loss_and_grads``
   of the four block families (gemma3-1b, granite-moe, falcon-mamba,
-  recurrentgemma) within 1e-5 of its max |g| of the unsharded port
-  (AdamW's normalised step would hide a gradient summed over too few
-  ranks, so the gradients are compared, not the parameters);
+  recurrentgemma) and of the fsdp MoE arch (qwen3-moe) within 1e-5 of
+  its max |g| of the unsharded port (AdamW's normalised step would hide
+  a gradient summed over too few ranks, so the gradients are compared,
+  not the parameters); the fsdp MoE arch also serves and takes a train
+  step there, by the rule's ways and with every fsdp weight kept split
+  (its experts exchanged over the data ranks, F cut in 2), within 1e-5;
 * no weight gathered where the reference's GSPMD keeps it split: the
   padded-head archs' train step on the 3 ranks gathers no projection
   weight or gradient; falcon-mamba's training on the (2, 2) mesh gathers
   no in-projection; the smoke FSDP arch decodes at batch 1 with its
-  weights split along D, within 1e-5 of the unsharded logits;
+  weights split along D, and at batch 2 (one row a data rank) moving the
+  rows instead of its weights, within 1e-5 of the unsharded logits;
 * sequence-reduced decode: on the same 4 ranks, the smoke gemma3-1b (1
   KV head, which does not divide ``model``) prefills and decodes with
   the cache's sequence split over ``model`` (batch 2) and over data x
@@ -53,8 +57,8 @@ import pytest
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
-from test_torch_gloo_workers import (GLOO_ARCHS, GRAD_ARCHS, SHARD_RTOL,
-                                     _rel, load)
+from test_torch_gloo_workers import (EXCHANGE_CASE, GLOO_ARCHS, GRAD_ARCHS,
+                                     MOE_FSDP_ARCH, SHARD_RTOL, _rel, load)
 
 ROOT = Path(__file__).resolve().parents[1]
 WORKERS = ROOT / "tests" / "test_torch_gloo_workers.py"
@@ -207,7 +211,6 @@ def test_hooks_are_noops_without_a_mesh():
     from repro_torch.models.lm import attention, sharding
     x, kv = torch.randn(2, 3, 4, 5), torch.randn(2, 3, 2, 5)
     assert sharding.constrain_tokens(x) is x
-    assert sharding.constrain_moe_slots(x) is x
     assert sharding.constrain_cache(x) is x
     assert sharding.replicate_like(x, x) is x
     wq, wkv = torch.randn(5, 4, 3), torch.randn(5, 2, 3)   # (D, heads, hd)
@@ -314,6 +317,51 @@ def test_fsdp_batch1_decode_keeps_weights_split(gloo_results):
     assert len(r["decode_rel"]) == 4
     assert max(r["decode_rel"]) <= SHARD_RTOL, r["decode_rel"]
     assert r["gathered"] < r["wq_layer_bytes"], r
+
+
+@pytest.mark.parametrize("case", [MOE_FSDP_ARCH, EXCHANGE_CASE])
+def test_fsdp_moe_serving_and_train_step_match_unsharded(gloo_results,
+                                                         case):
+    """The fsdp MoE arch on the (2, 2) mesh, by the rule's ways at the
+    smoke sizes and at ``EXCHANGE_CASE``'s, where it keeps every fsdp
+    weight split: a prefill and 4 decode steps, and one train step in
+    microbatches, within ``SHARD_RTOL`` of the unsharded port."""
+    r = gloo_results["2x2"][case]
+    assert len(r["serve_rel"]) == 5
+    assert max(r["serve_rel"]) <= SHARD_RTOL, r["serve_rel"]
+    assert r["train"]["loss_rel"] <= SHARD_RTOL
+    assert r["train"]["param_rel"] <= SHARD_RTOL, r["train"]
+
+
+def test_exchanged_fsdp_experts_match_unsharded(gloo_results):
+    """The experts' fsdp weights split along D, kept split by the rule at
+    ``EXCHANGE_CASE``'s sizes: each of the 2 experts' F is cut over both
+    data ranks (s = 2), the weights, slots and outputs move by
+    all-to-alls, the gradients match, and nothing as large as one layer's
+    query projection is gathered but the embedding's vocabulary slice
+    (``lookup_rows``), so every fsdp product kept its weight split."""
+    r = gloo_results["2x2"][EXCHANGE_CASE]
+    assert r["experts_exchanged"] == [2], r
+    assert r["all_to_alls"] > 0
+    assert [n for n in r["gathers"] if n >= r["wq_layer_bytes"]] == \
+        [r["embed_gathered"]], r
+    assert r["loss_rel"] <= SHARD_RTOL
+    assert r["grad_rel"] <= SHARD_RTOL, r["worst_leaf"]
+
+
+def test_fsdp_batch2_decode_moves_rows(gloo_results):
+    """The smoke FSDP arch at batch 2 on the (2, 2) mesh (one row a data
+    rank): the products keep their weights split and move the rows
+    (all-to-alls), gathering nothing as large as one layer's query
+    projection but the embedding's vocabulary slice (``lookup_rows``
+    gathers a table split along D where the batch is split too), and the
+    logits match the unsharded port's."""
+    r = gloo_results["seq"]["fsdp_2"]
+    assert len(r["decode_rel"]) == 4
+    assert max(r["decode_rel"]) <= SHARD_RTOL, r["decode_rel"]
+    assert r["all_to_alls"] > 0
+    assert [n for n in r["gathers"] if n >= r["wq_layer_bytes"]] == \
+        [r["embed_gathered"]], r
 
 
 @pytest.mark.parametrize("window", [None, 512])
