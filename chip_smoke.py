@@ -150,9 +150,12 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
    the same cell (``tests/data/dryrun_reference_pod16x16.json``, made by
    ``tests/data/make_dryrun_reference.py``: there is no jax here) and the
    port / reference ratio (the peak also against the reference's less
-   XLA:CPU's f32 copies of its bf16 arguments), and
-   ``launch.roofline``'s row (model estimates under H100 constants, not
-   measurements);
+   XLA:CPU's f32 copies of its bf16 arguments), the reference's
+   collective bytes also counted from a one-layer base (the parity
+   target; the reference's own count clamps away every layer of its FSDP
+   train cells) with the port's total against that base's, the way the
+   embedding lookup took, and ``launch.roofline``'s row (model estimates
+   under H100 constants, not measurements);
 19. ``examples/torch/serve_lm.py`` and ``schedule_and_run_cnn.py`` on the
    card as subprocesses: each must exit 0 and report kernel launches;
 20. this slice's path, the port's benchmark harness: ``python -m
@@ -176,9 +179,12 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
    3-rank serving and train steps of gemma3-1b and granite-moe, the (2, 2)
    gradients of gemma3-1b, granite-moe, falcon-mamba, recurrentgemma and
    qwen3-moe (an fsdp MoE arch, also served and trained there, by the
-   rule's ways and with its fsdp weights kept split and its experts
-   exchanged), the sequence-split decode and gemma2-27b's batch-1 and
-   batch-2 decodes, each within the tests' ``SHARD_RTOL`` of the
+   rule's ways and with its fsdp weights kept split, its experts
+   exchanged and its embedding lookup's rows exchanged, which it must
+   take), gemma2-27b's fsdp embedding lookup under a split batch with
+   the table gathered and kept split (the rule forced each way, and by
+   its own choice), the sequence-split decode and gemma2-27b's batch-1
+   and batch-2 decodes, each within the tests' ``SHARD_RTOL`` of the
    unsharded port and gathering no weight where the reference keeps it
    split; an exception in any rank fails it.
 
@@ -2124,12 +2130,18 @@ def dryrun_cells(procs):
                 f"{cost['flops_per_device']:.4e} FLOP "
                 f"[{ref['cost']['flops_per_device']:.4e}] {vs['flops']:.2f}x "
                 f"(matrix products {vs['matmul_flops']:.2f}x), collectives "
-                "MiB port [reference; with its tuple collectives] "
+                "MiB port [reference; with its tuple collectives; from a "
+                "one-layer base] "
                 + (", ".join(f"{k} {g / 2**20:.1f} [{w / 2**20:.1f}; "
-                             f"{t / 2**20:.1f}] "
+                             f"{t / 2**20:.1f}; {b / 2**20:.1f}] "
                              + (f"{g / w:.2f}x" if w else "-")
-                             for k, (g, w, t) in vs["collectives"].items())
-                   or "none"))
+                             for k, (g, w, t, b) in vs["collectives"].items())
+                   or "none")
+                + f"; total {vs['total'][0] / 2**20:.1f} against the "
+                f"one-layer base's {vs['total'][3] / 2**20:.1f} MiB"
+                + (f" ({vs['total'][0] / vs['total'][3]:.2f}x)"
+                   if vs["total"][3] else "")
+                + f"; embedding lookup {art['lookups'] or 'not fsdp'}")
             art["against_reference"] = vs
             log(f"    roofline (estimate): compute {row.compute_s:.3e} s, "
                 f"memory(ops) {row.memory_s:.3e} s, memory(fused) "
@@ -2366,8 +2378,21 @@ def gloo_ranks(procs):
     a = r["2x2"][w.EXCHANGE_CASE]
     need(a["experts_exchanged"] == [2],
          f"{w.EXCHANGE_CASE} exchanged no experts")
-    need([n for n in a["gathers"] if n >= a["wq_layer_bytes"]]
-         == [a["embed_gathered"]], f"{w.EXCHANGE_CASE} gathers {a['gathers']}")
+    need([n for n in a["gathers"] if n >= a["wq_layer_bytes"]] == [],
+         f"{w.EXCHANGE_CASE} gathers {a['gathers']}")
+    for case in (w.MOE_FSDP_ARCH, w.EXCHANGE_CASE):
+        need(r["2x2"][case]["lookups"] == {"exchange": 1},
+             f"{case} embedding lookup {r['2x2'][case]['lookups']}")
+    for way, a in r["2x2"]["lookup"].items():
+        want = "exchange" if way == "rule" else way
+        need(a["lookups"] == {want: 1} and a["rows_rel"] <= tol
+             and a["grad_rel"] <= tol and a["grad_split"],
+             f"fsdp lookup {way}: {a}")
+        log(f"  {w.FSDP_ARCH} embedding lookup on 4 gloo ranks (2, 2), "
+            f"{way} ({want}): rows rel {a['rows_rel']:.2e}, table gradient "
+            f"rel {a['grad_rel']:.2e}, all-gathers {a['gathers']} B")
+    log(f"  {w.MOE_FSDP_ARCH} (2, 2) embedding lookup: "
+        f"{r['2x2'][w.MOE_FSDP_ARCH]['lookups']}")
     for batch in ("2", "1"):
         a = r["seq"][batch]
         need(a["cache_seq_split"] == a["want_split"]
@@ -2381,9 +2406,9 @@ def gloo_ranks(procs):
          and a["gathered"] < a["wq_layer_bytes"], f"fsdp batch 1: {a}")
     b = r["seq"]["fsdp_2"]
     need(len(b["decode_rel"]) == 4 and max(b["decode_rel"]) <= tol
-         and b["all_to_alls"] > 0
-         and [n for n in b["gathers"] if n >= b["wq_layer_bytes"]]
-         == [b["embed_gathered"]], f"fsdp batch 2: {b}")
+         and b["all_to_alls"] > 0 and b["lookups"] == {"exchange": 5}
+         and [n for n in b["gathers"] if n >= b["wq_layer_bytes"]] == [],
+         f"fsdp batch 2: {b}")
     log(f"  sequence-split decode (batch 2, 1) max rel "
         f"{max(r['seq']['2']['decode_rel'] + r['seq']['1']['decode_rel']):.2e}"
         f"; {w.FSDP_ARCH} batch-1 decode max rel {max(a['decode_rel']):.2e}, "

@@ -163,7 +163,9 @@ class CostMode(TorchDispatchMode):
     * ``read``: the storages some op other than a view took as an
       input, so that an argument the step never reads (whisper's encoder
       at decode) is not counted, as ``jax.jit`` prunes unused arguments
-      from the reference's program.
+      from the reference's program;
+    * ``lookups``: set by ``_measure``, the ways the step's embedding
+      lookups met an ``fsdp`` table (``sharding.recording_lookups``).
     """
 
     def __init__(self, count: bool = True) -> None:
@@ -178,6 +180,7 @@ class CostMode(TorchDispatchMode):
         self.live = 0
         self.peak = 0
         self.read: set = set()
+        self.lookups: Dict[str, int] = {}
         self._storages: Dict[int, int] = {}
 
     def track(self, tensors) -> None:
@@ -322,9 +325,11 @@ def _measure(cfg: LMConfig, shape: ShapeSpec, mesh, count: bool = True):
         arg_local = _local(args)
         mode.track(arg_local)
         t0 = time.perf_counter()
-        with sharding.activation_mesh(mesh), mode:
+        with sharding.activation_mesh(mesh), mode, \
+                sharding.recording_lookups() as lookups:
             outs = step(*args)
         seconds = time.perf_counter() - t0
+        mode.lookups = dict(lookups)
         out_local = _local(outs)
         arg_ids = {id(t.untyped_storage()) for t in arg_local}
         positions = _position_bytes(args)
@@ -389,7 +394,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
     mesh = _fake_mesh(multi_pod)
     mode, memory, seconds = _measure(cfg, shape, mesh, count=with_cost)
     result.update(status="ok", step_seconds=seconds, devices=mesh.size(),
-                  memory=memory)
+                  memory=memory, lookups=mode.lookups)
     if with_cost:
         result["cost"] = _cost(cfg, shape, mode)
     return result
@@ -412,14 +417,20 @@ def _fake_mesh(multi_pod: bool):
 def against_reference(art: Dict, ref: Dict) -> Dict:
     """Port / reference ratios of one cell: ``art`` a cell of this dry run,
     ``ref`` the reference's (``tests/data/dryrun_reference_pod16x16.json``,
-    whose generator adds ``f32_copy_bytes``, ``dot_flops_per_device`` and
-    ``collective_bytes_with_tuples`` from the reference's own programs).
-    ``peak_held`` divides by the reference's peak less the f32 copies
-    XLA:CPU makes of its bf16 arguments, floored at what any program of
-    the step holds (arguments + outputs - aliased); ``matmul_flops``
-    divides the matrix products' FLOPs by the reference's ``dot`` FLOPs;
-    ``collectives`` maps each kind to (port, reference, reference with
-    its tuple-shaped collectives) bytes."""
+    whose generator adds ``f32_copy_bytes``, ``dot_flops_per_device``,
+    ``collective_bytes_with_tuples`` and
+    ``collective_bytes_one_layer_base`` from the reference's own
+    programs).  ``peak_held`` divides by the reference's peak less the f32
+    copies XLA:CPU makes of its bf16 arguments, floored at what any
+    program of the step holds (arguments + outputs - aliased);
+    ``matmul_flops`` divides the matrix products' FLOPs by the
+    reference's ``dot`` FLOPs; ``collectives`` maps each kind to (port,
+    reference, reference with its tuple-shaped collectives, reference
+    counted from a one-layer base) bytes, and ``total`` holds the same
+    four figures summed over the kinds.  The one-layer base is the
+    parity target: the reference's own count subtracts a 0-layer program
+    and clamps each delta at 0, which counts no layer where the 0-layer
+    program moves more (its FSDP train cells)."""
     mem, cost = ref["memory"], ref["cost"]
     held = max(mem["peak_estimate_bytes"] - mem["f32_copy_bytes"],
                mem["argument_bytes"] + mem["output_bytes"]
@@ -428,6 +439,10 @@ def against_reference(art: Dict, ref: Dict) -> Dict:
     got = art["cost"]["collective_bytes_per_device"]
     want = cost["collective_bytes_per_device"]
     tuples = cost["collective_bytes_with_tuples"]
+    base = cost["collective_bytes_one_layer_base"]
+    coll = {k: (got.get(k, 0.0), want.get(k, 0.0), tuples.get(k, 0.0),
+                base.get(k, 0.0))
+            for k in sorted(set(got) | set(want) | set(tuples) | set(base))}
     return {
         "peak": peak / mem["peak_estimate_bytes"], "peak_held": peak / held,
         "flops": art["cost"]["flops_per_device"] / cost["flops_per_device"],
@@ -435,9 +450,8 @@ def against_reference(art: Dict, ref: Dict) -> Dict:
         / cost["dot_flops_per_device"],
         "argument_equal": art["memory"]["argument_bytes"]
         == mem["argument_bytes"],
-        "collectives": {k: (got.get(k, 0.0), want.get(k, 0.0),
-                            tuples.get(k, 0.0))
-                        for k in sorted(set(got) | set(want) | set(tuples))}}
+        "collectives": coll,
+        "total": tuple(sum(v[i] for v in coll.values()) for i in range(4))}
 
 
 def cell_path(arch: str, shape_name: str, mesh_name: str) -> str:
@@ -489,6 +503,10 @@ def main() -> None:
                     mem = res["memory"]["peak_estimate_bytes"] / 2**30
                     extra = (f" step={res['step_seconds']:.1f}s "
                              f"peak/device={mem:.2f}GiB")
+                    if res["lookups"]:
+                        extra += " embedding lookup " + ", ".join(
+                            f"{way} x{n}" for way, n in
+                            sorted(res["lookups"].items()))
                 print(f"[{status:7s}] {arch} x {shape_name} x {mesh_name}"
                       f"{extra}", flush=True)
     if failures:

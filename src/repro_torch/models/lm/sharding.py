@@ -46,7 +46,9 @@ here: DTensor's strategies, which differ between releases, choose none;
 ``gather_or_exchange`` decides whether an ``fsdp`` weight under a split
 batch is gathered or kept split while the rows move, by ``all_to_all``
 and the other functional collectives inside ``local_map``; it also
-decides the MoE's ``fsdp`` experts and the SSM's in-projection),
+decides the MoE's ``fsdp`` experts, the SSM's in-projection and the
+embedding lookup of an ``fsdp`` table; ``recording_lookups`` counts the
+lookup's ways),
 ``write_slot`` (an
 in-place write into a view across a split dim is silently lost),
 ``logsumexp``, ``take_last``, ``pad`` and ``stack``.  On plain tensors
@@ -55,6 +57,7 @@ each is the plain op.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import contextvars
 import functools
@@ -502,13 +505,13 @@ def gather_or_exchange(gather: int, exchange: int) -> str:
     """How a product meets a weight split over a mesh axis where its rows
     cannot simply be contracted against the local slice (an ``fsdp``
     weight under a batch split over the same axis: ``matmul``, the MoE's
-    experts; the SSM's in-projection), from the bytes each way moves a
-    rank a call (sent or received, in the forward; each way's backward
-    mirrors it), which the caller counts for its shapes: ``"gather"``
-    (gather the weight; for ``fsdp``, reduce-scatter its gradient back)
-    where that moves strictly fewer bytes, else ``"exchange"`` (keep the
-    weight split and move the rows).  The one rule for every such
-    choice."""
+    experts, ``lookup_rows``; the SSM's in-projection), from the bytes
+    each way moves a rank a call (sent or received, in the forward; each
+    way's backward mirrors it), which the caller counts for its shapes:
+    ``"gather"`` (gather the weight; for ``fsdp``, reduce-scatter its
+    gradient back) where that moves strictly fewer bytes, else
+    ``"exchange"`` (keep the weight split and move the rows).  The one
+    rule for every such choice."""
     return "gather" if gather < exchange else "exchange"
 
 
@@ -676,6 +679,31 @@ def _contiguous(shape) -> tuple:
     return tuple(stride)
 
 
+_LOOKUP_WAYS: "contextvars.ContextVar" = contextvars.ContextVar(
+    "repro_torch_lookup_ways", default=None)
+
+
+@contextlib.contextmanager
+def recording_lookups():
+    """Yields a ``collections.Counter`` that counts, while active, the way
+    each ``lookup_rows`` call met a table split along D over a data axis:
+    ``"gather"`` or ``"exchange"`` under a batch split over that axis
+    (``gather_or_exchange``'s choice), ``"split"`` at a batch it does not
+    split (batch 1)."""
+    ways = collections.Counter()
+    tok = _LOOKUP_WAYS.set(ways)
+    try:
+        yield ways
+    finally:
+        _LOOKUP_WAYS.reset(tok)
+
+
+def _note_lookup(way: str) -> None:
+    ways = _LOOKUP_WAYS.get()
+    if ways is not None:
+        ways[way] += 1
+
+
 def lookup_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``table[idx]``: an embedding lookup, idx (B, ...) -> (B, ..., D).
     DTensors run it shard by shard: ``idx`` split over the data axes; the
@@ -685,15 +713,29 @@ def lookup_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     looks up the ids that fall in it, writes zeros for the rest, and the
     partial rows are summed over ``model`` (the vocab-parallel lookup
     GSPMD makes of the reference's ``embed[tokens]``: no rank gathers the
-    table).  A table split along D over a data axis that does not split
-    ``idx`` (an ``fsdp`` table at batch 1) stays split: each rank looks
-    up its slice of D, and the rows are gathered along D.  The table's
-    gradient is split as the table is, and a partial sum over the axes
-    that split ``idx``.  (DTensor's own strategies for this lookup, the
-    vocab-parallel mask and ``index_put`` in the backward, fail on some
-    PyTorch releases.)"""
+    table).  A table split along D over a data axis (an ``fsdp`` table):
+
+    * at a batch that axis does not split (batch 1) it stays split: each
+      rank looks up its slice of D, and the rows are gathered along D;
+    * under a batch split over that axis, ``gather_or_exchange`` picks by
+      the bytes a rank moves (``matmul_bytes``: the lookup is a product by
+      one-hot rows whose output dim D is split): gather the table (its
+      gradient a partial sum over the axis), or keep it split and
+      exchange: every rank's ids are gathered, each rank looks up its
+      slice of D for all of them, and one all-to-all returns each rank
+      its own rows whole along D; the backward sends the rows' gradients
+      back the same way and scatter-adds them into the local slice, so
+      the table's gradient stays split.  With more than one such axis
+      (the multi-pod mesh), or D split over ``model`` too, the table is
+      gathered.
+
+    The table's gradient is otherwise split as the table is, and a partial
+    sum over the axes that split ``idx``.  (DTensor's own strategies for
+    this lookup, the vocab-parallel mask and ``index_put`` in the
+    backward, fail on some PyTorch releases.)"""
     if not _is_dtensor(idx):
         return table[idx]
+    from torch.distributed import _functional_collectives as funcol
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     mesh = idx.device_mesh
@@ -701,23 +743,40 @@ def lookup_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     by_rows = splits_dim(table, 0)
     names = mesh.mesh_dim_names
     t_pl = []
-    for i, (name, ip, tp) in enumerate(zip(names, idx.placements,
-                                           table.placements)):
+    for i, (name, tp) in enumerate(zip(names, table.placements)):
         if name == "model":
             t_pl.append(Shard(0) if by_rows else Shard(1)
                         if mesh.size(i) > 1 and table.shape[1] % mesh.size(i)
                         == 0 else Replicate())
-        elif tp == Shard(1) and not isinstance(ip, Shard):
-            t_pl.append(tp)
         else:
-            t_pl.append(Replicate())
+            t_pl.append(tp if tp == Shard(1) else Replicate())
+    d_split = [i for i, pl in enumerate(t_pl) if pl == Shard(1)]
+    both = [i for i in d_split if isinstance(idx.placements[i], Shard)]
+    ex = None
+    if both:
+        way = "gather"
+        if d_split == both and len(both) == 1:
+            n = mesh.size(both[0])
+            n_ids = _local_bytes(idx.shape, idx.placements, mesh, 1)
+            way = gather_or_exchange(*matmul_bytes(
+                n_ids * idx.element_size(),
+                _local_bytes(table.shape, t_pl, mesh, table.element_size()),
+                n_ids * table.shape[1] * table.element_size(), n, 1))
+        if way == "exchange":
+            ex = ((mesh, both[0]), n)
+        else:
+            for i in both:
+                t_pl[i] = Replicate()
+        _note_lookup(way)
+    elif any(names[i] != "model" for i in d_split):
+        _note_lookup("split")
     table = table.redistribute(mesh, tuple(t_pl))
     lo = _local_offset(table, 0)
     out, grad = [], []
     for ip, tp in zip(idx.placements, table.placements):
         if isinstance(ip, Shard):
             out.append(Shard(0))
-            grad.append(Partial())
+            grad.append(tp if isinstance(tp, Shard) else Partial())
         elif isinstance(tp, Shard):
             out.append(Partial() if tp.dim == 0 else Shard(idx.ndim))
             grad.append(tp)
@@ -726,12 +785,21 @@ def lookup_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
             grad.append(Replicate())
 
     def local(t, i):
-        if not by_rows:
-            return (t[i],)
-        inside = (i >= lo) & (i < lo + t.shape[0])
-        rows = t[torch.where(inside, i - lo, 0)]
-        return (torch.where(inside[..., None], rows, torch.zeros(
-            (), dtype=rows.dtype, device=rows.device)),)
+        if ex is not None:
+            group, n = ex
+            gather = getattr(funcol, "all_gather_single", None) \
+                or funcol.all_gather_tensor
+            i = gather(i.contiguous(), 0, group)
+        if by_rows:
+            inside = (i >= lo) & (i < lo + t.shape[0])
+            rows = t[torch.where(inside, i - lo, 0)]
+            rows = torch.where(inside[..., None], rows, torch.zeros(
+                (), dtype=rows.dtype, device=rows.device))
+        else:
+            rows = t[i]
+        if ex is not None:
+            rows = all_to_all(rows, group, n, 0, rows.ndim - 1)
+        return (rows,)
 
     rows, = local_map(local, out_placements=(tuple(out),),
                       in_placements=(table.placements, idx.placements),

@@ -500,9 +500,11 @@ def test_dryrun_ratios_against_the_fixture():
     assert vs["peak_held"] == 1.0 and vs["argument_equal"]
     assert vs["peak"] == held / mem["peak_estimate_bytes"] < 1.0
     assert vs["flops"] == vs["matmul_flops"] == 1.0
-    assert vs["collectives"]["reduce-scatter"] == (8.0, 0.0, 0.0)
+    assert vs["collectives"]["reduce-scatter"] == (8.0, 0.0, 0.0, 0.0)
     for k, b in cost["collective_bytes_per_device"].items():
         assert vs["collectives"][k][:2] == (b, b)
+        assert vs["collectives"][k][3] == \
+            cost["collective_bytes_one_layer_base"][k]
 
 
 def test_kernel_bench_check_fails_when_it_should():

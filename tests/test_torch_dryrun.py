@@ -22,7 +22,9 @@
   qwen3-moe's train step (one sequence a data rank) gathers nothing as
   large as one layer's dispatch slots on a rank, and in its backward no
   expert weight beyond its FSDP gather (the experts are exchanged, an
-  all-to-all);
+  all-to-all); the embedding lookup of qwen3-moe's and gemma2-27b's
+  train microbatches (one and two sequences a data rank) keeps their
+  ``fsdp`` tables split (the rows come back by an all-to-all);
 * an ``fsdp`` product under a split batch (gemma2-27b's ``w_gate`` at
   decode_32k's and train_4k's rows a rank) takes the way
   ``sharding.gather_or_exchange`` names: at decode the rows move
@@ -124,6 +126,23 @@ def test_qwen3_moe_cut_train_gathers_no_dispatch_slots(fake_results):
     assert max((n for n, backward in r["gathers"] if backward),
                default=0) <= r["expert_gathered"], r
     assert r["kinds"].get("all-to-all", 0) > 0, r["kinds"]
+
+
+@pytest.mark.parametrize("cell", ["qwen3_train", "gemma2_train"])
+def test_fsdp_cut_train_lookup_gathers_no_table(fake_results, cell):
+    """An ``fsdp`` embedding table (vocabulary over ``model``, D over
+    ``data``) under train_4k's data-split microbatch keeps its D split:
+    ``gather_or_exchange`` moves the rows (the ids are gathered, a
+    data rank's rows come back by one all-to-all), and the lookup gathers
+    nothing as large as (data - 1) x the table's shard on a rank."""
+    r = fake_results["mechanisms"][cell]
+    assert r["lookups"] == {"exchange": 1}, r["lookups"]
+    gathers = [n for kind, n in r["lookup_collectives"]
+               if kind == "all-gather"]
+    assert max(gathers) < (r["data"] - 1) * r["table_shard"], \
+        r["lookup_collectives"]
+    assert ["all-to-all", r["rows_rank"]] in [
+        list(c) for c in r["lookup_collectives"]], r["lookup_collectives"]
 
 
 def test_falcon_mamba_cut_prefill_gathers_no_in_projection(fake_results):
@@ -346,6 +365,8 @@ MECHANISM_CELLS = {
     "gemma2_long": ("gemma2-27b", ("long_500k", 524_288, 1, "decode"), {}),
     # train_4k's microbatch of 16 rows, one a data rank
     "qwen3_train": ("qwen3-moe-235b-a22b", ("t", 4096, 16, "train"), {}),
+    # train_4k's microbatch of 32 rows, two a data rank
+    "gemma2_train": ("gemma2-27b", ("t", 4096, 32, "train"), {}),
     # prefill_32k's 2 x 32,768 tokens a data rank
     "falcon_prefill": ("falcon-mamba-7b", ("p", 32_768, 32, "prefill"), {}),
 }
@@ -354,40 +375,63 @@ MECHANISM_CELLS = {
 def _mechanisms():
     """Each ``MECHANISM_CELLS`` cell's step under a ``CostMode`` that also
     notes, for every all-gather, its bytes and whether autograd's backward
-    issued it; with the byte sizes the checks compare against."""
+    issued it, and the collectives that the embedding lookup's forward
+    (``sharding.lookup_rows``) issued; with the byte sizes the checks
+    compare against."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch import dryrun
-    from repro_torch.models.lm import moe
+    from repro_torch.models.lm import moe, sharding
 
     class Spy(dryrun.CostMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            seen = len(self.collectives)
             out = super().__torch_dispatch__(func, types, args, kwargs)
             if out is not NotImplemented and func._schema.name == \
                     "_c10d_functional::all_gather_into_tensor":
                 self.gathers.append((out.numel() * out.element_size(),
                                      torch._C._current_autograd_node()
                                      is not None))
+            if Spy.in_lookup:
+                Spy.lookup += self.collectives[seen:]
             return out
 
-    Spy.gathers = []
+    real_lookup = sharding.lookup_rows
+
+    def lookup(table, idx):
+        Spy.in_lookup = True
+        try:
+            return real_lookup(table, idx)
+        finally:
+            Spy.in_lookup = False
+
+    Spy.gathers, Spy.lookup, Spy.in_lookup = [], [], False
     mesh = dryrun._fake_mesh(False)
     model_size = dict(zip(mesh.mesh_dim_names, mesh.shape))["model"]
     data_size = dict(zip(mesh.mesh_dim_names, mesh.shape))["data"]
     real = dryrun.CostMode
     dryrun.CostMode = Spy
+    sharding.lookup_rows = lookup
     out = {}
     try:
         for name, (arch, dims, over) in MECHANISM_CELLS.items():
             cfg = get_config(arch)
             cfg = dataclasses.replace(cfg, segments=tuple(
                 dataclasses.replace(s, n=1) for s in cfg.segments), **over)
-            Spy.gathers = []
+            Spy.gathers, Spy.lookup = [], []
             shape = ShapeSpec(*dims)
             mode, _, _ = dryrun._measure(cfg, shape, mesh)
+            rows = shape.global_batch // data_size * shape.seq_len
             out[name] = {
                 "gathers": Spy.gathers,
                 "kinds": dryrun.parse_collectives(mode.collectives),
+                "lookups": mode.lookups,
+                "lookup_collectives": Spy.lookup,
+                # the embedding table's bf16 shard on a rank, (V / model,
+                # D / data), and a data rank's looked-up rows, (B' S, D)
+                "table_shard": cfg.vocab // model_size * cfg.d_model
+                // data_size * 2,
+                "rows_rank": rows * cfg.d_model * 2, "data": data_size,
                 # bf16 weights of one layer
                 "w_in_half": cfg.d_model * cfg.d_inner * 2,
                 "wq_shard": cfg.d_model * cfg.n_heads * cfg.hd * 2
@@ -405,6 +449,7 @@ def _mechanisms():
         out["fsdp_ways"] = _fsdp_ways(mesh, Spy)
     finally:
         dryrun.CostMode = real
+        sharding.lookup_rows = real_lookup
     return out
 
 

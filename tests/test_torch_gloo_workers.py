@@ -25,14 +25,18 @@ another, each writing one JSON file into ``OUT_DIR``:
   microbatch) against the unsharded step (``train``), for the last two
   a prefill and 4 decode steps (``serve_rel``), and for each case the
   F slices of every exchange of fsdp expert weights it made
-  (``experts_exchanged``), with, for ``EXCHANGE_CASE``, the bytes of one
-  layer's query projection and of the embedding's gathered slice;
+  (``experts_exchanged``) and the ways its embedding lookups took
+  (``lookups``), with, for ``EXCHANGE_CASE``, the bytes of one layer's
+  query projection; and under ``"lookup"``, the smoke ``FSDP_ARCH``'s
+  embedding lookup under a split batch with the table gathered, kept
+  split (each way forced) and by the rule's choice (``_lookup_ways``);
 * ``seq.json``, the same 4 ranks: the smoke gemma3-1b decoding with its
   cache's sequence split (batch 2 and 1), and the smoke gemma2-27b (an
   FSDP arch) decoding at batch 1 (``fsdp_1``) and 2 (``fsdp_2``, one row
-  a data rank: its weights stay split and the rows move): relative
-  errors of the decode steps, the cache's split, and one decode step's
-  collectives.
+  a data rank: its weights and embedding table stay split and the rows
+  move): relative errors of the decode steps, the cache's split, one
+  decode step's collectives, and for ``fsdp_2`` the ways of the
+  embedding lookups of its prefill and decode steps.
 
 Each worker records what it measured and raises only on an error of the
 sharded path itself; the limits are the caller's (``SHARD_RTOL`` and the
@@ -233,7 +237,8 @@ def _grad_worker(rank, world, store_path, out_path):
         dbatch = sharding.distribute(batch, sharding.batch_shardings(mesh,
                                                                      batch))
         mode = CostMode()
-        with sharding.activation_mesh(mesh), mode:
+        with sharding.activation_mesh(mesh), mode, \
+                sharding.recording_lookups() as lookups:
             dloss, dgrads = model.loss_and_grads(cfg, dparams, dbatch)
         rel = [(_rel(a.full_tensor(), b), name) for (name, a), b in zip(
             tree_flatten_with_names(dgrads), tree_leaves(grads))]
@@ -246,6 +251,7 @@ def _grad_worker(rank, world, store_path, out_path):
             "gathers": _gathers(mode),
             "all_to_alls": sum(1 for kind, _ in mode.collectives
                                if kind == "all-to-all"),
+            "lookups": dict(lookups),
             # one layer's (D, 2 Di) in-projection, f32
             "w_in_bytes": w_in[0][0].numel() * 4 if w_in else None}
         if arch in (GRAD_ARCHS[0], MOE_FSDP_ARCH, EXCHANGE_CASE):
@@ -256,16 +262,61 @@ def _grad_worker(rank, world, store_path, out_path):
         if arch in (MOE_FSDP_ARCH, EXCHANGE_CASE):
             results[arch]["serve_rel"], _ = _serve(cfg, params, dparams, mesh)
         if arch == EXCHANGE_CASE:
-            results[arch].update(
-                # one layer's query projection (D, H, hd), and the
-                # embedding table's vocabulary slice gathered along D, f32
-                wq_layer_bytes=cfg.d_model * cfg.n_heads * cfg.hd * 4,
-                embed_gathered=cfg.vocab // 2 * cfg.d_model * 4)
+            # one layer's query projection (D, H, hd), f32
+            results[arch]["wq_layer_bytes"] = (cfg.d_model * cfg.n_heads
+                                               * cfg.hd * 4)
         results[arch]["experts_exchanged"] = sorted(set(exchanged))
     moe._exchange_experts = exchange_experts
+    results["lookup"] = _lookup_ways(mesh)
     if rank == 0:
         Path(out_path).write_text(json.dumps(results))
     dist.destroy_process_group()
+
+
+def _lookup_ways(mesh):
+    """The smoke ``FSDP_ARCH``'s embedding table (its vocabulary over
+    ``model``, D over ``data``) looked up by a (4, 16) batch of ids split
+    over ``data``, through ``sharding.lookup_rows`` with
+    ``gather_or_exchange`` forced to each way and left to its own choice
+    (``"rule"``), against the unsharded lookup: for each, the relative
+    errors of the rows and of the table's gradient (of the rows' dot
+    product with fixed random weights), the ways the lookup recorded, the
+    bytes of its all-gathers, and those of the table's local shard."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import CostMode
+    from repro_torch.models.lm import sharding, transformer
+    cfg = get_config(FSDP_ARCH).smoke()
+    table = transformer.init_params(
+        cfg, torch.Generator().manual_seed(0), device="cpu")["embed"].float()
+    gen = torch.Generator().manual_seed(5)
+    idx = torch.randint(0, cfg.vocab, (4, 16), generator=gen)
+    weight = torch.randn(4, 16, cfg.d_model, generator=gen)
+    want = table.clone().requires_grad_()
+    rows = want[idx]
+    (rows * weight).sum().backward()
+    spec = sharding.param_shardings(cfg, mesh, {"embed": table})
+    didx = sharding.distribute({"tokens": idx}, sharding.batch_shardings(
+        mesh, {"tokens": idx}))["tokens"]
+    rule = sharding.gather_or_exchange
+    out = {}
+    for way in ("gather", "exchange", "rule"):
+        dtable = sharding.distribute({"embed": table}, spec)["embed"]
+        dtable.requires_grad_()
+        if way != "rule":
+            sharding.gather_or_exchange = lambda g, e, way=way: way
+        mode = CostMode()
+        try:
+            with mode, sharding.recording_lookups() as lookups:
+                drows = sharding.lookup_rows(dtable, didx).full_tensor()
+                (drows * weight).sum().backward()
+        finally:
+            sharding.gather_or_exchange = rule
+        out[way] = {"rows_rel": _rel(drows.detach(), rows.detach()),
+                    "grad_rel": _rel(dtable.grad.full_tensor(), want.grad),
+                    "grad_split": dtable.grad.placements == dtable.placements,
+                    "lookups": dict(lookups), "gathers": _gathers(mode),
+                    "table_shard_bytes": dtable.to_local().numel() * 4}
+    return out
 
 
 def _decode_run(cfg, params, dparams, mesh, B, S, steps):
@@ -352,16 +403,17 @@ def _seq_worker(rank, world, store_path, out_path):
         "decode_rel": rel, "gathered": sum(_gathers(mode)),
         # one layer's query projection (D, H, hd), f32
         "wq_layer_bytes": cfg.d_model * cfg.n_heads * cfg.hd * 4}
-    # batch 2, one row a data rank: the fsdp products keep their weights
-    # split and move the rows (``sharding.gather_or_exchange``)
-    rel, _, mode = _decode_run(cfg, params, dparams, mesh, 2, S, steps)
+    # batch 2, one row a data rank: the fsdp products and the embedding
+    # lookup keep their weights split and move the rows
+    # (``sharding.gather_or_exchange``)
+    with sharding.recording_lookups() as lookups:
+        rel, _, mode = _decode_run(cfg, params, dparams, mesh, 2, S, steps)
     results["fsdp_2"] = {
         "decode_rel": rel, "gathers": _gathers(mode),
         "all_to_alls": sum(1 for kind, _ in mode.collectives
                            if kind == "all-to-all"),
-        "wq_layer_bytes": cfg.d_model * cfg.n_heads * cfg.hd * 4,
-        # the embedding table's vocabulary slice, gathered along D, f32
-        "embed_gathered": cfg.vocab // 2 * cfg.d_model * 4}
+        "lookups": dict(lookups),
+        "wq_layer_bytes": cfg.d_model * cfg.n_heads * cfg.hd * 4}
     if rank == 0:
         Path(out_path).write_text(json.dumps(results))
     dist.destroy_process_group()

@@ -22,13 +22,19 @@
   a gradient summed over too few ranks, so the gradients are compared,
   not the parameters); the fsdp MoE arch also serves and takes a train
   step there, by the rule's ways and with every fsdp weight kept split
-  (its experts exchanged over the data ranks, F cut in 2), within 1e-5;
+  (its experts exchanged over the data ranks, F cut in 2, the embedding
+  lookup's rows exchanged), within 1e-5;
+* the embedding lookup of an ``fsdp`` table under a data-split batch on
+  the same 4 ranks, gathering the table and exchanging the rows (each
+  way forced, and by the rule's choice): rows and the table's gradient
+  within 1e-5 of the unsharded lookup;
 * no weight gathered where the reference's GSPMD keeps it split: the
   padded-head archs' train step on the 3 ranks gathers no projection
   weight or gradient; falcon-mamba's training on the (2, 2) mesh gathers
   no in-projection; the smoke FSDP arch decodes at batch 1 with its
   weights split along D, and at batch 2 (one row a data rank) moving the
-  rows instead of its weights, within 1e-5 of the unsharded logits;
+  rows instead of its weights and its embedding table, within 1e-5 of
+  the unsharded logits;
 * sequence-reduced decode: on the same 4 ranks, the smoke gemma3-1b (1
   KV head, which does not divide ``model``) prefills and decodes with
   the cache's sequence split over ``model`` (batch 2) and over data x
@@ -337,31 +343,53 @@ def test_exchanged_fsdp_experts_match_unsharded(gloo_results):
     """The experts' fsdp weights split along D, kept split by the rule at
     ``EXCHANGE_CASE``'s sizes: each of the 2 experts' F is cut over both
     data ranks (s = 2), the weights, slots and outputs move by
-    all-to-alls, the gradients match, and nothing as large as one layer's
-    query projection is gathered but the embedding's vocabulary slice
-    (``lookup_rows``), so every fsdp product kept its weight split."""
+    all-to-alls, the gradients match, the embedding lookup exchanges its
+    rows (``lookup_rows``), and nothing as large as one layer's query
+    projection is gathered, so every fsdp weight stayed split."""
     r = gloo_results["2x2"][EXCHANGE_CASE]
     assert r["experts_exchanged"] == [2], r
     assert r["all_to_alls"] > 0
-    assert [n for n in r["gathers"] if n >= r["wq_layer_bytes"]] == \
-        [r["embed_gathered"]], r
+    assert r["lookups"] == {"exchange": 1}, r["lookups"]
+    assert [n for n in r["gathers"] if n >= r["wq_layer_bytes"]] == [], r
     assert r["loss_rel"] <= SHARD_RTOL
     assert r["grad_rel"] <= SHARD_RTOL, r["worst_leaf"]
 
 
 def test_fsdp_batch2_decode_moves_rows(gloo_results):
     """The smoke FSDP arch at batch 2 on the (2, 2) mesh (one row a data
-    rank): the products keep their weights split and move the rows
+    rank): the products and the embedding lookup (its prefill's and each
+    decode step's) keep their weights split and move the rows
     (all-to-alls), gathering nothing as large as one layer's query
-    projection but the embedding's vocabulary slice (``lookup_rows``
-    gathers a table split along D where the batch is split too), and the
-    logits match the unsharded port's."""
+    projection, and the logits match the unsharded port's."""
     r = gloo_results["seq"]["fsdp_2"]
     assert len(r["decode_rel"]) == 4
     assert max(r["decode_rel"]) <= SHARD_RTOL, r["decode_rel"]
     assert r["all_to_alls"] > 0
-    assert [n for n in r["gathers"] if n >= r["wq_layer_bytes"]] == \
-        [r["embed_gathered"]], r
+    assert r["lookups"] == {"exchange": 5}, r["lookups"]
+    assert [n for n in r["gathers"] if n >= r["wq_layer_bytes"]] == [], r
+
+
+@pytest.mark.parametrize("way", ["gather", "exchange", "rule"])
+def test_fsdp_lookup_matches_unsharded(gloo_results, way):
+    """The smoke FSDP arch's embedding table (vocabulary over ``model``, D
+    over ``data``) looked up by a batch split over ``data`` on the (2, 2)
+    mesh, with ``gather_or_exchange`` forced to each way and left to its
+    own choice (the exchange, at these sizes): the rows and the table's
+    gradient within ``SHARD_RTOL`` of the unsharded lookup, the gradient
+    split as the table is, and the exchange gathering only the ids,
+    nothing as large as the table's shard on a rank."""
+    r = gloo_results["2x2"]["lookup"][way]
+    want = "exchange" if way == "rule" else way
+    assert r["lookups"] == {want: 1}, r["lookups"]
+    assert r["rows_rel"] <= SHARD_RTOL
+    assert r["grad_rel"] <= SHARD_RTOL
+    assert r["grad_split"]
+    if want == "exchange":
+        # the ids, then the test's own gather of the rows to compare them
+        assert r["gathers"][0] < r["table_shard_bytes"], r["gathers"]
+        assert len(r["gathers"]) == 2, r["gathers"]
+    else:
+        assert r["gathers"][0] == 2 * r["table_shard_bytes"], r["gathers"]
 
 
 @pytest.mark.parametrize("window", [None, 512])
