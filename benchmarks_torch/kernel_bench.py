@@ -17,9 +17,13 @@ without the requant; ``scaled_dot_product_attention`` in f32, named by
 the backend it ran).  The bound is the larger of the bytes the case must
 move (inputs once, output once) over ``launch.roofline.HBM_BW`` and its
 operations over the peak for their type: ``PEAK_INT8_OPS`` for the INT8
-product, ``PEAK_F32_FLOPS`` for f32 flash (the CUDA cores; its causal
-mask leaves S (S + 1) / 2 key-query pairs a head).  ``launches`` counts
-the kernel's launches in the case.
+product; for f32 flash, 4 hd FLOP a key-query pair (its causal mask
+leaves S (S + 1) / 2 pairs a head) in one pass at the peak of the
+instance that serves it, ``PEAK_TF32_FLOPS`` for the f32 tensor-core
+instance (both cases: hd 128) and ``PEAK_F32_FLOPS`` for the CUDA cores
+(wider heads).  The tensor-core instance's split arithmetic does 2.25x
+that one pass.  ``launches`` counts the kernel's launches in the case,
+and ``instances`` those of each flash instance.
 
 With ``--device cpu`` only the plain versions run, timed on the host
 clock, and no card field is written.  A missing card is an error unless
@@ -41,11 +45,11 @@ import time
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import flash_attention as fa, ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.imc_mvm import imc_mvm
 from repro_torch.launch.roofline import (HBM_BW, PEAK_F32_FLOPS,
-                                         PEAK_INT8_OPS)
+                                         PEAK_INT8_OPS, PEAK_TF32_FLOPS)
 
 from .common import csv_line, dump
 
@@ -138,6 +142,18 @@ def mvm_case(M, K, N, dev, gen, iters):
     return rec
 
 
+def flash_bound(B, H, S, hd):
+    """The bound of causal f32 flash at (B, H, S, hd): q, k, v and the
+    output once, or one pass of 4 hd FLOP a key-query pair at the peak of
+    the instance that serves hd in f32."""
+    pairs = B * H * S * (S + 1) / 2          # unmasked key-query pairs
+    if fa.instance(torch.float32, hd) == fa.TENSOR_CORE_F32:
+        peak, name = PEAK_TF32_FLOPS, "PEAK_TF32_FLOPS"
+    else:
+        peak, name = PEAK_F32_FLOPS, "PEAK_F32_FLOPS"
+    return bound(4.0 * 4 * B * H * S * hd, 4.0 * hd * pairs, peak, name)
+
+
 def flash_case(B, H, S, hd, dev, gen, iters):
     q, k, v = (torch.randn((B, H, S, hd), generator=gen, device=dev)
                for _ in range(3))
@@ -145,6 +161,8 @@ def flash_case(B, H, S, hd, dev, gen, iters):
     if dev.type == "cpu":
         return {"plain_us": host_us(plain, iters)}
     flash_attention.launches = 0
+    flash_attention.instance_launches = dict.fromkeys(
+        flash_attention.instance_launches, 0)
     got, want = ops.attention(q, k, v), plain()
     err = (got - want).abs().max().item()
     if not err <= FLASH_F32_TOL:
@@ -156,12 +174,13 @@ def flash_case(B, H, S, hd, dev, gen, iters):
                q, k, v, is_causal=True), iters),
            "library": f"scaled_dot_product_attention f32 "
                       f"({sdpa_backend(q, k, v)})",
-           "launches": flash_attention.launches, "max_abs_err": err,
+           "launches": flash_attention.launches,
+           "instances": {n: c for n, c in
+                         flash_attention.instance_launches.items() if c},
+           "max_abs_err": err,
            "check": f"max |d| <= {FLASH_F32_TOL}", "matches_plain": True}
-    pairs = B * H * S * (S + 1) / 2          # unmasked key-query pairs
-    rec["bound_us"], rec["bound"], rec["bound_constant"] = bound(
-        4.0 * 4 * B * H * S * hd, 4.0 * hd * pairs, PEAK_F32_FLOPS,
-        "PEAK_F32_FLOPS")
+    rec["bound_us"], rec["bound"], rec["bound_constant"] = flash_bound(
+        B, H, S, hd)
     return rec
 
 
@@ -192,7 +211,7 @@ def main(device: str = "cuda", iters: int = 20, mvm_shapes=MVM_SHAPES,
             print(f"{name:<22s} {rec['kernel_us']:10.2f} {rec['plain_us']:10.2f}"
                   f" {rec['library_us']:11.2f} {rec['bound_us']:9.2f}  "
                   f"{rec['bound']} ({rec['bound_constant']}); launches "
-                  f"{rec['launches']}; {rec['library']}")
+                  f"{rec.get('instances', rec['launches'])}; {rec['library']}")
             csv_line(name, rec["kernel_us"],
                      f"bound={rec['bound_us']:.2f}us,{rec['bound']}-bound")
         else:

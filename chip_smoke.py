@@ -8,10 +8,12 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
 1. the card's name and power limit; build every kernel in
    ``src/repro_torch/csrc`` with nvcc (one process per source, in
    parallel) and print the build time and ptxas resource lines, and the
-   registers and spill bytes of each flash tensor-core instance and of
-   each INT8 instance (the serving path's flash instance, the 4-step and
-   16-step flash instances of the other families and the ResNet path's
-   INT8 instances must not spill);
+   registers and spill bytes of each instance of the two flash
+   tensor-core kernels (bf16 and f32) and of each INT8 instance (the
+   serving path's flash instance, the 4-step and 16-step flash instances
+   of the other families, the f32 instances at hd 128, the kernel bench's,
+   and at 256, its widest, and the ResNet path's INT8 instances must not
+   spill);
 2. hold the INT8 kernels' C dispatch rules against their Python mirrors,
    then each kernel against its plain PyTorch version on the card with
    ``torch.equal``: every ResNet-18-CIFAR conv shape at batch 256, the fc
@@ -59,13 +61,15 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
 6. the flash-attention kernel against its plain version: gemma3-1b's
    prefill shapes (B=4, H=4, MQA, S=2048, hd=288) in bf16 and f32, with
    the 512 window and global, and ragged shapes (S = 1000, 300, 100, 1;
-   hd 16/64/100/128/288/320; softcap; non-causal; GQA), then the other
-   families' prefill shapes in bf16 (hd 64 GQA 24/8; hd 64 non-causal
-   at S = 1,500; hd 256 MQA with a 2,048 window at S = 4,096; hd 256 MQA
-   at S = 512; a ragged hd 200 on the 16-step instance); each check logs
-   the instance that ran it (bf16 within the register plan on the tensor
-   cores, f32 and wider bf16 on the CUDA cores), and the Python mirror of
-   the dispatch rule is held against the C entry's;
+   hd 16/64/100/128/256/288/320, f32 at 256, 288 and 320 too; softcap;
+   non-causal; GQA), then the other families' prefill shapes in bf16
+   (hd 64 GQA 24/8; hd 64 non-causal at S = 1,500; hd 256 MQA with a
+   2,048 window at S = 4,096; hd 256 MQA at S = 512; a ragged hd 200 on
+   the 16-step instance); each check logs
+   the instance that ran it and its max |d| (bf16 within the register
+   plan on the tensor cores, f32 within its plan on the f32 tensor-core
+   instance, wider heads of both on the CUDA cores), and the Python mirror
+   of the three-way dispatch rule is held against the C entry's;
 7. gemma3-1b at full width and one window period of depth (6 layers: 5
    local, 1 global), bf16 weights from a CPU generator seeded 0: prefill
    of a 640-token prompt and 4 greedy decode steps on the card against the
@@ -163,7 +167,9 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
    subprocess must exit 0; the paper's suites run on the host, and the
    kernel bench launches ``imc_mvm`` at the reference's three shapes and
    f32 flash at its two on the card (each case sets the kernel's launch
-   count to 0 before it runs and reports it after: it must be nonzero),
+   count to 0 before it runs and reports it after: it must be nonzero,
+   and every flash launch on the instance the rule names for f32 at hd
+   128, the f32 tensor-core instance),
    each case equal to its plain version (``torch.equal``; max |d| <=
    2e-4); the table of kernel, plain, library and bound times is printed
    with the card's name and power limit; then ``python -m
@@ -870,8 +876,7 @@ def flash_check(q, k, v, causal, window, softcap, label):
     torch.cuda.synchronize()
     ran = [n for n, c in flash_attention.instance_launches.items()
            if c != before[n]]
-    want_inst = (fa.TENSOR_CORE if fa.uses_tensor_cores(q.dtype, q.shape[3])
-                 else fa.CUDA_CORE)
+    want_inst = fa.instance(q.dtype, q.shape[3])
     if ran != [want_inst]:
         raise AssertionError(f"flash_attention {label}: ran {ran}, the rule "
                              f"names {want_inst}")
@@ -918,11 +923,12 @@ def flash_checks(dev, hd_path, local_window):
     rule = _build.load("flash_attention", "flash_attention_instance",
                        [ctypes.c_int, ctypes.c_int])
     for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
-        for hd in (8, 16, 64, 100, 128, 256, 288, 289, 320, 512):
-            if rule(code, hd) != int(fa.uses_tensor_cores(dtype, hd)):
+        for hd in (0, 8, 16, 64, 100, 128, 200, 256, 288, 289, 300, 320, 512):
+            if fa.INSTANCES.get(rule(code, hd)) != fa.instance(dtype, hd):
                 raise AssertionError(f"flash dispatch: the C rule and "
-                                     f"uses_tensor_cores differ at {dtype} {hd}")
-    log("check flash dispatch: uses_tensor_cores agrees with the C rule")
+                                     f"instance() differ at {dtype} {hd}")
+    log("check flash dispatch: instance() agrees with the C rule for the "
+        "three instances")
     gen = torch.Generator(device=dev).manual_seed(7)
     err = 0.0
     for dtype in (torch.bfloat16, torch.float32):
@@ -943,12 +949,16 @@ def flash_checks(dev, hd_path, local_window):
         (1, 1, 1, 1, 16, torch.float32, True, None, None, 1.0),
         # bf16 on the tensor cores: stablelm-1.6b's width with GQA, hd 288
         # with softcap, rows that are not 16-byte aligned (hd 100), S = 1;
-        # bf16 wider than the register plan, on the CUDA cores
+        # bf16 and f32 wider than the register plans, on the CUDA cores (f32
+        # at hd 288 above too)
         (2, 8, 2, 1000, 64, torch.bfloat16, True, None, None, 1.0),
         (1, 4, 1, 1000, 288, torch.bfloat16, True, 512, 2.0, 1.0),
         (1, 2, 2, 300, 100, torch.bfloat16, False, None, None, 1.0),
         (1, 2, 1, 1, 288, torch.bfloat16, True, None, None, 1.0),
         (1, 2, 1, 300, 320, torch.bfloat16, True, 128, None, 1.0),
+        (1, 2, 1, 300, 320, torch.float32, True, 128, None, 1.0),
+        # f32 at the f32 tensor-core instance's widest plan, with a window
+        (2, 3, 1, 1000, 256, torch.float32, True, 512, None, 1.0),
     ]
     for B, H, KV, S, hd, dtype, causal, window, softcap, scale in ragged:
         qkv = flash_inputs(gen, dev, B, H, KV, S, hd, dtype, path_layout=False,
@@ -2191,7 +2201,10 @@ BENCH_CASES = ("imc_mvm.256x512x512", "imc_mvm.1024x1024x1024",
 def check_kernel_bench(kb):
     """The kernel bench's record must hold every reference case, each run
     on the card (a kernel time), launched (a nonzero count) and equal to
-    its plain version."""
+    its plain version; every flash launch on the instance the dispatch
+    rule names for its f32 inputs."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
     if tuple(kb) != BENCH_CASES:
         raise AssertionError(f"kernel bench: cases {list(kb)}, want "
                              f"{list(BENCH_CASES)}")
@@ -2199,6 +2212,13 @@ def check_kernel_bench(kb):
         if "kernel_us" not in rec or not rec.get("matches_plain") \
                 or rec.get("launches", 0) < 1:
             raise AssertionError(f"kernel bench {name}: {rec}")
+        if name.startswith("flash."):
+            want = {fa.instance(torch.float32, int(name.split("x")[-1])):
+                    rec["launches"]}
+            if rec.get("instances") != want:
+                raise AssertionError(f"kernel bench {name}: launches by "
+                                     f"instance {rec.get('instances')}, want "
+                                     f"{want}")
     return kb
 
 
@@ -2230,11 +2250,12 @@ def bench_on_card(card):
     log("  case                     kernel      plain    library      bound"
         "  bound by            launches  max |d|")
     for name, rec in kb.items():
+        by_inst = f" {rec['instances']}" if "instances" in rec else ""
         log(f"  {name:<22s} {rec['kernel_us']:10.2f} {rec['plain_us']:10.2f} "
             f"{rec['library_us']:10.2f} {rec['bound_us']:10.2f}  "
             f"{rec['bound']} ({rec['bound_constant']}){'':<3s} "
             f"{rec['launches']:8d}  {rec['max_abs_err']:.2e}  "
-            f"[{rec['library']}]")
+            f"[{rec['library']}]{by_inst}")
     suites = {n: json.loads((art / f"{f}.json").read_text()) for n, f in
               (("fig2", "fig2_resnet8"), ("fig3", "fig3_resnet18"),
                ("table1", "table1_utilization"), ("fig4", "fig4_imc_dpu"),
@@ -2466,8 +2487,9 @@ def run_phases(dryruns, gloo) -> int:
         for line in lines:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
-    flash_log = Path(f"{libs['flash_attention']}.log")
-    tc_ptxas = {fn: r for fn, r in ptxas_report(flash_log.read_text()).items()
+    flash_report = ptxas_report(
+        Path(f"{libs['flash_attention']}.log").read_text())
+    tc_ptxas = {fn: r for fn, r in flash_report.items()
                 if "flash_tc_kernel" in fn}
     if not tc_ptxas:
         raise AssertionError("ptxas reported no flash tensor-core instance")
@@ -2496,6 +2518,27 @@ def run_phases(dryruns, gloo) -> int:
                                  f"{tag} spills or is missing: {inst}")
     log("ptxas: the 4-step and 16-step cp.async flash instances (the other "
         "families' paths) do not spill")
+    tc32_ptxas = {fn: r for fn, r in flash_report.items()
+                  if "flash_tc32_kernel" in fn}
+    if not tc32_ptxas:
+        raise AssertionError("ptxas reported no flash f32 tensor-core instance")
+    detail["flash_tc32_ptxas"] = tc32_ptxas
+    for fn, r in sorted(tc32_ptxas.items()):
+        log(f"ptxas flash f32 tensor-core instance {fn}: {r.get('registers')} "
+            f"registers, {r.get('spill_stores')} bytes spill stores, "
+            f"{r.get('spill_loads')} bytes spill loads")
+    # the kernel bench's instance (hd 128) and the widest the instance
+    # takes, both cp.async-staged
+    for hd in (128, fa.TC32_MAX_HEAD_DIM):
+        tag = f"ILi{fa.tc_steps(hd)}ELb1E"
+        inst = [r for fn, r in tc32_ptxas.items() if tag in fn]
+        if len(inst) != 1 or inst[0].get("spill_stores") != 0 \
+                or inst[0].get("spill_loads") != 0:
+            raise AssertionError(f"ptxas: the f32 tensor-core flash instance "
+                                 f"at hd {hd} ({tag}) spills or is missing: "
+                                 f"{inst}")
+        log(f"ptxas: the f32 tensor-core flash instance at hd {hd} ({tag}) "
+            f"does not spill")
     g18 = graphs.resnet18_graph()
     path_convs = conv_shapes(g18, BATCH)
     path_instances = {f"imc_conv2d/{conv2d.conv_instance(c[3], c[4], True)}"

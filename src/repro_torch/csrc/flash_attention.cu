@@ -11,20 +11,26 @@
 // views; the head dimension must be contiguous.  Built without
 // --use_fast_math: expf and tanhf are the accurate versions.
 //
-// Two instances of that function, chosen by dtype and head width in one
-// place (`flash_attention_instance`, mirrored by `uses_tensor_cores` in
+// Three instances of that function, chosen by dtype and head width in one
+// place (`flash_attention_instance`, mirrored by `instance` in
 // kernels/flash_attention.py), never on a failure:
 //
 // * the tensor-core instance (`flash_tc_kernel`): bfloat16 inputs with
 //   hd <= kTcMaxHeadDim (every registered arch: 64, 128, 288);
-// * the CUDA-core instance (`flash_attention_kernel`): float32 inputs, and
-//   bfloat16 wider than the tensor-core instance's register plan.
+// * the f32 tensor-core instance (`flash_tc32_kernel`): float32 inputs with
+//   hd <= kTc32MaxHeadDim (256; the kernel bench's hd 128);
+// * the CUDA-core instance (`flash_attention_kernel`): float32 and bfloat16
+//   wider than the tensor-core instances' register plans.
 //
 // What bounds it on the H100: at the serving path's shapes (gemma3-1b
 // prefill, B = 4, H = 4, S = 2048, hd = 288) the work is 4 * hd FLOP per
 // unmasked (q, k) pair, about 39 GFLOP for a global layer: at the
 // 989 TFLOP/s bf16 tensor-core rate that is 0.04 ms, above the time to
 // move q, k, v and the f32 output once.  So it is bound by operations.
+// In f32 (the kernel bench, B = 1, H = 8, S = 4096, hd = 128, causal) one
+// pass at the 494.7 TFLOP/s TF32 rate takes 69.5 us, above the 20.0 us of
+// bytes; the f32 tensor-core instance's split arithmetic below is 2.25x
+// that one pass.
 //
 // Tensor-core instance.  Q.K^T runs as mma.sync m16n8k16 bf16 -> f32 fed by
 // ldmatrix: a product of two bf16 values is exact in f32, so the logits
@@ -54,6 +60,40 @@
 // first, so the causal tail is short.  Inputs whose rows are not 16-byte
 // aligned are staged element by element instead.
 //
+// f32 tensor-core instance.  A single TF32 pass (10-bit mantissas) misses
+// the 2e-4 check against the f32 plain version, and three bf16 products
+// for Q.K^T miss it at logits of ~9 (input scale 3, softcap 50), so each
+// product is split.  Q.K^T runs as mma.sync m16n8k8 tf32 -> f32 on
+// hi = tf32(x), lo = tf32(x - hi) (cvt.rna): hi.hi + hi.lo + lo.hi in one
+// f32 accumulator, lo.lo dropped (~2^-22 relative).  Q and K stay f32 in
+// shared memory, and ldmatrix loads their fragments as is: an 8 x 8 b16
+// matrix is 8 rows of 4 f32, lane l getting (row l / 4, column l % 4), the
+// tf32 A layout for row-major Q and the B layout for K stored by key; the
+// split is done in registers at each load (Q's fragments are not held
+// across key tiles: at hd 128 they alone would take 128 registers).  A
+// warp holds the same 16 x hd f32 output accumulator as the tensor-core
+// instance, and the split operands add about a dozen registers: at hd 288
+// (144 accumulator registers) the cp.async instance spilled at 255 under
+// every unroll and ldmatrix width tried, so the plan stops at hd 256, whose
+// instance fits in 255 with no spills.  The
+// m16n8k8 accumulator has the m16n8k16 layout, so the online softmax is
+// the tensor-core instance's (`tc_softmax`).  P.V runs as m16n8k16 bf16
+// with P and V each split in two bf16 terms: p_hi.v_hi + p_hi.v_lo +
+// p_lo.v_hi (~2^-16 relative).  V is staged as an f32 tile by cp.async and
+// split once per block into bf16 hi and lo planes in shared memory, which
+// ldmatrix.trans reads as in the tensor-core instance: holding V's next
+// tile in registers instead would take 64 registers a thread at hd 256,
+// beside a 128-register accumulator, and splitting in each warp would do
+// it four times.  f32 rows are padded to an odd number of 16-byte chunks
+// (hd 256 -> 260 floats).  Q, K and V's f32 tile and the two planes take
+// 166.9 KB at hd 256 (one block an SM) and 85.0 KB at hd 128 (two).  A key
+// tile j: wait for K_j and V_j, split V_j, then load V_{j+1} while Q.K_j^T
+// and the softmax run, and K_{j+1} while P.V_j runs.  Tile skipping,
+// masking, the skipped rescale and the heaviest-first order are the
+// tensor-core instance's.  Costed in bf16 m16n8k16 units per 16 head
+// columns of a (q, k) pair, Q.K^T is 6 and P.V 3: 3x the tensor-core
+// instance.
+//
 // CUDA-core instance.  All arithmetic is float32, on inputs in float32 or
 // bfloat16 (upcast on read from shared memory); bound by the float32 issue
 // rate (67 TFLOP/s peak, less since every product needs shared-memory
@@ -76,6 +116,7 @@
 // quarter of a global layer's work.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -388,29 +429,124 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
-// Stage rows [r0, r0 + ROWS) of a (S, hd) bf16 slice with row stride `ss`
-// into shared memory (row stride LD), zero past S and past hd up to the
-// padded width 8 * CH.  VEC: rows are 16-byte aligned and hd % 8 == 0, so
-// each 16-byte chunk is one cp.async; otherwise element by element.
-template <int ROWS, int CH, int LD, bool VEC>
-__device__ __forceinline__ void tc_stage(bf16* dst, const bf16* __restrict__ src,
+// Stage rows [r0, r0 + ROWS) of a (S, hd) slice with row stride `ss` into
+// shared memory (row stride LD), zero past S and past hd up to the padded
+// width of CH 16-byte chunks.  VEC: rows are 16-byte aligned and hd is a
+// whole number of chunks, so each chunk is one cp.async; otherwise element
+// by element.
+template <int ROWS, int CH, int LD, bool VEC, typename T>
+__device__ __forceinline__ void tc_stage(T* dst, const T* __restrict__ src,
                                          int r0, int S, int hd, long long ss) {
+  constexpr int E = 16 / sizeof(T);  // elements of a chunk
   if (VEC) {
     for (int idx = threadIdx.x; idx < ROWS * CH; idx += kTcThreads) {
       const int r = idx / CH;
       const int c = idx - r * CH;
       const int row = r0 + r;
-      const bool in = row < S && c * 8 < hd;
-      cp_async16(smem_u32(dst + r * LD + c * 8),
-                 in ? src + (long long)row * ss + c * 8 : src, in ? 16 : 0);
+      const bool in = row < S && c * E < hd;
+      cp_async16(smem_u32(dst + r * LD + c * E),
+                 in ? src + (long long)row * ss + c * E : src, in ? 16 : 0);
     }
   } else {
-    for (int idx = threadIdx.x; idx < ROWS * CH * 8; idx += kTcThreads) {
-      const int r = idx / (CH * 8);
-      const int d = idx - r * CH * 8;
+    for (int idx = threadIdx.x; idx < ROWS * CH * E; idx += kTcThreads) {
+      const int r = idx / (CH * E);
+      const int d = idx - r * CH * E;
       const int row = r0 + r;
       dst[r * LD + d] = row < S && d < hd ? src[(long long)row * ss + d]
-                                          : __float2bfloat16(0.0f);
+                                          : zero<T>();
+    }
+  }
+}
+
+// Scale, softcap and mask one 16 x kTcBK tile of logits held in mma
+// accumulator fragments (this thread's rows row0 and row0 + 8, columns
+// k0 + 8n + 2t and the next), then one step of the online softmax: s
+// becomes the probabilities, m and l (this thread's share of the row sums)
+// move on, and o is rescaled where a row's maximum moved.  `full`: no
+// logit of the tile is masked.  The f32 tensor-core instance's: the
+// tensor-core instance keeps the same steps inline, since calling these
+// changed ptxas's register allocation of its instances (more spills in
+// those staged element by element).
+template <int NT>
+__device__ __forceinline__ void tc_softmax(float (&s)[kTcBK / 8][4],
+                                           float (&o)[NT][4], float (&m)[2],
+                                           float (&l)[2], bool full, int row0,
+                                           int k0, int t, int S, int causal,
+                                           int window, float scale,
+                                           float softcap) {
+  constexpr int SN = kTcBK / 8;
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int n = 0; n < SN; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[n][e] * scale;
+      if (softcap > 0.0f) x = tanhf(x / softcap) * softcap;
+      if (!full) {
+        const int row = row0 + 8 * (e >> 1);
+        const int col = k0 + 8 * n + 2 * t + (e & 1);
+        const int dd = row - col;
+        const bool ok = col < S && (!causal || dd >= 0) && dd < window;
+        x = ok ? x : kNegInf;
+      }
+      s[n][e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  }
+  float corr[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    corr[r] = expf(m[r] - mx[r]);
+    m[r] = mx[r];
+    l[r] *= corr[r];
+  }
+#pragma unroll
+  for (int n = 0; n < SN; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[n][e] = expf(s[n][e] - m[e >> 1]);
+      l[e >> 1] += s[n][e];
+    }
+  }
+  // once the row maxima settle, corr is exactly 1 for the whole warp
+  if (__any_sync(0xffffffffu, corr[0] != 1.0f || corr[1] != 1.0f)) {
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      o[n][0] *= corr[0];
+      o[n][1] *= corr[0];
+      o[n][2] *= corr[1];
+      o[n][3] *= corr[1];
+    }
+  }
+}
+
+// Sum l over the quad, then write this thread's share of rows row0 and
+// row0 + 8 of O / l (the (S, hd) slice at ob).
+template <int NT>
+__device__ __forceinline__ void tc_store(float* ob, const float (&o)[NT][4],
+                                         float (&l)[2], int row0, int t,
+                                         int S, int hd) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = row0 + 8 * r;
+    if (row >= S) continue;
+    const float denom = fmaxf(l[r], 1e-30f);
+    float* orow = ob + (long long)row * hd;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int d = 8 * n + 2 * t;
+      const float x0 = o[n][2 * r] / denom;
+      const float x1 = o[n][2 * r + 1] / denom;
+      if (d + 1 < hd && (hd & 1) == 0) {
+        *reinterpret_cast<float2*>(orow + d) = make_float2(x0, x1);
+      } else {
+        if (d < hd) orow[d] = x0;
+        if (d + 1 < hd) orow[d + 1] = x1;
+      }
     }
   }
 }
@@ -599,27 +735,239 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// f32 tensor-core instance: float32 inputs, hd <= kTc32MaxHeadDim
+// ---------------------------------------------------------------------------
+
+constexpr int kTc32MaxHeadDim = 256;  // widest hd of the register plan
+
+// f32 shared-memory row stride in floats: the padded width 16 * tc_steps
+// in 16-byte chunks (four per step), plus one so the count is odd.  Must
+// agree with tc32_smem_stride in kernels/flash_attention.py.
+__host__ __device__ inline int tc32_smem_stride(int hd) {
+  return (4 * tc_steps(hd) + 1) * 4;
+}
+
+// Q, K and V tiles in f32, and V's bf16 hi and lo planes.
+__host__ __device__ inline size_t tc32_smem_bytes(int hd) {
+  return (size_t)(kTcBQ + 2 * kTcBK) * tc32_smem_stride(hd) * sizeof(float) +
+         (size_t)2 * kTcBK * tc_smem_stride(hd) * sizeof(bf16);
+}
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// f32 bits x -> hi = tf32(x), lo = tf32(x - hi)
+__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& hi,
+                                           uint32_t& lo) {
+  const float f = __uint_as_float(x);
+  hi = tf32_rna(f);
+  lo = tf32_rna(f - __uint_as_float(hi));
+}
+
+// c += a (16 x 8, row) . b (8 x 8, col), tf32 in, f32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Split a staged f32 V tile (row stride LDF, CH 16-byte chunks a row) into
+// bf16 hi = bf16(v) and lo = bf16(v - hi) planes (row stride LD).
+template <int CH, int LDF, int LD>
+__device__ __forceinline__ void tc32_split_v(const float* vf, bf16* vh,
+                                             bf16* vl) {
+  for (int idx = threadIdx.x; idx < kTcBK * CH; idx += kTcThreads) {
+    const int r = idx / CH;
+    const int c = idx - r * CH;
+    const float4 x = *reinterpret_cast<const float4*>(vf + r * LDF + 4 * c);
+    uint2 hi, lo;
+    split_bf16(x.x, x.y, hi.x, lo.x);
+    split_bf16(x.z, x.w, hi.y, lo.y);
+    *reinterpret_cast<uint2*>(vh + r * LD + 4 * c) = hi;
+    *reinterpret_cast<uint2*>(vl + r * LD + 4 * c) = lo;
+  }
+}
+
+// KS: 16-column steps of the padded head width (tc_steps); VEC: staged by
+// cp.async (see tc_stage).
 template <int KS, bool VEC>
+__global__ void __launch_bounds__(kTcThreads)
+flash_tc32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ out, int H,
+                  int group, int S, int hd, long long q_sb, long long q_sh,
+                  long long q_ss, long long k_sb, long long k_sh,
+                  long long k_ss, long long v_sb, long long v_sh,
+                  long long v_ss, float scale, int causal, int window,
+                  float softcap) {
+  constexpr int CH = 4 * KS;          // 16-byte chunks of a padded f32 row
+  constexpr int LDF = (CH + 1) * 4;   // tc32_smem_stride
+  constexpr int LD = (2 * KS + 1) * 8;  // tc_smem_stride: V's bf16 planes
+  constexpr int NT = 2 * KS;          // 8-column tiles of the output
+  constexpr int SN = kTcBK / 8;       // 8-key tiles of S
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* q_s = reinterpret_cast<float*>(smem_raw);
+  float* k_s = q_s + kTcBQ * LDF;
+  float* vf_s = k_s + kTcBK * LDF;
+  bf16* vh_s = reinterpret_cast<bf16*>(vf_s + kTcBK * LDF);
+  bf16* vl_s = vh_s + kTcBK * LD;
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;            // fragment row (and row + 8)
+  const int t = lane & 3;             // fragment column (pair)
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcBQ;  // heaviest first
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int hk = h / group;
+  const float* qb = q + b * q_sb + h * q_sh;
+  const float* kb = k + b * k_sb + hk * k_sh;
+  const float* vb = v + b * v_sb + hk * v_sh;
+
+  // Key range that can hold a valid key for some row of this tile.
+  const int q_last = min(q0 + kTcBQ, S) - 1;
+  const int k_end = causal ? q_last + 1 : S;
+  const long long lo = (long long)q0 - window + 1;
+  const int k_begin = lo > 0 ? (int)lo : 0;
+  const int t0 = k_begin / kTcBK * kTcBK;
+
+  tc_stage<kTcBQ, CH, LDF, VEC>(q_s, qb, q0, S, hd, q_ss);
+  tc_stage<kTcBK, CH, LDF, VEC>(k_s, kb, t0, S, hd, k_ss);
+  tc_stage<kTcBK, CH, LDF, VEC>(vf_s, vb, t0, S, hd, v_ss);
+  cp_async_commit();
+
+  // ldmatrix row addresses of this lane, as in the tensor-core instance
+  // with 16-byte chunks of 4 floats: Q as the tf32 A operand (rows, then
+  // the chunk of columns 4..7), K as B (key rows of two 8-key tiles, then
+  // the chunk), V's planes as B transposed.
+  const uint32_t q_addr = smem_u32(
+      q_s + (warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LDF +
+      4 * (lane >> 4));
+  const uint32_t k_addr = smem_u32(
+      k_s + ((lane & 7) + 8 * (lane >> 4)) * LDF + 4 * ((lane >> 3) & 1));
+  const uint32_t vh_addr = smem_u32(
+      vh_s + ((lane & 7) + 8 * ((lane >> 3) & 1)) * LD + 8 * (lane >> 4));
+  const uint32_t vl_addr = vh_addr + kTcBK * LD * sizeof(bf16);
+
+  const int row0 = q0 + warp * 16 + g;   // this thread's rows: row0, row0 + 8
+  float o[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.0f, 0.0f};             // this thread's share of the sum
+
+  for (int k0 = t0; k0 < k_end; k0 += kTcBK) {
+    const bool more = k0 + kTcBK < k_end;
+    cp_async_wait_all();
+    __syncthreads();       // K_j and V_j landed; every warp is done with P.V
+    tc32_split_v<CH, LDF, LD>(vf_s, vh_s, vl_s);
+    __syncthreads();       // V_j's planes are written, its f32 tile is free
+    if (more) {
+      tc_stage<kTcBK, CH, LDF, VEC>(vf_s, vb, k0 + kTcBK, S, hd, v_ss);
+      cp_async_commit();
+    }
+
+    // S = Q . K^T over 2 KS steps of 8 head columns, each product split:
+    // lo.hi + hi.lo + hi.hi
+    float s[SN][4];
+#pragma unroll
+    for (int n = 0; n < SN; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
+#pragma unroll
+    for (int ks = 0; ks < 2 * KS; ++ks) {
+      uint32_t qf[4], qh[4], ql[4];
+      ldsm_x4(qf, q_addr + ks * 32);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split_tf32(qf[i], qh[i], ql[i]);
+#pragma unroll
+      for (int n = 0; n < SN; n += 2) {
+        uint32_t kf[4], kh[4], kl[4];
+        ldsm_x4(kf, k_addr + (n * 8 * LDF + ks * 8) * 4);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) split_tf32(kf[i], kh[i], kl[i]);
+        mma_tf32(s[n], ql, kh[0], kh[1]);
+        mma_tf32(s[n], qh, kl[0], kl[1]);
+        mma_tf32(s[n], qh, kh[0], kh[1]);
+        mma_tf32(s[n + 1], ql, kh[2], kh[3]);
+        mma_tf32(s[n + 1], qh, kl[2], kl[3]);
+        mma_tf32(s[n + 1], qh, kh[2], kh[3]);
+      }
+    }
+
+    const bool full = k0 + kTcBK <= S && (!causal || k0 + kTcBK - 1 <= q0) &&
+                      q_last - k0 < window;
+    tc_softmax(s, o, m, l, full, row0, k0, t, S, causal, window, scale,
+               softcap);
+
+    __syncthreads();       // every warp is done with K_j
+    if (more) {
+      tc_stage<kTcBK, CH, LDF, VEC>(k_s, kb, k0 + kTcBK, S, hd, k_ss);
+      cp_async_commit();
+    }
+
+    // O += P . V with P and V each split in two bf16 terms, 16 keys a
+    // step: lo.hi + hi.lo + hi.hi
+#pragma unroll
+    for (int kk = 0; kk < kTcBK / 16; ++kk) {
+      uint32_t ph[4], pl[4];
+      split_bf16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+      split_bf16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+#pragma unroll
+      for (int n = 0; n < NT; n += 2) {
+        uint32_t vh[4], vl[4];
+        const uint32_t off = (kk * 16 * LD + n * 8) * sizeof(bf16);
+        ldsm_x4_t(vh, vh_addr + off);
+        ldsm_x4_t(vl, vl_addr + off);
+        mma_bf16(o[n], pl, vh[0], vh[1]);
+        mma_bf16(o[n], ph, vl[0], vl[1]);
+        mma_bf16(o[n], ph, vh[0], vh[1]);
+        mma_bf16(o[n + 1], pl, vh[2], vh[3]);
+        mma_bf16(o[n + 1], ph, vl[2], vl[3]);
+        mma_bf16(o[n + 1], ph, vh[2], vh[3]);
+      }
+    }
+  }
+
+  tc_store(out + (long long)bh * S * hd, o, l, row0, t, S, hd);
+}
+
+// The tensor-core kernel of an element type: bf16 or f32.
+template <int KS, bool VEC>
+inline auto tc_kernel(const bf16*) { return flash_tc_kernel<KS, VEC>; }
+template <int KS, bool VEC>
+inline auto tc_kernel(const float*) { return flash_tc32_kernel<KS, VEC>; }
+
+template <typename T, int KS, bool VEC>
 cudaError_t tc_launch(const void* q, const void* k, const void* v, void* out,
                       int B, int H, int KV, int S, int hd, long long q_sb,
                       long long q_sh, long long q_ss, long long k_sb,
                       long long k_sh, long long k_ss, long long v_sb,
                       long long v_sh, long long v_ss, float scale, int causal,
                       int window, float softcap, cudaStream_t stream) {
-  const size_t smem = tc_smem_bytes(hd);
+  auto kernel = tc_kernel<KS, VEC>(static_cast<const T*>(nullptr));
+  const size_t smem = std::is_same<T, float>::value ? tc32_smem_bytes(hd)
+                                                    : tc_smem_bytes(hd);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_tc_kernel<KS, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(B * H, (S + kTcBQ - 1) / kTcBQ);
-  flash_tc_kernel<KS, VEC><<<grid, kTcThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<float*>(out), H, H / KV, S, hd,
+  kernel<<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<float*>(out), H, H / KV, S, hd,
       q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, scale, causal,
       window, softcap);
   return cudaGetLastError();
 }
 
+template <typename T>
 cudaError_t tc_dispatch(const void* q, const void* k, const void* v,
                         void* out, int B, int H, int KV, int S, int hd,
                         long long q_sb, long long q_sh, long long q_ss,
@@ -628,26 +976,29 @@ cudaError_t tc_dispatch(const void* q, const void* k, const void* v,
                         float scale, int causal, int window, float softcap,
                         cudaStream_t stream) {
   // cp.async needs 16-byte aligned rows: base pointers and every stride
+  constexpr long long E = 16 / sizeof(T);
   auto al = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
-  const bool vec = hd % 8 == 0 && al(q) && al(k) && al(v) &&
+  const bool vec = hd % E == 0 && al(q) && al(k) && al(v) &&
                    (q_sb | q_sh | q_ss | k_sb | k_sh | k_ss | v_sb | v_sh |
-                    v_ss) % 8 == 0;
+                    v_ss) % E == 0;
 #define FLASH_TC_LAUNCH(KS)                                                   \
-  return vec ? tc_launch<KS, true>(q, k, v, out, B, H, KV, S, hd, q_sb, q_sh, \
-                                   q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,  \
-                                   scale, causal, window, softcap, stream)    \
-             : tc_launch<KS, false>(q, k, v, out, B, H, KV, S, hd, q_sb,      \
-                                    q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, \
-                                    v_ss, scale, causal, window, softcap,     \
-                                    stream)
+  return vec ? tc_launch<T, KS, true>(q, k, v, out, B, H, KV, S, hd, q_sb,    \
+                                      q_sh, q_ss, k_sb, k_sh, k_ss, v_sb,     \
+                                      v_sh, v_ss, scale, causal, window,      \
+                                      softcap, stream)                        \
+             : tc_launch<T, KS, false>(q, k, v, out, B, H, KV, S, hd, q_sb,   \
+                                       q_sh, q_ss, k_sb, k_sh, k_ss, v_sb,    \
+                                       v_sh, v_ss, scale, causal, window,     \
+                                       softcap, stream)
   switch (tc_steps(hd)) {
     case 2: FLASH_TC_LAUNCH(2);
     case 4: FLASH_TC_LAUNCH(4);
     case 8: FLASH_TC_LAUNCH(8);
     case 16: FLASH_TC_LAUNCH(16);
-    case 18: FLASH_TC_LAUNCH(18);
+    case 18:  // past the f32 instance's plan (kTc32MaxHeadDim)
+      if constexpr (std::is_same<T, bf16>::value) FLASH_TC_LAUNCH(18);
   }
 #undef FLASH_TC_LAUNCH
   return cudaErrorInvalidValue;
@@ -655,12 +1006,13 @@ cudaError_t tc_dispatch(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// Which instance serves (dtype, hd): 1 the tensor-core instance, 0 the
-// CUDA-core instance, -1 none.  The one place the rule lives; mirrored by
-// uses_tensor_cores in kernels/flash_attention.py.
+// Which instance serves (dtype, hd): 2 the f32 tensor-core instance, 1 the
+// tensor-core instance, 0 the CUDA-core instance, -1 none.  The one place
+// the rule lives; mirrored by `instance` in kernels/flash_attention.py.
 extern "C" int flash_attention_instance(int dtype, int hd) {
   if (hd <= 0 || (dtype != 0 && dtype != 1)) return -1;
-  return dtype == 1 && hd <= kTcMaxHeadDim ? 1 : 0;
+  if (dtype == 0) return hd <= kTc32MaxHeadDim ? 2 : 0;
+  return hd <= kTcMaxHeadDim ? 1 : 0;
 }
 
 // dtype: 0 float32, 1 bfloat16.  Strides are in elements, for the batch,
@@ -677,10 +1029,14 @@ extern "C" int flash_attention_launch(
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int instance = flash_attention_instance(dtype, hd);
+  if (instance == 2)
+    return tc_dispatch<float>(q, k, v, out, B, H, KV, S, hd, q_sb, q_sh, q_ss,
+                              k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, scale,
+                              causal, window, softcap, st);
   if (instance == 1)
-    return tc_dispatch(q, k, v, out, B, H, KV, S, hd, q_sb, q_sh, q_ss, k_sb,
-                       k_sh, k_ss, v_sb, v_sh, v_ss, scale, causal, window,
-                       softcap, st);
+    return tc_dispatch<bf16>(q, k, v, out, B, H, KV, S, hd, q_sb, q_sh, q_ss,
+                             k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, scale,
+                             causal, window, softcap, st);
   if (instance != 0) return cudaErrorInvalidValue;
   if (dtype == 0)
     return dispatch<float>(q, k, v, out, B, H, KV, S, hd, q_sb, q_sh, q_ss,

@@ -16,14 +16,17 @@ only; ``ops.attention`` sends CPU tensors to the plain version.  Inputs
 may be strided views (a (B, S, H, hd) projection transposed to
 (B, H, S, hd)) as long as the head dimension is contiguous.
 
-The source holds two instances of the function.  bfloat16 inputs with
+The source holds three instances of the function.  bfloat16 inputs with
 ``hd <= TC_MAX_HEAD_DIM`` go to the tensor-core instance (``TC_*`` and
-``tc_*`` below describe it); float32 inputs and wider bfloat16 go to the
-CUDA-core instance (``BQ``, ``BK``, ``smem_stride``, ``smem_bytes``).
-The rule is the C entry ``flash_attention_instance``;
-``uses_tensor_cores`` mirrors it (``chip_smoke.py`` holds the two
-together on the card).  ``flash_attention.launches`` counts every launch
-and ``flash_attention.instance_launches`` counts them per instance.
+``tc_*`` below describe it); float32 inputs with ``hd <=
+TC32_MAX_HEAD_DIM`` go to the f32 tensor-core instance (split TF32 for
+Q.K^T, split bf16 for P.V; its tiles are ``TC_BQ`` and ``TC_BK``, its
+layout ``tc32_*``); wider inputs of either dtype go to the CUDA-core
+instance (``BQ``, ``BK``, ``smem_stride``, ``smem_bytes``).  The rule is
+the C entry ``flash_attention_instance``; ``instance`` mirrors it
+(``chip_smoke.py`` holds the two together on the card).
+``flash_attention.launches`` counts every launch and
+``flash_attention.instance_launches`` counts them per instance.
 """
 
 from __future__ import annotations
@@ -55,8 +58,13 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: tile, and the widest head dimension of its register plan
 TC_BQ, TC_BK = 64, 32
 TC_MAX_HEAD_DIM = 288
+#: widest head dimension of the f32 tensor-core instance's register plan
+TC32_MAX_HEAD_DIM = 256
 #: instance names, as counted in ``flash_attention.instance_launches``
-TENSOR_CORE, CUDA_CORE = "tensor_core", "cuda_core"
+TENSOR_CORE, TENSOR_CORE_F32, CUDA_CORE = ("tensor_core", "tensor_core_f32",
+                                           "cuda_core")
+#: instance names by the C rule's codes (``flash_attention_instance``)
+INSTANCES = {0: CUDA_CORE, 1: TENSOR_CORE, 2: TENSOR_CORE_F32}
 
 
 def smem_stride(hd: int, elem_bytes: int) -> int:
@@ -76,11 +84,16 @@ def smem_bytes(hd: int, elem_bytes: int) -> int:
         + BQ * (BK + 1) * 4
 
 
-def uses_tensor_cores(dtype: torch.dtype, hd: int) -> bool:
-    """Whether (dtype, hd) goes to the tensor-core instance: bfloat16 with
-    hd within its register plan.  Mirrors ``flash_attention_instance`` in
-    the CUDA source."""
-    return dtype == torch.bfloat16 and 0 < hd <= TC_MAX_HEAD_DIM
+def instance(dtype: torch.dtype, hd: int) -> Optional[str]:
+    """The instance that serves (dtype, hd), None where none does: bfloat16
+    within ``TC_MAX_HEAD_DIM`` on the tensor cores, float32 within
+    ``TC32_MAX_HEAD_DIM`` on the f32 tensor-core instance, wider on the
+    CUDA cores.  Mirrors ``flash_attention_instance`` in the CUDA source."""
+    if hd <= 0 or dtype not in _DTYPES:
+        return None
+    if dtype == torch.float32:
+        return TENSOR_CORE_F32 if hd <= TC32_MAX_HEAD_DIM else CUDA_CORE
+    return TENSOR_CORE if hd <= TC_MAX_HEAD_DIM else CUDA_CORE
 
 
 def tc_steps(hd: int) -> int:
@@ -106,6 +119,20 @@ def tc_smem_bytes(hd: int) -> int:
     """Tensor-core instance's dynamic shared memory: one Q, one K and one V
     tile in bf16."""
     return (TC_BQ + 2 * TC_BK) * tc_smem_stride(hd) * 2
+
+
+def tc32_smem_stride(hd: int) -> int:
+    """f32 tensor-core instance's row stride for Q, K and V's f32 tile
+    (floats): the padded width ``16 * tc_steps(hd)`` in 16-byte chunks
+    plus one, an odd count, for ``ldmatrix`` as in ``tc_smem_stride``."""
+    return (4 * tc_steps(hd) + 1) * 4
+
+
+def tc32_smem_bytes(hd: int) -> int:
+    """f32 tensor-core instance's dynamic shared memory: one Q, one K and
+    one V tile in f32 and V's bf16 hi and lo planes."""
+    return (TC_BQ + 2 * TC_BK) * tc32_smem_stride(hd) * 4 \
+        + 2 * TC_BK * tc_smem_stride(hd) * 2
 
 
 def _check(t: torch.Tensor, name: str) -> None:
@@ -139,17 +166,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"window must be >= 1, got {window}")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"softcap must be > 0, got {softcap}")
-    tensor_cores = uses_tensor_cores(q.dtype, hd)
-    if tensor_cores:
-        if -(-S // TC_BQ) > 65_535:
-            raise ValueError(f"S = {S} exceeds the grid's y extent")
-    else:
+    inst = instance(q.dtype, hd)
+    if inst == CUDA_CORE:
         elem = q.element_size()
         if hd > MAX_HEAD_DIM or smem_bytes(hd, elem) > MAX_SMEM_BYTES:
             raise ValueError(f"head_dim {hd} in {q.dtype} exceeds the "
                              f"kernel's shared memory")
         if B * H > 65_535:
             raise ValueError(f"B*H = {B * H} exceeds the grid's y extent")
+    else:
+        smem = tc_smem_bytes(hd) if inst == TENSOR_CORE else tc32_smem_bytes(hd)
+        if smem > MAX_SMEM_BYTES:
+            raise ValueError(f"head_dim {hd} in {q.dtype} exceeds the "
+                             f"kernel's shared memory")
+        if -(-S // TC_BQ) > 65_535:
+            raise ValueError(f"S = {S} exceeds the grid's y extent")
     dev = q.device
     out = torch.empty((B, H, S, hd), dtype=torch.float32, device=dev)
     if out.numel() == 0:
@@ -165,10 +196,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 0.0 if softcap is None else float(softcap), stream)
     _build.check(rc, "flash_attention")
     flash_attention.launches += 1
-    flash_attention.instance_launches[
-        TENSOR_CORE if tensor_cores else CUDA_CORE] += 1
+    flash_attention.instance_launches[inst] += 1
     return out
 
 
 flash_attention.launches = 0
-flash_attention.instance_launches = {TENSOR_CORE: 0, CUDA_CORE: 0}
+flash_attention.instance_launches = dict.fromkeys(INSTANCES.values(), 0)

@@ -44,6 +44,7 @@ NVLINK_LINK_BW = 25e9        # B/s / link / direction (NVLink 4)
 NVLINK_LINKS = 18            # links per H100 SXM
 PEAK_INT8_OPS = 1979e12      # int8 tensor cores, dense
 PEAK_F32_FLOPS = 67e12       # f32 on the CUDA cores (no TF32)
+PEAK_TF32_FLOPS = 494.7e12   # tf32 tensor cores, dense
 
 ART_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                        "artifacts", "dryrun_torch")

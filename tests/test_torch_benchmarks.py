@@ -28,7 +28,9 @@ reference's (``benchmarks``):
 * ``kernel_bench.main`` with ``device="cpu"`` at the reference's five
   shapes (one timed call each: about 6 s on the host) writes the
   reference's keys with the plain versions' times and no card field;
-  asked for the card where there is none, it raises.
+  asked for the card where there is none, it raises;
+* the kernel bench bounds its two f32 flash cases by one pass at the TF32
+  tensor-core peak or by their bytes (10.02 and 69.47 µs).
 """
 
 import importlib
@@ -322,6 +324,27 @@ def test_kernel_bench_on_the_host(tmp_path, monkeypatch):
     assert written == out
     for rec in out.values():
         assert set(rec) == {"plain_us"} and rec["plain_us"] > 0
+
+
+def test_kernel_bench_f32_flash_bounds():
+    """Both f32 flash cases run on the f32 tensor-core instance (hd 128),
+    so their bound is one pass at the TF32 peak or the bytes: 10.02 µs by
+    bytes at (2, 8, 1024, 128) and 69.47 µs by operations at (1, 8, 4096,
+    128), as ``kernel_bench.bound`` gives them from the case shapes."""
+    from benchmarks_torch import kernel_bench as kb
+    from repro_torch.launch.roofline import PEAK_TF32_FLOPS
+    want = {(2, 8, 1024, 128): (10.02, "bytes", "HBM_BW"),
+            (1, 8, 4096, 128): (69.47, "operations", "PEAK_TF32_FLOPS")}
+    assert set(kb.FLASH_SHAPES) == set(want)
+    for (B, H, S, hd), (us, by, const) in want.items():
+        pairs = B * H * S * (S + 1) / 2
+        got = kb.bound(4.0 * 4 * B * H * S * hd, 4.0 * hd * pairs,
+                       PEAK_TF32_FLOPS, "PEAK_TF32_FLOPS")
+        assert (round(got[0], 2), got[1]) == (us, by)
+        assert kb.flash_bound(B, H, S, hd) == (got[0], by, const)
+    # a head wider than the f32 tensor-core instance's plan is bound at the
+    # CUDA cores' f32 peak
+    assert kb.flash_bound(1, 1, 1000, 320)[2] == "PEAK_F32_FLOPS"
 
 
 def test_kernel_bench_needs_the_card(monkeypatch):

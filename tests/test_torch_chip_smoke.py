@@ -510,8 +510,13 @@ def test_dryrun_ratios_against_the_fixture():
 def test_kernel_bench_check_fails_when_it_should():
     good = {name: {"kernel_us": 1.0, "matches_plain": True, "launches": 3}
             for name in chip_smoke.BENCH_CASES}
+    for name in good:
+        if name.startswith("flash."):        # f32 at hd 128
+            good[name]["instances"] = {"tensor_core_f32": 3}
     assert chip_smoke.check_kernel_bench(good) is good
-    for bad in ({"launches": 0}, {"matches_plain": False}):
+    for bad in ({"launches": 0}, {"matches_plain": False},
+                {"instances": {"cuda_core": 3}},
+                {"instances": {"tensor_core_f32": 2, "cuda_core": 1}}):
         case = dict(good, **{"flash.2x8x1024x128": dict(
             good["flash.2x8x1024x128"], **bad)})
         with pytest.raises(AssertionError, match="flash.2x8x1024x128"):

@@ -6,9 +6,12 @@ dimension (288); a Python model of the CUDA kernel's tiling (key-tile
 skipping, -1e30 masking, online softmax) against the plain version; a
 numpy model of the tensor-core instance's arithmetic (bf16 products, P
 split into two bf16 terms, f32 sums, its tiles) against the plain version,
-and why P is split; the shared-memory layouts and the dispatch rule of the
-two instances; and the wrapper's checks.  The CUDA kernel itself runs only
-on the card, where ``chip_smoke.py`` holds it against the plain version.
+and why P is split; a numpy model of the f32 tensor-core instance's (Q.K^T
+as three TF32 products, P.V as three bf16 products) against the plain
+version and the reference's, and why both are split; the shared-memory
+layouts and the dispatch rule of the three instances; and the wrapper's
+checks.  The CUDA kernel itself runs only on the card, where
+``chip_smoke.py`` holds it against the plain version.
 
 Tolerances are ``tests/test_kernels.py``'s: 2e-4 for float32 inputs (the
 same math summed in another order), 2e-2 for bfloat16 inputs where one
@@ -248,13 +251,34 @@ def _bf16(x):
     return b.astype(np.uint32).view(np.float32)
 
 
-def _tc_model(q, k, v, causal, window, softcap, split=True):
-    """The tensor-core instance's loop in float32 numpy on bf16-valued
-    inputs: TC_BQ-row query tiles, TC_BK-row key tiles from ``k_begin``
-    (rounded down to a tile) to ``k_end``, logits as f32 sums of exact
-    bf16 products, masked logits -1e30, online softmax in f32, and P.V as
-    hi.V + lo.V with hi = bf16(p), lo = bf16(p - hi) (only hi.V when not
-    ``split``), denominator clamped at 1e-30."""
+def _tf32(x):
+    """float32 -> the nearest TF32 value (10 mantissa bits, ties away from
+    zero: ``cvt.rna.tf32.f32``), as float32."""
+    b = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    b = (b + 0x1000) & 0xFFFFE000
+    return b.astype(np.uint32).view(np.float32)
+
+
+def _split(x, rnd):
+    """x -> (hi, lo) with hi = rnd(x), lo = rnd(x - hi)."""
+    hi = rnd(x)
+    return hi, rnd(x - hi)
+
+
+def _split3(a, b, rnd):
+    """a @ b as three products of split terms in f32: lo.hi + hi.lo + hi.hi
+    (lo.lo dropped)."""
+    ah, al = _split(a, rnd)
+    bh, bl = _split(b, rnd)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _tc_loop(q, k, v, causal, window, softcap, logits, pv):
+    """The tensor-core instances' loop in float32 numpy: TC_BQ-row query
+    tiles, TC_BK-row key tiles from ``k_begin`` (rounded down to a tile) to
+    ``k_end``, logits ``logits(q_tile, k_tile)``, masked logits -1e30,
+    online softmax in f32, ``pv(p, v_tile)`` added to the rescaled
+    accumulator, denominator clamped at 1e-30."""
     B, H, S, hd = q.shape
     group = H // k.shape[1]
     win = fa.NO_WINDOW if window is None else window
@@ -276,7 +300,7 @@ def _tc_model(q, k, v, causal, window, softcap, split=True):
                     pad = (cols < S)[:, None]
                     kt = np.where(pad, kb[np.minimum(cols, S - 1)], 0).astype(np.float32)
                     vt = np.where(pad, vb[np.minimum(cols, S - 1)], 0).astype(np.float32)
-                    s = (q[b, h, rows] @ kt.T) * scale
+                    s = logits(q[b, h, rows], kt.T) * scale
                     if softcap is not None:
                         sc = np.float32(softcap)
                         s = np.tanh(s / sc) * sc
@@ -289,14 +313,40 @@ def _tc_model(q, k, v, causal, window, softcap, split=True):
                     p = np.exp(s - m_new[:, None])
                     corr = np.exp(m - m_new)
                     l = l * corr + p.sum(axis=1, dtype=np.float32)
-                    hi = _bf16(p)
-                    pv = hi @ vt
-                    if split:
-                        pv = pv + _bf16(p - hi) @ vt
-                    acc = acc * corr[:, None] + pv
+                    acc = acc * corr[:, None] + pv(p, vt)
                     m = m_new
                 out[b, h, rows] = acc / np.maximum(l, np.float32(1e-30))[:, None]
     return out
+
+
+def _tc_model(q, k, v, causal, window, softcap, split=True):
+    """The tensor-core instance on bf16-valued inputs: logits as f32 sums
+    of exact bf16 products, and P.V as hi.V + lo.V with hi = bf16(p),
+    lo = bf16(p - hi) (only hi.V when not ``split``)."""
+    def pv(p, vt):
+        hi = _bf16(p)
+        return hi @ vt + _bf16(p - hi) @ vt if split else hi @ vt
+
+    return _tc_loop(q, k, v, causal, window, softcap, np.matmul, pv)
+
+
+#: the f32 tensor-core instance's arithmetic and the alternatives it was
+#: chosen over: logits and P.V each as one product of rounded terms or as
+#: three products of split terms
+TC32_LOGITS = {"tf32x3": lambda a, b: _split3(a, b, _tf32),
+               "bf16x3": lambda a, b: _split3(a, b, _bf16),
+               "tf32": lambda a, b: _tf32(a) @ _tf32(b)}
+TC32_VALUES = {"bf16x3": lambda p, vt: _split3(p, vt, _bf16),
+               "tf32": lambda p, vt: _tf32(p) @ _tf32(vt)}
+
+
+def _tc32_model(q, k, v, causal, window, softcap, logits="tf32x3",
+                values="bf16x3"):
+    """The f32 tensor-core instance on f32 inputs: Q.K^T as three TF32
+    products (lo.hi + hi.lo + hi.hi of hi = tf32(x), lo = tf32(x - hi)),
+    P.V as three bf16 products of P and V split the same way."""
+    return _tc_loop(q, k, v, causal, window, softcap, TC32_LOGITS[logits],
+                    TC32_VALUES[values])
 
 
 def _bf16_qkv(shape, seed, kv_heads, scale=1.0):
@@ -334,6 +384,60 @@ def test_split_probabilities_are_needed():
     assert split <= F32_TOL / 10, split
 
 
+@pytest.mark.parametrize("shape,kv,causal,window,softcap,scale", [
+    ((1, 4, 150, 256), 1, True, 64, None, 1.0),    # the widest plan, MQA
+    ((1, 4, 130, 256), 1, True, None, None, 1.0),  # the same, global
+    ((1, 3, 160, 64), 3, True, None, None, 1.0),
+    ((2, 3, 200, 256), 1, True, 64, None, 1.0),    # hd 256 with a window
+    ((2, 3, 100, 64), 3, False, None, None, 1.0),  # non-causal, pads
+    ((1, 2, 300, 128), 2, True, None, 50.0, 3.0),  # logits ~9, softcap
+    ((2, 2, 100, 16), 1, False, 32, 50.0, 3.0),
+    ((1, 1, 1, 16), 1, True, None, None, 1.0),     # S = 1
+])
+def test_f32_tensor_core_model(shape, kv, causal, window, softcap, scale):
+    """The f32 tensor-core instance's arithmetic and tiles on f32 inputs
+    within the f32 tolerance of the plain version and of the reference's,
+    at phase 6's f32 shapes of ``chip_smoke.py`` cut in S (hd 256, the
+    widest the instance takes, where phase 6 also has hd 288)."""
+    q, k, v = _qkv(shape, 31, scale, kv_heads=kv)
+    got = _tc32_model(q, k, v, causal, window, softcap)
+    want = _plain_f32(q, k, v, causal=causal, window=window, softcap=softcap)
+    np.testing.assert_allclose(got, want, rtol=F32_TOL, atol=F32_TOL)
+    rep = shape[1] // kv
+    jq, jk, jv = (jnp.asarray(a) for a in (q, np.repeat(k, rep, axis=1),
+                                           np.repeat(v, rep, axis=1)))
+    jwant = jref.flash_attention_ref(jq, jk, jv, causal=causal, window=window,
+                                     softcap=softcap)
+    _close(got, jwant, F32_TOL)
+
+
+def test_split_tf32_logits_are_chosen():
+    """Why the f32 instance splits both products.  One TF32 pass (10-bit
+    mantissas for Q, K, P and V) misses the 2e-4 check against the f32
+    plain version by 40x at logits of ~9 (input scale 3, softcap 50, hd
+    128: ``chip_smoke.py``'s f32 softcap case) and 4x at input scale 1.
+    Three bf16 products for Q.K^T (split bf16 P.V beside them) hold it
+    here, but at 1.2-1.8e-4 over eight seeds: under 1.7x of margin.  Three
+    TF32 products hold it at 2-3e-5."""
+    q, k, v = _qkv((1, 2, 1000, 128), 31, 3.0, kv_heads=2)
+    want = _plain_f32(q, k, v, causal=True, softcap=50.0)
+
+    def err(logits, values):
+        got = _tc32_model(q, k, v, True, None, 50.0, logits, values)
+        return np.abs(got - want).max()
+
+    one_pass, bf16x3, chosen = (err("tf32", "tf32"), err("bf16x3", "bf16x3"),
+                                err("tf32x3", "bf16x3"))
+    assert one_pass > 20 * F32_TOL, one_pass
+    assert bf16x3 > F32_TOL / 2 and bf16x3 > 3 * chosen, (bf16x3, chosen)
+    assert chosen <= F32_TOL / 4, chosen
+    q, k, v = _qkv((1, 2, 256, 128), 31, 1.0, kv_heads=2)
+    want = _plain_f32(q, k, v, causal=True)
+    one_pass = np.abs(_tc32_model(q, k, v, True, None, None, "tf32", "tf32")
+                      - want).max()
+    assert one_pass > F32_TOL, one_pass
+
+
 @pytest.mark.parametrize("hd", [8, 16, 17, 32, 64, 100, 128, 256, 288])
 def test_tc_shared_memory_layout(hd):
     """Rows of the tensor-core instance are 16-byte aligned for ldmatrix,
@@ -353,6 +457,31 @@ def test_tc_shared_memory_layout(hd):
     assert fa.tc_smem_bytes(288) <= fa.MAX_SMEM_BYTES
 
 
+@pytest.mark.parametrize("hd", [8, 16, 17, 32, 64, 100, 128, 200, 255, 256])
+def test_tc32_shared_memory_layout(hd):
+    """The f32 tensor-core instance's f32 rows (Q, K, V's staged tile) are
+    16-byte aligned for ldmatrix and an odd number of 16-byte chunks long,
+    so the 8 rows of one ldmatrix phase fall in 8 distinct 16-byte bank
+    groups at every chunk column; V's bf16 planes take the tensor-core
+    instance's layout; the widest instantiation fits a block's shared
+    memory.  The Python mirrors are the CUDA source's formulas."""
+    stride = fa.tc32_smem_stride(hd)
+    width = 16 * fa.tc_steps(hd)
+    assert width >= hd and stride >= width
+    assert (stride * 4) % 16 == 0
+    chunks = stride * 4 // 16
+    assert chunks % 2 == 1
+    for col_chunk in range(width // 4):
+        groups = {(r * chunks + col_chunk) % 8 for r in range(8)}
+        assert len(groups) == 8, (hd, col_chunk)
+    assert fa.tc32_smem_bytes(hd) == ((fa.TC_BQ + 2 * fa.TC_BK) * stride * 4
+                                      + 2 * fa.TC_BK * fa.tc_smem_stride(hd) * 2)
+    assert fa.tc32_smem_bytes(fa.TC32_MAX_HEAD_DIM) <= fa.MAX_SMEM_BYTES
+    src = CU_SOURCE.read_text()
+    assert "return (4 * tc_steps(hd) + 1) * 4;" in src
+    assert "(size_t)2 * kTcBK * tc_smem_stride(hd) * sizeof(bf16);" in src
+
+
 def _cu_int(name):
     m = re.search(rf"constexpr int {name} = (\d+);", CU_SOURCE.read_text())
     assert m, name
@@ -360,22 +489,32 @@ def _cu_int(name):
 
 
 def test_dispatch_rule_and_mirror():
-    """bf16 within the register plan goes to the tensor cores, f32 and
-    wider bf16 to the CUDA cores; the Python constants mirror the CUDA
-    source's, and the choice depends on dtype and hd only: no ``try`` in
-    the wrapper or in ``ops`` gives way to another instance or the plain
-    version."""
+    """bf16 within the register plan goes to the tensor cores, f32 within
+    its plan to the f32 tensor-core instance, wider heads of either dtype
+    to the CUDA cores; the Python constants mirror the CUDA source's, and
+    the choice depends on dtype and hd only: no ``try`` in the wrapper or
+    in ``ops`` gives way to another instance or the plain version."""
     for hd in (64, 128, 288, 16, 100):
-        assert fa.uses_tensor_cores(torch.bfloat16, hd)
-    for hd in (16, 64, 128, 288, 512):
-        assert not fa.uses_tensor_cores(torch.float32, hd)
+        assert fa.instance(torch.bfloat16, hd) == fa.TENSOR_CORE
+    for hd in (16, 64, 100, 128, 200, 256):
+        assert fa.instance(torch.float32, hd) == fa.TENSOR_CORE_F32
     for hd in (289, 320, 512):
-        assert not fa.uses_tensor_cores(torch.bfloat16, hd)
-    assert not fa.uses_tensor_cores(torch.float16, 64)
+        assert fa.instance(torch.bfloat16, hd) == fa.CUDA_CORE
+    for hd in (257, 288, 320, 512):
+        assert fa.instance(torch.float32, hd) == fa.CUDA_CORE
+    assert fa.instance(torch.float16, 64) is None
+    assert fa.instance(torch.float32, 0) is None
     assert _cu_int("kTcMaxHeadDim") == fa.TC_MAX_HEAD_DIM
+    assert _cu_int("kTc32MaxHeadDim") == fa.TC32_MAX_HEAD_DIM
     assert (_cu_int("kTcBQ"), _cu_int("kTcBK")) == (fa.TC_BQ, fa.TC_BK)
     assert (_cu_int("kBQ"), _cu_int("kBK")) == (fa.BQ, fa.BK)
     src = CU_SOURCE.read_text()
+    rule = src[src.index('extern "C" int flash_attention_instance'):]
+    rule = rule[:rule.index("\n}\n")]
+    assert "if (dtype == 0) return hd <= kTc32MaxHeadDim ? 2 : 0;" in rule
+    assert "return hd <= kTcMaxHeadDim ? 1 : 0;" in rule
+    assert fa.INSTANCES == {0: fa.CUDA_CORE, 1: fa.TENSOR_CORE,
+                            2: fa.TENSOR_CORE_F32}
     body = src[src.index("inline int tc_steps(int hd)"):]
     body = body[:body.index("}")]
     steps = [int(x) for x in re.findall(r"\? (\d+)", body)]
@@ -386,5 +525,5 @@ def test_dispatch_rule_and_mirror():
     for mod in (fa, ops):
         tree = ast.parse(Path(mod.__file__).read_text())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), mod
-    assert set(fa.flash_attention.instance_launches) == {fa.TENSOR_CORE,
-                                                         fa.CUDA_CORE}
+    assert set(fa.flash_attention.instance_launches) == {
+        fa.TENSOR_CORE, fa.TENSOR_CORE_F32, fa.CUDA_CORE}
