@@ -46,11 +46,13 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
    the conv's cp.async staging and 1 (the stem) on its gather staging,
    and the logits must match the same executor run on CPU copies (the
    plain path); then ResNet-8 once the same way;
-5. timings with CUDA events at the path's shapes (kernel launched back to
-   back from the host, the same launches replayed from a CUDA graph,
-   wrapper, plain version, bound), end-to-end frames/s and request
-   latency, and the device's busy share over one request from
-   ``torch.profiler``;
+5. timings with CUDA events at the path's shapes, by the kernel bench's
+   own ``time_case`` over ``kernel_bench.cnn_cases`` (each case held to
+   its plain version and its rule's instance; the raw launch back to back
+   from the host, L2-cold, replayed from a CUDA graph; the wrapper, the
+   plain version, the bound), summed over a request; end-to-end frames/s
+   and request latency, and the device's busy share over one request
+   from ``torch.profiler``;
 5b. YOLOv8n at full width and 640x640 in float (parameters from a CPU
    generator seeded 0, TF32 off): 2 frames on the card against CPU copies
    (the plain path), raw and decoded, max |d| <= 1e-3 of max |raw| on the
@@ -82,9 +84,10 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
    26 per prefill, all on the tensor-core instance; prefill and decode
    rates, time to first token and decode-step latency;
 9. the flash kernel's time per prefill of (4, 2048) summed over the 26
-   layers at their windows, beside its bound, its plain version and
-   ``scaled_dot_product_attention`` (the yardstick only), and the device
-   busy share over one prefill and one decode step;
+   layers at their windows (``kernel_bench.time_case`` over
+   ``kernel_bench.flash_cases``, as phase 5), beside its bound, its plain
+   version and ``scaled_dot_product_attention`` (the yardstick only), and
+   the device busy share over one prefill and one decode step;
 10. (T1) one training step of gemma3-1b at full width cut to 2 layers
    (one 512-window, one global), bf16 weights from a CPU generator seeded
    0, one batch of 1 x 256 tokens from the data pipeline, on the card
@@ -122,7 +125,8 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
    time to first token, step latency, peak memory; one prefill and one
    decode step under ``torch.profiler`` by kernel class (GEMMs, flash,
    the MoE dispatch's gather/scatter/sort/scan glue); the flash kernel's
-   time per prefill against its bound, its plain version and SDPA;
+   time per prefill against its bound, its plain version and SDPA (as
+   phase 9);
 15. the other families at full width: falcon-mamba-7b (64 layers) and
    recurrentgemma-9b (38 layers; 4 requests of 2,048-3,072 tokens, so
    its 2,048 window masks) through ``Server`` with 0 and 12 flash
@@ -171,8 +175,18 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
    and every flash launch on the instance the rule names for f32 at hd
    128, the f32 tensor-core instance),
    each case equal to its plain version (``torch.equal``; max |d| <=
-   2e-4); the table of kernel, plain, library and bound times is printed
-   with the card's name and power limit; then ``python -m
+   2e-4); then the port's own cases at the served paths' shapes
+   (``kernel_bench.served_cases``: bf16 flash at granite-moe's,
+   recurrentgemma's and gemma3-1b's prefill layers, every distinct
+   ResNet-18-CIFAR conv at batch 256 and its fc), each equal to its plain
+   version (``torch.equal``; phase 6's bf16 check), launched, and every
+   launch on the instance the rule names (the INT8 cases' timed raw
+   launch too), each with warm, L2-cold, plain, library and bound times
+   (INT8: CUDA-graph and wrapper times too); the table of kernel, plain,
+   library and bound times is printed with the card's name and power
+   limit, and the two path sums (launches x µs over ResNet-18's request
+   and granite's prefill) beside phases 5's and 14's sums of the same
+   cases, timed in this process by the same ``time_case``; then ``python -m
    benchmarks_torch.run --frames 16`` with the beyond-paper suites
    (quality, elastic, multi_tenant, replication, serving, sensitivity,
    partition) on the host must exit 0 and write their JSON, and the
@@ -192,7 +206,18 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
    its own choice), the sequence-split decode and gemma2-27b's batch-1
    and batch-2 decodes, each within the tests' ``SHARD_RTOL`` of the
    unsharded port and gathering no weight where the reference keeps it
-   split; an exception in any rank fails it.
+   split; an exception in any rank fails it;
+22. the run-to-run spread of the two served paths: ``python -m
+   benchmarks_torch.spread`` in a subprocess, 12 interleaved rounds of 8
+   ResNet-18 INT8 requests of 256 frames and one granite-moe prefill of 4
+   x 2,048 tokens with 32 decode steps (built as phases 4 and 14 build
+   them; granite's tokens must be equal in every round), host probes (a
+   Python loop, 1,000 CUDA enqueues) and an ``nvidia-smi`` sample of
+   clocks, power and temperature each round, then one round traced by
+   ``torch.profiler``; it must exit 0 and its table (n, median,
+   quartiles, IQR/median, the highest percentile with 10 samples beyond
+   it, the round medians' min/max, rank correlations with the probes, and
+   each call's device time from the trace and host share) is logged.
 
 Detail goes to ``chiprun_out/chip_smoke.json``.  The line before the last
 is ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
@@ -217,7 +242,9 @@ sys.path.insert(0, str(ROOT / "src"))
 # kept in one place: the port's roofline.
 from repro_torch.launch.roofline import (  # noqa: E402
     HBM_BW as HBM_BYTES_PER_S, PEAK_F32_FLOPS as F32_FLOPS_PER_S,
-    PEAK_FLOPS as BF16_FLOPS_PER_S, PEAK_INT8_OPS as INT8_OPS_PER_S)
+    PEAK_FLOPS as BF16_FLOPS_PER_S)
+# the kernel bench: its served cases, timed here at the paths' shapes
+from benchmarks_torch import kernel_bench as kb  # noqa: E402
 
 BATCH = 256
 REQUESTS = 8
@@ -226,13 +253,6 @@ LOGIT_RTOL = 1e-4      # max |card - cpu| <= LOGIT_RTOL * max |logits|
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True, timeout=60).stdout.strip().splitlines()[0]
 
 
 def ptxas_report(text: str) -> dict:
@@ -258,39 +278,6 @@ def ptxas_report(text: str) -> dict:
         if m:
             out[fn]["registers"] = int(m.group(1))
     return out
-
-
-def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn()`` over ``iters`` back-to-back calls."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def bound_ms(n_bytes: float, n_ops: float):
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / INT8_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def graph_time_ms(fn, launches: int = 20) -> float:
-    """Device time of one ``fn(stream)`` (a launch on the CUDA stream handle
-    it is given) from a CUDA graph of ``launches`` calls: no host gaps."""
-    import torch
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        st = torch.cuda.current_stream().cuda_stream
-        for _ in range(launches):
-            fn(st)
-    return cuda_time_ms(g.replay, 5) / launches
 
 
 def int8_ptxas(libs, path_instances):
@@ -407,23 +394,6 @@ def grad_guard_checks(dev):
     if (imc_conv2d.launches, imc_mvm.launches,
             flash_attention.launches) != before:
         raise AssertionError("grad guard: a kernel launched")
-
-
-def conv_shapes(g, batch):
-    """(B, H, W, Cin, Cout, k, stride, padding) of every conv node of ``g``,
-    in topological order (the input map is the output map times the
-    stride: every ResNet input side is a multiple of it)."""
-    out = []
-    for nid in g.topo_order():
-        n = g.nodes[nid]
-        if n.kind.value != "conv":
-            continue
-        m = n.meta
-        k, s = m["k"], m["stride"]
-        ho, wo = m["out_hw"]
-        out.append((batch, ho * s, wo * s, m["cin_kk"] // (k * k), m["cout"],
-                    k, s, m["padding"]))
-    return out
 
 
 def to_device(tree, dev):
@@ -830,8 +800,6 @@ def yolo_serve(params, dev, hw, n_requests, batch, sync):
 # LM serving path (gemma3-1b) and its flash-attention kernel
 # ---------------------------------------------------------------------------
 
-FLASH_F32_TOL = 2e-4   # f32 inputs, and bf16 inputs against the f32 upcast
-FLASH_BF16_TOL = 2e-2  # bf16 inputs against the plain version in bf16
 # Card against CPU at full width: both run the port in bf16, but the card's
 # kernel keeps the logits and probabilities in f32 where the CPU's plain
 # version rounds the logits to bf16, and cuBLAS and the CPU sum the bf16
@@ -868,8 +836,7 @@ def flash_check(q, k, v, causal, window, softcap, label):
     instance that ran (by its launch count) must be the one the dispatch
     rule names."""
     import torch
-    from repro_torch.kernels import ref
-    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_attention as fa, ref
     flash_attention = fa.flash_attention
     before = dict(flash_attention.instance_launches)
     got = flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
@@ -880,24 +847,10 @@ def flash_check(q, k, v, causal, window, softcap, label):
     if ran != [want_inst]:
         raise AssertionError(f"flash_attention {label}: ran {ran}, the rule "
                              f"names {want_inst}")
-    f32 = [t.float() for t in (q, k, v)]
-    want = ref.flash_attention_ref(*f32, causal=causal, window=window,
-                                   softcap=softcap)
-    if got.shape != want.shape or not torch.isfinite(got).all():
-        raise AssertionError(f"flash_attention {label}: bad output")
-    err = (got - want).abs().max().item()
-    if err > FLASH_F32_TOL:
-        raise AssertionError(f"flash_attention {label}: max |d| {err:.3e} > "
-                             f"{FLASH_F32_TOL} against the f32 plain version")
+    err, err16 = ref.check_flash(got, q, k, v, causal, window, softcap, label)
     line = (f"check flash_attention {label} [{ran[0]}]: max |d| {err:.2e} "
             f"(f32 plain)")
-    if q.dtype == torch.bfloat16:
-        want16 = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                         softcap=softcap)
-        err16 = (got - want16).abs().max().item()
-        if err16 > FLASH_BF16_TOL:
-            raise AssertionError(f"flash_attention {label}: max |d| {err16:.3e}"
-                                 f" > {FLASH_BF16_TOL} against the bf16 plain")
+    if err16 is not None:
         line += f", {err16:.2e} (bf16 plain)"
     log(line)
     return err
@@ -1191,68 +1144,48 @@ def lm_serve(cfg, dev, n_requests, lens, max_new, max_batch, sync):
     return server, reqs, rec
 
 
+def log_port_cases(cases, recs, total, label):
+    """Logs each port case of one path (``kernel_bench.time_path``'s
+    records) and their sum (µs)."""
+    log(f"  {'case':<58s}" + "".join(f"{f[:-3]:>10s}"
+                                     for f in kb.SUM_FIELDS)
+        + "  x path, bound by, instance, max |d|, library")
+    for case in cases:
+        rec = recs[case.key]
+        steps = f", {rec['tc_steps']} steps" if "tc_steps" in rec else ""
+        log(f"  {kb.port_row(case.key, rec)}  x{case.path_launches}, "
+            f"{rec['bound']}, {rec['instances']}{steps}, "
+            f"{rec['max_abs_err']:.2e}, {rec['library']}")
+    log(f"  {kb.port_row(label, total)}  {total['path_launches']} launches, "
+        f"{total['bound']}")
+
+
+def path_ms(total) -> dict:
+    """A path sum's kernel, plain, library and bound times in ms, and what
+    bounds it, for the ``kernels`` line."""
+    return {"ms": total["kernel_us"] / 1e3,
+            "plain_ms": total["plain_us"] / 1e3,
+            "library_ms": (None if total.get("library_us") is None
+                           else total["library_us"] / 1e3),
+            "bound_ms": total["bound_us"] / 1e3, "bound_by": total["bound"]}
+
+
 def flash_timings(dev, cfg, B=None, S=None):
     """Phase 9 (and 14-15): per prefill of (B, S) (default (PATH_B,
-    PATH_S)), the kernel, its plain version and SDPA (the yardstick; the
-    port never calls it) at each attention layer's window (those of the
-    config's first segment), summed over the layers; the bound from this
-    run's shapes and masks."""
+    PATH_S)), ``kernel_bench.time_case`` of bf16 flash at each attention
+    layer's window (those of the config's first segment), summed over the
+    layers: the kernel bench's own cases (``kernel_bench.flash_cases``),
+    run here.  Returns the records, their sum (µs) and ``path_ms``."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention
     B, S = B or PATH_B, S or PATH_S
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    gen = torch.Generator(device=dev).manual_seed(11)
-    q, k, v = flash_inputs(gen, dev, B, H, KV, S, hd, torch.bfloat16,
-                           path_layout=True)
-    qc = q.contiguous()
-    kx = k.repeat_interleave(H // KV, dim=1).contiguous()
-    vx = v.repeat_interleave(H // KV, dim=1).contiguous()
-    idx = torch.arange(S, device=dev)
-    d = idx[:, None] - idx[None, :]
-    windows = cfg.segments[0].windows()
-    rows = {}
-    for w in sorted(set(windows)):
-        window = None if w >= S else w
-        ms = cuda_time_ms(lambda: flash_attention(q, k, v, causal=True,
-                                                  window=window), 10)
-        plain_ms = cuda_time_ms(lambda: ref.flash_attention_ref(
-            q, k, v, causal=True, window=window), 5, warmup=1)
-        band = None if window is None else (d >= 0) & (d < window)
-
-        def sdpa():
-            return F.scaled_dot_product_attention(
-                qc, kx, vx, attn_mask=band, is_causal=band is None)
-
-        library_ms = cuda_time_ms(sdpa, 10)
-        pairs = B * H * int(((d >= 0) & (d < (window or S + 1))).sum())
-        n_bytes = 2 * (q.numel() + k.numel() + v.numel()) + 4 * q.numel()
-        n_ops = 4 * hd * pairs
-        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-        t_ops = n_ops / BF16_FLOPS_PER_S * 1e3
-        n = windows.count(w)
-        rows[w] = {"window": window, "layers": n, "ms": ms, "plain_ms": plain_ms,
-                   "library_ms": library_ms, "pairs": pairs, "bytes": n_bytes,
-                   "flop": n_ops, "bytes_ms": t_bytes, "ops_ms": t_ops,
-                   "bound_ms": max(t_bytes, t_ops),
-                   "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-        log(f"  flash window {window} x{n}: kernel {ms:.4f} ms "
-            f"({n_ops / ms / 1e9:.1f} useful TFLOP/s), plain "
-            f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
-            f"{max(t_bytes, t_ops):.4f} ms ({rows[w]['bound_by']}; "
-            f"{pairs} pairs, {n_bytes / 1e6:.1f} MB)")
-    tot = {key: sum(r["layers"] * r[key] for r in rows.values())
-           for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms",
-                       "ops_ms")}
-    tot["bound_by"] = "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations"
-    tot["per_window"] = list(rows.values())
-    log(f"per {cfg.name} prefill ({B}, {S}), {len(windows)} "
-        f"attention layers (hd {hd}, {H}/{KV} heads): flash kernel "
-        f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, sdpa "
-        f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms "
-        f"({tot['bound_by']})")
-    return tot
+    cases = kb.flash_cases(cfg, B, S, f"{cfg.name}_prefill")
+    recs, total = kb.time_path(cases, dev,
+                               torch.Generator(device=dev).manual_seed(11))
+    log(f"per {cfg.name} prefill ({B}, {S}), {total['path_launches']} "
+        f"attention layers (hd {cfg.hd}, {cfg.n_heads}/{cfg.n_kv_heads} "
+        f"heads; µs):")
+    log_port_cases(cases, recs, total, "per prefill")
+    return {"cases": recs, "sum_us": total, **path_ms(total)}
 
 
 KERNEL_CLASSES = (("gemm", ("nvjet", "gemm", "cutlass", "xmma")),
@@ -2198,35 +2131,75 @@ BENCH_CASES = ("imc_mvm.256x512x512", "imc_mvm.1024x1024x1024",
                "flash.1x8x4096x128")
 
 
-def check_kernel_bench(kb):
-    """The kernel bench's record must hold every reference case, each run
-    on the card (a kernel time), launched (a nonzero count) and equal to
-    its plain version; every flash launch on the instance the dispatch
-    rule names for its f32 inputs."""
+#: the fields every port case of the kernel bench must have on the card
+PORT_FIELDS = ("kernel_us", "cold_us", "plain_us", "library_us", "library",
+               "bound_us", "bound", "max_abs_err")
+#: and the INT8 port cases besides (``raw_instance``: the instance of the
+#: timed raw launch)
+INT8_FIELDS = ("graph_us", "wrapper_us", "raw_instance")
+
+
+def check_kernel_bench(out):
+    """The kernel bench's record must hold every reference case in order,
+    then the port cases of ``kernel_bench.served_cases`` and the two path
+    sums; every case run on the card (a kernel time), launched (a nonzero
+    count) and equal to its plain version; every flash launch of the
+    reference's cases on the instance the dispatch rule names for its f32
+    inputs, every launch of a port case on the instance its rule names
+    (``kernel_bench.rule_instance``), the INT8 ones' timed raw launch too,
+    and each port case with its cold, plain, library and bound columns (the
+    INT8 ones with their graph and wrapper times)."""
     import torch
     from repro_torch.kernels import flash_attention as fa
-    if tuple(kb) != BENCH_CASES:
-        raise AssertionError(f"kernel bench: cases {list(kb)}, want "
-                             f"{list(BENCH_CASES)}")
-    for name, rec in kb.items():
+    port = kb.served_cases()
+    sums = tuple(f"port.path.{p}" for p in kb.PATH_SUMS)
+    want = BENCH_CASES + tuple(c.key for c in port) + sums
+    if tuple(out) != want:
+        raise AssertionError(f"kernel bench: cases {list(out)}, want "
+                             f"{list(want)}")
+    for name in want[:-len(sums)]:
+        rec = out[name]
         if "kernel_us" not in rec or not rec.get("matches_plain") \
                 or rec.get("launches", 0) < 1:
             raise AssertionError(f"kernel bench {name}: {rec}")
         if name.startswith("flash."):
-            want = {fa.instance(torch.float32, int(name.split("x")[-1])):
+            inst = {fa.instance(torch.float32, int(name.split("x")[-1])):
                     rec["launches"]}
-            if rec.get("instances") != want:
+            if rec.get("instances") != inst:
                 raise AssertionError(f"kernel bench {name}: launches by "
                                      f"instance {rec.get('instances')}, want "
-                                     f"{want}")
-    return kb
+                                     f"{inst}")
+    for case in port:
+        rec = out[case.key]
+        inst_name = kb.rule_instance(case)
+        inst = {inst_name: rec["launches"]}
+        if rec.get("instances") != inst:
+            raise AssertionError(f"kernel bench {case.key}: launches by "
+                                 f"instance {rec.get('instances')}, want {inst}")
+        fields = PORT_FIELDS + (INT8_FIELDS if case.kind != "flash_bf16" else ())
+        missing = [f for f in fields if f not in rec]
+        if missing:
+            raise AssertionError(f"kernel bench {case.key}: no {missing}")
+        if case.kind != "flash_bf16" and rec["raw_instance"] != inst_name:
+            raise AssertionError(f"kernel bench {case.key}: its timed raw "
+                                 f"launch on {rec['raw_instance']}, the rule "
+                                 f"names {inst_name}")
+    for name in sums:
+        missing = [f for f in ("kernel_us", "cold_us", "bound_us")
+                   if out[name].get(f) is None]
+        if missing:
+            raise AssertionError(f"kernel bench {name}: no {missing}")
+    return out
 
 
-def bench_on_card(card):
+def bench_on_card(card, phase_sums):
     """Phase 20: the port's benchmark harness as a user runs it, in a
     subprocess: the paper's suites on the host and the kernel bench on the
     card.  It must exit 0, and every kernel-bench case must have launched
-    its kernel and equal its plain version."""
+    its kernel and equal its plain version.  The two path sums are logged
+    beside ``phase_sums``: by path, (source, {column: µs}), the same path's
+    sums from phases 5 and 14 of this run (the same ``time_case`` in this
+    process), a request or a prefill."""
     import os
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     cmd = [sys.executable, "-m", "benchmarks_torch.run", *BENCH_SUITES]
@@ -2240,29 +2213,58 @@ def bench_on_card(card):
         raise AssertionError(f"benchmarks_torch.run: exit {res.returncode}: "
                              f"{res.stderr[-2000:]}")
     for line in res.stdout.splitlines():
-        if line.startswith("CSV,") or "paper" in line:
+        if (line.startswith("CSV,") and not line.startswith("CSV,port.")) \
+                or "paper" in line:
             log(f"  {line}")
     art = ROOT / "artifacts" / "bench_torch"
-    kb = check_kernel_bench(json.loads((art / "kernel_bench.json")
-                                       .read_text()))
+    bench = check_kernel_bench(json.loads((art / "kernel_bench.json")
+                                          .read_text()))
     log(f"kernel bench on {card} (CUDA events, launches back to back, "
         f"warm; µs):")
     log("  case                     kernel      plain    library      bound"
         "  bound by            launches  max |d|")
-    for name, rec in kb.items():
+    for name in BENCH_CASES:
+        rec = bench[name]
         by_inst = f" {rec['instances']}" if "instances" in rec else ""
         log(f"  {name:<22s} {rec['kernel_us']:10.2f} {rec['plain_us']:10.2f} "
             f"{rec['library_us']:10.2f} {rec['bound_us']:10.2f}  "
             f"{rec['bound']} ({rec['bound_constant']}){'':<3s} "
             f"{rec['launches']:8d}  {rec['max_abs_err']:.2e}  "
             f"[{rec['library']}]{by_inst}")
+
+    log(f"kernel bench, the served kernels on {card} (µs; cold: each launch "
+        f"alone after a {kb.FLUSH_BYTES >> 20} MiB write; graph: replayed "
+        f"from a CUDA graph; wrapper: through imc_conv2d/imc_mvm):")
+    compared = {}
+    for path in kb.PATH_SUMS:
+        cases = [c for c in kb.served_cases() if c.path == path]
+        total = bench[f"port.path.{path}"]
+        log_port_cases(cases, bench, total, f"port.path.{path}")
+        source, phase = phase_sums[path]
+        compared[path] = {f: {"bench_us": total[f], "phase_us": phase[f],
+                              "ratio": total[f] / phase[f]}
+                          for f in kb.SUM_FIELDS
+                          if total.get(f) is not None
+                          and phase.get(f) is not None}
+        log(f"    beside {source}, the same cases in this process: "
+            + ", ".join(f"{f} {c['bench_us']:.2f} against {c['phase_us']:.2f}"
+                        f" ({c['ratio']:.3f}x)"
+                        for f, c in compared[path].items()))
+    for case in kb.served_cases():
+        if case.path not in kb.PATH_SUMS:
+            rec = bench[case.key]
+            log(f"  {kb.port_row(case.key, rec)}  x{case.path_launches} "
+                f"({case.path}), {rec['bound']}, {rec['instances']}, "
+                f"{rec['tc_steps']} steps, {rec['max_abs_err']:.2e}, "
+                f"{rec['library']}")
     suites = {n: json.loads((art / f"{f}.json").read_text()) for n, f in
               (("fig2", "fig2_resnet8"), ("fig3", "fig3_resnet18"),
                ("table1", "table1_utilization"), ("fig4", "fig4_imc_dpu"),
                ("yolo", "yolo_latency"))}
     log(f"benchmarks_torch.run {' '.join(BENCH_SUITES)}: exit 0 in "
         f"{wall:.1f} s (process start and kernel load included)")
-    rec = {"wall_s": wall, "kernel_bench": kb, "suites": suites}
+    rec = {"wall_s": wall, "kernel_bench": bench, "suites": suites,
+           "path_sums_vs_phases": compared}
     rec.update(bench_host_suites())
     return rec
 
@@ -2332,6 +2334,40 @@ def bench_host_suites():
         f"{before['BENCH_sim.json'][:12]})")
     return {"smoke_wall_s": wall, "sim_speed": sim,
             "sim_speed_wall_s": gate_wall, "host_cpu": host_cpu()}
+
+
+#: the spread's metrics phase 22 requires, besides the enqueue times, the
+#: probes, the card's state and each call's device time and host share
+SPREAD_METRICS = ("cnn_frames_per_s", "cnn_latency_ms", "ttft_ms", "decode_ms")
+SPREAD_TIMEOUT_S = 300
+
+
+def spread_on_card():
+    """Phase 22: ``python -m benchmarks_torch.spread`` (12 interleaved
+    rounds of the CNN and granite paths, built as phases 4 and 14 build
+    them) in a subprocess: it must exit 0, which it does only with
+    granite's tokens equal in every round; its record must hold each of
+    ``SPREAD_METRICS``, the enqueue times, the host probes, the card's
+    clocks, power and temperature, and each call's device time from the
+    traced round with its host share.  Its table is logged."""
+    from benchmarks_torch import spread
+    out, wall = run_logged([sys.executable, "-m", "benchmarks_torch.spread"],
+                           "spread", timeout=SPREAD_TIMEOUT_S)
+    for line in out.splitlines():
+        log(f"  {line}")
+    rec = json.loads((ROOT / "artifacts" / "bench_torch" / "spread.json")
+                     .read_text())
+    want = SPREAD_METRICS + spread.CARD_METRICS + spread.PROBES
+    missing = [m for m in want if m not in rec["metrics"]]
+    traced = set(rec.get("traced", ())) == {p for _, p in spread.CALLS}
+    if missing or not traced or not rec.get("tokens_equal") \
+            or "card" not in rec:
+        raise AssertionError(f"spread: no {missing}, no traced round's "
+                             f"device times or no card in its record (tokens "
+                             f"equal: {rec.get('tokens_equal')})")
+    log(f"benchmarks_torch.spread: exit 0 in {wall:.1f} s (process start, "
+        f"build of both paths and warm-up included), {rec['rounds']} rounds")
+    return rec
 
 
 def gloo_ranks(procs):
@@ -2462,7 +2498,7 @@ def run_phases(dryruns, gloo) -> int:
     import torch
     from repro_torch.core.graph import OpKind
     from repro_torch.kernels import _build, conv2d, imc_mvm as mvm_mod, ref
-    from repro_torch.kernels.conv2d import imc_conv2d, pack_weight
+    from repro_torch.kernels.conv2d import imc_conv2d
     from repro_torch.kernels.imc_mvm import imc_mvm
     from repro_torch.models import quant
     from repro_torch.models.cnn import executor, graphs, layers, resnet
@@ -2473,7 +2509,7 @@ def run_phases(dryruns, gloo) -> int:
     detail: dict = {}
 
     # ---- 1. device and build --------------------------------------------
-    card = card_line()
+    card = kb.card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
@@ -2540,7 +2576,7 @@ def run_phases(dryruns, gloo) -> int:
         log(f"ptxas: the f32 tensor-core flash instance at hd {hd} ({tag}) "
             f"does not spill")
     g18 = graphs.resnet18_graph()
-    path_convs = conv_shapes(g18, BATCH)
+    path_convs = kb.conv_shapes(g18, BATCH)
     path_instances = {f"imc_conv2d/{conv2d.conv_instance(c[3], c[4], True)}"
                       for c in path_convs}
     path_instances.add(f"imc_mvm/{mvm_mod.mvm_instance(256, True)}")
@@ -2570,7 +2606,6 @@ def run_phases(dryruns, gloo) -> int:
                     (4, 10, 10, 24, 64, 3, 1, "SAME"),
                     (4, 8, 8, 64, 130, 3, 1, "SAME")]
     err = {"imc_conv2d": 0.0, "imc_mvm": 0.0}
-    conv_inputs = {}
     for shape in distinct + ragged_convs:
         B, H, W, cin, cout, k, s, padding = shape
         qx, qw = rand_int8((B, H, W, cin)), rand_int8((k, k, cin, cout))
@@ -2578,8 +2613,7 @@ def run_phases(dryruns, gloo) -> int:
                                                   device=dev)
         sx = torch.full((), 0.04, device=dev)
         pads = layers.conv_pads(H, W, k, s, padding)
-        inst = conv_check(qx, qw, sx, sw, bias, s, pads, str(shape), err)
-        conv_inputs[shape] = (qx, qw, sx, sw, bias, pads, inst)
+        conv_check(qx, qw, sx, sw, bias, s, pads, str(shape), err)
     # x one byte off 16-byte alignment at a stage-1 shape: the gather
     # staging at path width
     B, H, W, cin, cout, k, s, padding = distinct[1]
@@ -2606,9 +2640,7 @@ def run_phases(dryruns, gloo) -> int:
         f"(batch {BATCH}), {len(ragged_convs)} ragged shapes, an unaligned x "
         f"and all-+-127 operands")
 
-    fc_shape = (BATCH, 256, 10)
-    mvm_inputs = {}
-    for M, K, N in [fc_shape, (257, 129, 65), (1, 512, 512)]:
+    for M, K, N in [(BATCH, 256, 10), (257, 129, 65), (1, 512, 512)]:
         qx, qw = rand_int8((M, K)), rand_int8((K, N))
         sw, bias = rand_scales(N), torch.randn((N,), generator=gen, device=dev)
         sx = torch.full((), 0.02, device=dev)
@@ -2626,7 +2658,6 @@ def run_phases(dryruns, gloo) -> int:
             raise AssertionError(f"imc_mvm != plain at {(M, K, N)}: max |d| "
                                  f"{(got - want).abs().max().item()}")
         err["imc_mvm"] = max(err["imc_mvm"], (got - want).abs().max().item())
-        mvm_inputs[(M, K, N)] = (qx, qw, sx, sw, bias)
         log(f"check imc_mvm {(M, K, N)} [{rule}]: torch.equal")
 
     grad_guard_checks(dev)
@@ -2667,7 +2698,7 @@ def run_phases(dryruns, gloo) -> int:
                                  f"{(n_conv * n_requests, n_mvm * n_requests)}")
         by_inst = dict(imc_conv2d.launches_by_instance)
         want_inst = dict.fromkeys(by_inst, 0)
-        for c in conv_shapes(g, BATCH):
+        for c in kb.conv_shapes(g, BATCH):
             want_inst[conv2d.conv_instance(c[3], c[4], True)] += n_requests
         if by_inst != want_inst:
             raise AssertionError(f"{label}: conv launches by instance {by_inst}"
@@ -2724,99 +2755,23 @@ def run_phases(dryruns, gloo) -> int:
         log(f"  {row['ms']:9.3f} ms  x{row['calls']:<4d} {row['name'][:70]}")
 
     # ---- 5. kernel timings at the path's shapes ----------------------------
-    conv_fn = _build.load("imc_conv2d", "imc_conv2d_launch", conv2d._ARGTYPES)
-    mvm_fn = _build.load("imc_mvm", "imc_mvm_launch", mvm_mod._ARGTYPES)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-
-    def conv_launcher(qx, qw, sx, sw, bias, s, pads):
-        B, H, W, cin = qx.shape
-        k, _, _, cout = qw.shape
-        ho = (H + pads[0] + pads[1] - k) // s + 1
-        wo = (W + pads[2] + pads[3] - k) // s + 1
-        wp = pack_weight(qw)
-        out = torch.empty((B, ho, wo, cout), device=dev)
-        args = (qx.data_ptr(), wp.data_ptr(), sx.data_ptr(), sw.data_ptr(),
-                bias.data_ptr(), out.data_ptr(), B, H, W, cin, ho, wo, cout, k,
-                s, pads[0], pads[2], k * k * cin, wp.shape[1],
-                int(qx.data_ptr() % 16 == 0))
-
-        def launch(st, keep=(wp, out)):   # keep: the buffers outlive it
-            _build.check(conv_fn(*args, st), "imc_conv2d")
-        return launch
-
-    conv_rows = []
-    tot = {"ms": 0.0, "graph_ms": 0.0, "plain_ms": 0.0, "wrapper_ms": 0.0,
-           "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0}
-    for shape in distinct:
-        B, H, W, cin, cout, k, s, padding = shape
-        qx, qw, sx, sw, bias, pads, inst = conv_inputs[shape]
-        n = path_convs.count(shape)
-        ho, wo = layers.conv_out_hw(H, W, k, s, padding)
-        launch = conv_launcher(qx, qw, sx, sw, bias, s, pads)
-        ms = cuda_time_ms(lambda: launch(stream), 20)
-        graph_ms = graph_time_ms(launch)
-        wrapper_ms = cuda_time_ms(lambda: imc_conv2d(
-            qx, qw, sx, sw, bias, stride=s, pads=pads), 20)
-        plain_ms = cuda_time_ms(lambda: ref.conv2d_ref(
-            qx, qw, sx, sw, bias, stride=s, pads=pads), 5, warmup=1)
-        n_bytes = (B * H * W * cin + k * k * cin * cout + 4 + 8 * cout
-                   + 4 * B * ho * wo * cout)
-        n_ops = 2 * B * ho * wo * k * k * cin * cout
-        b_ms, b_by = bound_ms(n_bytes, n_ops)
-        conv_rows.append({"shape": list(shape), "instance": inst,
-                          "per_request": n, "ms": ms, "graph_ms": graph_ms,
-                          "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-                          "bound_ms": b_ms, "bound_by": b_by,
-                          "bytes": n_bytes, "ops": n_ops})
-        tot["ms"] += n * ms
-        tot["graph_ms"] += n * graph_ms
-        tot["wrapper_ms"] += n * wrapper_ms
-        tot["plain_ms"] += n * plain_ms
-        tot["bound_ms"] += n * b_ms
-        tot["bytes_ms"] += n * n_bytes / HBM_BYTES_PER_S * 1e3
-        tot["ops_ms"] += n * n_ops / INT8_OPS_PER_S * 1e3
-        log(f"  conv {shape} x{n} [{inst}]: kernel {ms:.4f} ms (graph "
-            f"{graph_ms:.4f} ms, {n_ops / graph_ms / 1e9:.0f} TOP/s, "
-            f"{n_bytes / graph_ms / 1e6:.0f} GB/s), wrapper {wrapper_ms:.4f}"
-            f" ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    detail["imc_conv2d"] = conv_rows
-
-    M, K, N = fc_shape
-    qx, qw, sx, sw, bias = mvm_inputs[fc_shape]
-    out = torch.empty((M, N), device=dev)
-    mvm_args = (qx.data_ptr(), qw.data_ptr(), sx.data_ptr(), sw.data_ptr(),
-                bias.data_ptr(), out.data_ptr(), M, K, N)
-
-    def mvm_launch(st):
-        _build.check(mvm_fn(*mvm_args, st), "imc_mvm")
-
-    mvm_ms = cuda_time_ms(lambda: mvm_launch(stream), 50)
-    mvm_graph_ms = graph_time_ms(mvm_launch)
-    mvm_wrapper_ms = cuda_time_ms(lambda: imc_mvm(qx, qw, sx, sw, bias), 50)
-    mvm_plain_ms = cuda_time_ms(lambda: ref.imc_mvm_ref(qx, qw, sx, sw, bias),
-                                20)
-    # torch._int_mm is the one PyTorch call for the integer product; it
-    # needs M > 16 and K, N multiples of 8
-    mvm_library_ms = None
-    if M > 16 and K % 8 == 0 and N % 8 == 0:
-        mvm_library_ms = cuda_time_ms(lambda: torch._int_mm(qx, qw), 50)
-    mvm_bound, mvm_by = bound_ms(M * K + K * N + 4 + 8 * N + 4 * M * N,
-                                 2 * M * N * K)
-    detail["imc_mvm"] = {"shape": list(fc_shape), "ms": mvm_ms,
-                         "graph_ms": mvm_graph_ms,
-                         "wrapper_ms": mvm_wrapper_ms, "plain_ms": mvm_plain_ms,
-                         "bound_ms": mvm_bound, "bound_by": mvm_by,
-                         "library_ms": mvm_library_ms}
-    log(f"  mvm {fc_shape} x1: kernel {mvm_ms:.4f} ms (graph "
-        f"{mvm_graph_ms:.4f} ms), wrapper "
-        f"{mvm_wrapper_ms:.4f} ms, plain {mvm_plain_ms:.4f} ms, bound "
-        f"{mvm_bound:.6f} ms ({mvm_by}), library {mvm_library_ms}")
-    log(f"per request: imc_conv2d kernels {tot['ms']:.4f} ms (graph "
-        f"{tot['graph_ms']:.4f} ms, wrappers "
-        f"{tot['wrapper_ms']:.4f} ms), plain {tot['plain_ms']:.4f} ms, bound "
-        f"{tot['bound_ms']:.4f} ms (bytes {tot['bytes_ms']:.4f} ms, ops "
-        f"{tot['ops_ms']:.4f} ms)")
-    detail["imc_conv2d_per_request"] = tot
+    # the kernel bench's own cases (``kernel_bench.cnn_cases``), run here
+    cnn_cases = kb.cnn_cases(g18, BATCH)
+    cnn_recs, cnn_total = kb.time_path(
+        cnn_cases, dev, torch.Generator(device=dev).manual_seed(5))
+    conv_cases = [c for c in cnn_cases if c.kind == "imc_conv2d"]
+    fc_case, = [c for c in cnn_cases if c.kind == "imc_mvm"]
+    conv_total = kb.path_sum(conv_cases, cnn_recs)
+    fc = cnn_recs[fc_case.key]
+    log(f"per request of {BATCH} frames ({conv_total['path_launches']} conv "
+        f"+ 1 mvm launches; µs; cold: each launch alone after a "
+        f"{kb.FLUSH_BYTES >> 20} MiB write; graph: replayed from a CUDA "
+        f"graph; wrapper: through imc_conv2d/imc_mvm):")
+    log_port_cases(cnn_cases, cnn_recs, cnn_total, "per request")
+    log(f"  {kb.port_row('imc_conv2d per request', conv_total)}")
+    detail["imc_conv2d"] = {"cases": cnn_recs, "per_request": conv_total,
+                            "with_fc": cnn_total}
+    detail["imc_mvm"] = fc
 
     # ---- 5b. YOLOv8n at 640x640 in float on the card ------------------------
     log(f"torch.backends.cudnn.allow_tf32 = {torch.backends.cudnn.allow_tf32}")
@@ -2978,38 +2933,43 @@ def run_phases(dryruns, gloo) -> int:
 
     # ---- 20. the benchmark harness: paper suites, kernel bench on the card -
     torch.cuda.empty_cache()
-    detail["bench"] = bench_on_card(card)
+    phase_sums = {
+        "resnet18_int8": (f"phase 5 ({cnn_total['path_launches']} launches "
+                          f"a request)", cnn_total),
+        "granite_prefill": (f"phase 14 ({main_flash['sum_us']['path_launches']}"
+                            f" launches a prefill)", main_flash["sum_us"]),
+    }
+    detail["bench"] = bench_on_card(card, phase_sums)
 
     # ---- 21. the gloo ranks on this machine's PyTorch (started before 1) --
     detail["gloo"] = gloo_ranks(gloo)
+
+    # ---- 22. the run-to-run spread of the two served paths ----------------
+    torch.cuda.empty_cache()
+    detail["spread"] = spread_on_card()
 
     detail["card"] = card
     detail["device"] = torch.cuda.get_device_name(0)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(detail, indent=2))
 
+    fc_ms = path_ms(kb.path_sum([fc_case], cnn_recs))
     kernels = [
         {"name": "imc_conv2d", "route": "cuda",
          "source": "src/repro_torch/csrc/imc_conv2d.cu",
          "replaces": "src/repro/kernels/conv2d.py:56",
          "launches": counts18[0], "max_abs_err": err["imc_conv2d"],
-         "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-         "bound_ms": tot["bound_ms"],
-         "bound_by": "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations",
-         "library_ms": None},
+         **path_ms(conv_total)},
         {"name": "imc_mvm", "route": "cuda",
          "source": "src/repro_torch/csrc/imc_mvm.cu",
          "replaces": "src/repro/kernels/imc_mvm.py:69",
-         "launches": counts18[1], "max_abs_err": err["imc_mvm"],
-         "ms": mvm_ms, "plain_ms": mvm_plain_ms, "bound_ms": mvm_bound,
-         "bound_by": mvm_by, "library_ms": mvm_library_ms},
+         "launches": counts18[1], "max_abs_err": err["imc_mvm"], **fc_ms},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:29",
          "launches": main_launches, "max_abs_err": flash_err,
-         "ms": main_flash["ms"], "plain_ms": main_flash["plain_ms"],
-         "bound_ms": main_flash["bound_ms"], "bound_by": main_flash["bound_by"],
-         "library_ms": main_flash["library_ms"]},
+         **{k: main_flash[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")}},
     ]
     log(card)
     print(json.dumps({"kernels": kernels}))

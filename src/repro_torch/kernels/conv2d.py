@@ -18,6 +18,8 @@ entry ``imc_conv2d_instance``; ``conv_instance`` mirrors it
 ``imc_conv2d`` takes CUDA tensors only.  ``ops.quantized_conv2d`` sends CPU
 tensors to the plain version.  ``imc_conv2d.launches`` counts the kernel's
 launches and ``imc_conv2d.launches_by_instance`` counts them per instance.
+``conv_launcher`` is its checked launch without the count, for timing the
+kernel alone.
 """
 
 from __future__ import annotations
@@ -64,12 +66,15 @@ def pack_weight(qw: torch.Tensor) -> torch.Tensor:
     return packed.view(torch.int32)
 
 
-def imc_conv2d(qx: torch.Tensor, qw: torch.Tensor, sx, sw: torch.Tensor,
-               bias: Optional[torch.Tensor] = None, *, stride: int = 1,
-               pads: Tuple[int, int, int, int] = (0, 0, 0, 0)) -> torch.Tensor:
-    """INT8 conv on the card with zero padding ``pads`` = (top, bottom,
-    left, right).  ``sx`` scalar, ``sw`` (Cout,), ``bias`` (Cout,) or
-    None."""
+def conv_launcher(qx: torch.Tensor, qw: torch.Tensor, sx, sw: torch.Tensor,
+                  bias: Optional[torch.Tensor] = None, *, stride: int = 1,
+                  pads: Tuple[int, int, int, int] = (0, 0, 0, 0)):
+    """One conv, checked and with its weights packed: (``launch``, out,
+    instance).  ``launch(stream)`` runs the kernel into ``out`` on the CUDA
+    stream handle it is given, uncounted; ``instance`` is the one the rule
+    names for these inputs.  Both are None where ``out`` is empty.
+    ``imc_conv2d`` launches it once and counts; a caller that times the
+    kernel alone launches it again."""
     check_int8(qx, "qx", 4)
     check_int8(qw, "qw", 4)
     B, H, W, Cin = qx.shape
@@ -86,22 +91,39 @@ def imc_conv2d(qx: torch.Tensor, qw: torch.Tensor, sx, sw: torch.Tensor,
     out = torch.empty((B, max(Ho, 0), max(Wo, 0), Cout), dtype=torch.float32,
                       device=dev)
     if out.numel() == 0:
-        return out
+        return None, out, None
+    aligned = qx.data_ptr() % 16 == 0
+    instance = conv_instance(Cin, Cout, aligned)
     wp = pack_weight(qw)
     K = KH * KW * Cin
-    aligned = qx.data_ptr() % 16 == 0
     sx_t = device_scalar(sx, dev)
     sw_t = channel_vector(sw, Cout, dev)
     b_t = channel_vector(bias, Cout, dev)
     fn = _build.load("imc_conv2d", "imc_conv2d_launch", _ARGTYPES)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(qx.data_ptr(), wp.data_ptr(), sx_t.data_ptr(), sw_t.data_ptr(),
-                b_t.data_ptr(), out.data_ptr(), B, H, W, Cin, Ho, Wo, Cout, KW,
-                stride, top, left, K, wp.shape[1], int(aligned), stream)
-    _build.check(rc, "imc_conv2d")
+    args = (qx.data_ptr(), wp.data_ptr(), sx_t.data_ptr(), sw_t.data_ptr(),
+            b_t.data_ptr(), out.data_ptr(), B, H, W, Cin, Ho, Wo, Cout, KW,
+            stride, top, left, K, wp.shape[1], int(aligned))
+
+    def launch(stream, keep=(qx, wp, sx_t, sw_t, b_t, out)):
+        # ``keep``: the buffers behind ``args`` live as long as ``launch``
+        _build.check(fn(*args, stream), "imc_conv2d")
+    return launch, out, instance
+
+
+def imc_conv2d(qx: torch.Tensor, qw: torch.Tensor, sx, sw: torch.Tensor,
+               bias: Optional[torch.Tensor] = None, *, stride: int = 1,
+               pads: Tuple[int, int, int, int] = (0, 0, 0, 0)) -> torch.Tensor:
+    """INT8 conv on the card with zero padding ``pads`` = (top, bottom,
+    left, right).  ``sx`` scalar, ``sw`` (Cout,), ``bias`` (Cout,) or
+    None."""
+    launch, out, instance = conv_launcher(qx, qw, sx, sw, bias, stride=stride,
+                                          pads=pads)
+    if launch is None:
+        return out
+    with torch.cuda.device(out.device):
+        launch(torch.cuda.current_stream(out.device).cuda_stream)
     imc_conv2d.launches += 1
-    imc_conv2d.launches_by_instance[conv_instance(Cin, Cout, aligned)] += 1
+    imc_conv2d.launches_by_instance[instance] += 1
     return out
 
 

@@ -13,6 +13,8 @@ otherwise.  The rule is the C entry ``imc_mvm_instance``;
 ``imc_mvm`` takes CUDA tensors only.  ``ops.quantized_matmul`` sends CPU
 tensors to the plain version.  ``imc_mvm.launches`` counts the kernel's
 launches and ``imc_mvm.launches_by_instance`` counts them per instance.
+``mvm_launcher`` is its checked launch without the count, for timing the
+kernel alone.
 """
 
 from __future__ import annotations
@@ -65,10 +67,10 @@ def check_int8(t: torch.Tensor, name: str, ndim: int) -> None:
                          f"got {t.dtype} {tuple(t.shape)}")
 
 
-def imc_mvm(qx: torch.Tensor, qw: torch.Tensor, sx, sw: torch.Tensor,
-            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Quantized matmul on the card: (M, K) int8 x (K, N) int8 -> (M, N)
-    f32.  ``sx`` scalar, ``sw`` (N,), ``bias`` (N,) or None."""
+def mvm_launcher(qx: torch.Tensor, qw: torch.Tensor, sx, sw: torch.Tensor,
+                 bias: Optional[torch.Tensor] = None):
+    """One quantized matmul, checked: (``launch``, out, instance), as
+    ``conv2d.conv_launcher``.  ``imc_mvm`` launches it once and counts."""
     check_int8(qx, "qx", 2)
     check_int8(qw, "qw", 2)
     M, K = qx.shape
@@ -79,18 +81,32 @@ def imc_mvm(qx: torch.Tensor, qw: torch.Tensor, sx, sw: torch.Tensor,
     dev = qx.device
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
     if out.numel() == 0:
-        return out
+        return None, out, None
+    instance = mvm_instance(K, qx.data_ptr() % 16 == 0)
     sx_t = device_scalar(sx, dev)
     sw_t = channel_vector(sw, N, dev)
     b_t = channel_vector(bias, N, dev)
     fn = _build.load("imc_mvm", "imc_mvm_launch", _ARGTYPES)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(qx.data_ptr(), qw.data_ptr(), sx_t.data_ptr(), sw_t.data_ptr(),
-                b_t.data_ptr(), out.data_ptr(), M, K, N, stream)
-    _build.check(rc, "imc_mvm")
+    args = (qx.data_ptr(), qw.data_ptr(), sx_t.data_ptr(), sw_t.data_ptr(),
+            b_t.data_ptr(), out.data_ptr(), M, K, N)
+
+    def launch(stream, keep=(qx, qw, sx_t, sw_t, b_t, out)):
+        # ``keep``: the buffers behind ``args`` live as long as ``launch``
+        _build.check(fn(*args, stream), "imc_mvm")
+    return launch, out, instance
+
+
+def imc_mvm(qx: torch.Tensor, qw: torch.Tensor, sx, sw: torch.Tensor,
+            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Quantized matmul on the card: (M, K) int8 x (K, N) int8 -> (M, N)
+    f32.  ``sx`` scalar, ``sw`` (N,), ``bias`` (N,) or None."""
+    launch, out, instance = mvm_launcher(qx, qw, sx, sw, bias)
+    if launch is None:
+        return out
+    with torch.cuda.device(out.device):
+        launch(torch.cuda.current_stream(out.device).cuda_stream)
     imc_mvm.launches += 1
-    imc_mvm.launches_by_instance[mvm_instance(K, qx.data_ptr() % 16 == 0)] += 1
+    imc_mvm.launches_by_instance[instance] += 1
     return out
 
 

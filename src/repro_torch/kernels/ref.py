@@ -24,6 +24,12 @@ import torch.nn.functional as F
 
 from ..models.cnn.layers import conv_pads
 
+#: flash attention's tolerances on the card: max |d| against the plain
+#: version on the f32 upcast (f32 inputs, and bf16 ones), and for bf16
+#: inputs against the plain version in bf16
+FLASH_F32_TOL = 2e-4
+FLASH_BF16_TOL = 2e-2
+
 
 def _f32(t, device) -> torch.Tensor:
     return torch.as_tensor(t, dtype=torch.float32, device=device)
@@ -94,3 +100,30 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logits = torch.where(ok[None, None], logits, -1e30)
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", probs, v.to(torch.float32))
+
+
+def check_flash(got: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor, causal: bool, window: Optional[int],
+                softcap: Optional[float], label: str):
+    """Holds a flash kernel's output ``got`` against the plain version on
+    the same inputs: max |d| against the f32 upcast within
+    ``FLASH_F32_TOL`` and, for bf16 inputs, against the plain version in
+    bf16 within ``FLASH_BF16_TOL``; raises AssertionError otherwise.
+    Returns (f32 error, bf16 error or None)."""
+    want = flash_attention_ref(*(t.float() for t in (q, k, v)), causal=causal,
+                               window=window, softcap=softcap)
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"flash_attention {label}: bad output")
+    err = (got - want).abs().max().item()
+    if not err <= FLASH_F32_TOL:
+        raise AssertionError(f"flash_attention {label}: max |d| {err:.3e} > "
+                             f"{FLASH_F32_TOL} against the f32 plain version")
+    if q.dtype != torch.bfloat16:
+        return err, None
+    want16 = flash_attention_ref(q, k, v, causal=causal, window=window,
+                                 softcap=softcap)
+    err16 = (got - want16).abs().max().item()
+    if not err16 <= FLASH_BF16_TOL:
+        raise AssertionError(f"flash_attention {label}: max |d| {err16:.3e} "
+                             f"> {FLASH_BF16_TOL} against the bf16 plain")
+    return err, err16

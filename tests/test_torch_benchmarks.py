@@ -27,10 +27,18 @@ reference's (``benchmarks``):
   suite, naming its own table, whose entries are the reference's;
 * ``kernel_bench.main`` with ``device="cpu"`` at the reference's five
   shapes (one timed call each: about 6 s on the host) writes the
-  reference's keys with the plain versions' times and no card field;
-  asked for the card where there is none, it raises;
+  reference's keys first, in order, with the plain versions' times and no
+  card field, then stand-in port cases under ``port.`` keys and their
+  path sums; asked for the card where there is none, it raises;
 * the kernel bench bounds its two f32 flash cases by one pass at the TF32
-  tensor-core peak or by their bytes (10.02 and 69.47 µs).
+  tensor-core peak or by their bytes (10.02 and 69.47 µs);
+* its served cases are the configs' and the graph's: bf16 flash at
+  granite-moe's, recurrentgemma's and gemma3-1b's heads, KV heads, head
+  width and first-segment windows, 11 distinct ResNet-18-CIFAR convs
+  whose counts (20) rebuild the reference graph's conv nodes, and the
+  fc; the bf16 bound rule gives 52.14, 278.0, 19.72 and 39.1 µs (1.668,
+  3.336 and 0.590 ms a prefill), its pairs equal a mask's count, and a
+  path sum adds launches x µs, a missing library call making it None.
 """
 
 import importlib
@@ -315,15 +323,45 @@ def test_unknown_suite_message_matches_reference(monkeypatch, capsys):
     assert {k: jrun.SUITES[k] for k in run.SUITES} == run.SUITES
 
 
+def _stand_in_port_cases(kernel_bench):
+    """Port cases at small shapes, one of each kind, on both summed paths
+    and on one that is not summed."""
+    P = kernel_bench.PortCase
+    return [P(kernel_bench.flash_key("s", 1, 4, 2, 32, 16, None), "flash_bf16",
+              (1, 4, 2, 32, 16, None), "granite_prefill", 3),
+            P(kernel_bench.flash_key("s", 1, 4, 1, 32, 16, 8), "flash_bf16",
+              (1, 4, 1, 32, 16, 8), "gemma3_prefill", 2),
+            P(kernel_bench.conv_key(2, 8, 8, 3, 8, 3, 1, "SAME"), "imc_conv2d",
+              (2, 8, 8, 3, 8, 3, 1, "SAME"), "resnet18_int8", 2),
+            P("port.imc_mvm.4x16x10", "imc_mvm", (4, 16, 10), "resnet18_int8",
+              1)]
+
+
 def test_kernel_bench_on_the_host(tmp_path, monkeypatch):
     from benchmarks_torch import common, kernel_bench
     monkeypatch.setattr(common, "ARTIFACT_DIR", str(tmp_path))
-    out = kernel_bench.main(device="cpu", iters=1)
-    assert tuple(out) == KERNEL_KEYS
+    port = _stand_in_port_cases(kernel_bench)
+    out = kernel_bench.main(device="cpu", iters=1, port=port)
+    assert tuple(out)[:5] == KERNEL_KEYS
+    assert tuple(out)[5:] == tuple(c.key for c in port) + (
+        "port.path.resnet18_int8", "port.path.granite_prefill")
+    assert all(k.startswith("port.") for k in tuple(out)[5:])
     written = json.loads((tmp_path / "kernel_bench.json").read_text())
     assert written == out
-    for rec in out.values():
-        assert set(rec) == {"plain_us"} and rec["plain_us"] > 0
+    for key in KERNEL_KEYS:
+        assert set(out[key]) == {"plain_us"} and out[key]["plain_us"] > 0
+    for c in port:      # the plain time and the case's path, no card field
+        rec = out[c.key]
+        assert set(rec) == {"plain_us", "path", "path_launches"}
+        assert rec["plain_us"] > 0 and rec["path_launches"] == c.path_launches
+    cnn = out["port.path.resnet18_int8"]
+    assert set(cnn) == {"cases", "path_launches", "plain_us"}
+    assert cnn["path_launches"] == 3
+    assert cnn["plain_us"] == pytest.approx(
+        2 * out[port[2].key]["plain_us"] + out[port[3].key]["plain_us"])
+    assert out["port.path.granite_prefill"]["cases"] == [port[0].key]
+    # no port case on the host unless given
+    assert tuple(kernel_bench.main(device="cpu", iters=1)) == KERNEL_KEYS
 
 
 def test_kernel_bench_f32_flash_bounds():
@@ -352,3 +390,137 @@ def test_kernel_bench_needs_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         kernel_bench.main()
+
+
+def test_kernel_bench_served_flash_cases_are_the_configs():
+    """One bf16 flash case per distinct window of each served arch's first
+    segment, at batch 4 and its served prompt width, with its launches a
+    prefill: granite 32 (global), recurrentgemma 12 (its 2,048 window at
+    3,072 tokens), gemma3-1b 22 local and 4 global.  Every one runs on the
+    bf16 tensor-core instance: granite on the 4-step plan, hd 256 on the
+    16-step and hd 288 on the 18-step one."""
+    from benchmarks_torch import kernel_bench as kb
+    from repro_torch.configs import GLOBAL_WINDOW, get_config
+    from repro_torch.kernels import flash_attention as fa
+    flash = [c for c in kb.served_cases() if c.kind == "flash_bf16"]
+    want = []
+    for arch, S, path in kb.FLASH_SERVED:
+        cfg = get_config(arch)
+        windows = cfg.segments[0].windows()
+        for w in sorted(set(windows)):
+            want.append(((4, cfg.n_heads, cfg.n_kv_heads, S, cfg.hd,
+                          None if w == GLOBAL_WINDOW else w), path,
+                         windows.count(w)))
+    assert [(c.shape, c.path, c.path_launches) for c in flash] == want
+    assert [(c.shape, c.path_launches) for c in flash] == [
+        ((4, 24, 8, 2048, 64, None), 32), ((4, 16, 1, 3072, 256, 2048), 12),
+        ((4, 4, 1, 2048, 288, 512), 22), ((4, 4, 1, 2048, 288, None), 4)]
+    assert [fa.tc_steps(c.shape[4]) for c in flash] == [4, 16, 18, 18]
+    assert {kb.rule_instance(c) for c in flash} == {fa.TENSOR_CORE}
+    assert len({c.key for c in kb.served_cases()}) == len(kb.served_cases())
+
+
+def test_kernel_bench_served_convs_are_the_graphs():
+    """The 11 distinct convs of ResNet-18-CIFAR at batch 256, with counts
+    (1, 4, 1, 3, 1, 1, 3, 1, 1, 3, 1) that sum to its 20 conv nodes:
+    expanded by their counts they are the reference graph's conv nodes
+    (Cin, Cout, k, stride, output map); then its one fc, 256 x 10."""
+    from benchmarks_torch import kernel_bench as kb
+    from repro.models.cnn import graphs as jgraphs
+    cases = kb.served_cases()
+    convs = [c for c in cases if c.kind == "imc_conv2d"]
+    assert [c.path_launches for c in convs] == [1, 4, 1, 3, 1, 1, 3, 1, 1, 3, 1]
+    got = sorted((c.shape[3], c.shape[4], c.shape[5], c.shape[6],
+                  (c.shape[1] // c.shape[6], c.shape[2] // c.shape[6]))
+                 for c in convs for _ in range(c.path_launches))
+    g = jgraphs.resnet18_graph()
+    want = sorted((n.meta["cin_kk"] // n.meta["k"] ** 2, n.meta["cout"],
+                   n.meta["k"], n.meta["stride"], tuple(n.meta["out_hw"]))
+                  for n in (g.nodes[i] for i in g.topo_order())
+                  if n.kind.value == "conv")
+    assert len(want) == 20 and got == want
+    assert all(c.shape[0] == 256 and c.path == "resnet18_int8" for c in convs)
+    assert [c for c in cases if c.kind == "imc_mvm"] == [kb.PortCase(
+        "port.imc_mvm.256x256x10", "imc_mvm", (256, 256, 10), "resnet18_int8",
+        1)]
+    per_request = sum(c.path_launches * kb.bound(
+        *kb.conv_work(c.shape), kb.PEAK_INT8_OPS, "PEAK_INT8_OPS")[0]
+        for c in convs)
+    assert round(per_request, 1) == 122.4
+
+
+def test_kernel_bench_bf16_flash_bounds():
+    """The bf16 bound rule at the served shapes: granite 52.14 µs and
+    recurrentgemma 278.0 µs by operations at the bf16 peak, gemma3-1b's
+    local layer 19.72 µs by bytes and its global one 39.1 µs by
+    operations; a prefill's bound is 32 x 52.14 = 1.668 ms, 12 x 278.0 =
+    3.336 ms and 22 x 19.72 + 4 x 39.1 = 0.590 ms."""
+    from benchmarks_torch import kernel_bench as kb
+    want = [(52.14, "operations", "PEAK_FLOPS"),
+            (278.0, "operations", "PEAK_FLOPS"), (19.72, "bytes", "HBM_BW"),
+            (39.1, "operations", "PEAK_FLOPS")]
+    flash = [c for c in kb.served_cases() if c.kind == "flash_bf16"]
+    per_prefill = {}
+    for c, (want_us, want_by, want_const) in zip(flash, want, strict=True):
+        _, n_bytes, n_ops = kb.flash_bf16_work(*c.shape)
+        us, by, const = kb.bound(n_bytes, n_ops, kb.PEAK_FLOPS, "PEAK_FLOPS")
+        # the figures as written: to 4 significant digits
+        assert (us, by, const) == (pytest.approx(want_us, rel=5e-4),
+                                   want_by, want_const)
+        per_prefill[c.path] = per_prefill.get(c.path, 0.0) + \
+            c.path_launches * us / 1e3
+    assert {p: round(ms, 3) for p, ms in per_prefill.items()} == {
+        "granite_prefill": 1.668, "recurrentgemma_prefill": 3.336,
+        "gemma3_prefill": 0.590}
+
+
+@pytest.mark.parametrize("S,window", [(1, None), (7, None), (7, 3), (7, 7),
+                                      (7, 9), (33, 8)])
+def test_flash_bf16_work_counts_the_mask(S, window):
+    """The closed-form pairs equal the causal and window mask's count, and
+    the bytes count q at H heads and k, v at KV heads in bf16 and the f32
+    output."""
+    from benchmarks_torch import kernel_bench as kb
+    idx = torch.arange(S)
+    d = idx[:, None] - idx[None, :]
+    mask = (d >= 0) & (d < (window or S + 1))
+    pairs, n_bytes, n_ops = kb.flash_bf16_work(2, 6, 3, S, 16, window)
+    assert pairs == 2 * 6 * int(mask.sum())
+    assert n_bytes == 2 * (2 * 6 * S * 16 + 2 * 2 * 3 * S * 16) \
+        + 4 * 2 * 6 * S * 16
+    assert n_ops == 4 * 16 * pairs
+
+
+def test_kernel_bench_path_sum():
+    """Σ launches x µs of each column a case has; None where a case has
+    no library call; a column no case has is left out; the sum is bound
+    by the larger of its summed byte and operation times."""
+    from benchmarks_torch import kernel_bench as kb
+    P = kb.PortCase
+    cases = [P("a", "imc_conv2d", (), "p", 4), P("b", "imc_mvm", (), "p", 1)]
+    out = {"a": {"kernel_us": 2.0, "library_us": None, "bound_us": 1.0,
+                 "bound": "bytes", "bytes_us": 1.0, "ops_us": 0.25},
+           "b": {"kernel_us": 3.0, "library_us": 5.0, "bound_us": 5.0,
+                 "bound": "operations", "bytes_us": 0.5, "ops_us": 5.0}}
+    assert kb.path_sum(cases, out) == {
+        "cases": ["a", "b"], "path_launches": 5, "kernel_us": 11.0,
+        "library_us": None, "bound_us": 9.0, "bytes_us": 4.5, "ops_us": 6.0,
+        "bound": "operations"}
+
+
+def test_served_cases_are_the_shared_case_lists():
+    """``served_cases`` is ``flash_cases`` of each served prefill and
+    ``cnn_cases`` of ResNet-18-CIFAR at batch 256, the case lists that
+    ``chip_smoke.py``'s phases 5, 9, 14 and 15 time."""
+    from benchmarks_torch import kernel_bench as kb
+    from repro_torch.configs import get_config
+    from repro_torch.models.cnn import graphs
+    want = []
+    for arch, S, path in kb.FLASH_SERVED:
+        want += kb.flash_cases(get_config(arch), 4, S, path)
+    want += kb.cnn_cases(graphs.resnet18_graph(), 256)
+    assert kb.served_cases() == want
+    small = kb.cnn_cases(graphs.resnet8_graph(), 8, "p")
+    assert all(c.path == "p" and c.shape[0] == 8 for c in small)
+    assert sum(c.path_launches for c in small if c.kind == "imc_conv2d") == \
+        graphs.resnet8_graph().num_nodes(graphs.OpKind.CONV)

@@ -508,11 +508,27 @@ def test_dryrun_ratios_against_the_fixture():
 
 
 def test_kernel_bench_check_fails_when_it_should():
+    """The reference's cases in order, then the served port cases and the
+    two path sums; a case not launched, unequal to its plain version, on
+    another instance than its rule's (its timed raw launch too) or without
+    a column fails it, as does a host-only run."""
+    from benchmarks_torch import kernel_bench as kb
+    port = kb.served_cases()
     good = {name: {"kernel_us": 1.0, "matches_plain": True, "launches": 3}
             for name in chip_smoke.BENCH_CASES}
     for name in good:
         if name.startswith("flash."):        # f32 at hd 128
             good[name]["instances"] = {"tensor_core_f32": 3}
+    for case in port:
+        rec = dict.fromkeys(chip_smoke.PORT_FIELDS + chip_smoke.INT8_FIELDS,
+                            1.0)
+        rec.update(matches_plain=True, launches=3,
+                   instances={kb.rule_instance(case): 3},
+                   raw_instance=kb.rule_instance(case))
+        good[case.key] = rec
+    for path in kb.PATH_SUMS:
+        good[f"port.path.{path}"] = {"kernel_us": 1.0, "cold_us": 1.0,
+                                     "bound_us": 1.0}
     assert chip_smoke.check_kernel_bench(good) is good
     for bad in ({"launches": 0}, {"matches_plain": False},
                 {"instances": {"cuda_core": 3}},
@@ -521,9 +537,41 @@ def test_kernel_bench_check_fails_when_it_should():
             good["flash.2x8x1024x128"], **bad)})
         with pytest.raises(AssertionError, match="flash.2x8x1024x128"):
             chip_smoke.check_kernel_bench(case)
+    granite, conv = port[0].key, port[4].key
+    for key, bad in ((granite, {"instances": {"cuda_core": 3}}),
+                     (granite, {"launches": 0}),
+                     (conv, {"instances": {"gather_n32": 2, "cp_async_n32": 1}}),
+                     (conv, {"matches_plain": False}),
+                     (conv, {"raw_instance": "cp_async_n128"})):
+        case = dict(good, **{key: dict(good[key], **bad)})
+        with pytest.raises(AssertionError, match=key):
+            chip_smoke.check_kernel_bench(case)
+    for key, field in ((granite, "cold_us"), (conv, "graph_us")):
+        case = dict(good, **{key: {k: v for k, v in good[key].items()
+                                   if k != field}})
+        with pytest.raises(AssertionError, match=field):
+            chip_smoke.check_kernel_bench(case)
+    case = dict(good, **{"port.path.granite_prefill": {"kernel_us": 1.0}})
+    with pytest.raises(AssertionError, match="cold_us"):
+        chip_smoke.check_kernel_bench(case)
     with pytest.raises(AssertionError, match="cases"):     # a host-only run
         chip_smoke.check_kernel_bench({k: good[k]
                                        for k in chip_smoke.BENCH_CASES[:4]})
-    host = {name: {"plain_us": 1.0} for name in chip_smoke.BENCH_CASES}
+    with pytest.raises(AssertionError, match="cases"):     # no port case
+        chip_smoke.check_kernel_bench({k: good[k]
+                                       for k in chip_smoke.BENCH_CASES})
+    host = {name: {"plain_us": 1.0} for name in good}
     with pytest.raises(AssertionError):
         chip_smoke.check_kernel_bench(host)
+
+
+def test_path_ms_is_a_path_sum_in_ms():
+    """The ``kernels`` line's ms fields come from a kernel bench path sum
+    (µs); a path with no library call has none."""
+    total = {"kernel_us": 520.0, "plain_us": 14500.0, "library_us": None,
+             "bound_us": 122.4, "bound": "bytes"}
+    assert chip_smoke.path_ms(total) == {
+        "ms": 0.52, "plain_ms": 14.5, "library_ms": None,
+        "bound_ms": pytest.approx(0.1224), "bound_by": "bytes"}
+    assert chip_smoke.path_ms(dict(total, library_us=4687.0))[
+        "library_ms"] == pytest.approx(4.687)

@@ -214,6 +214,31 @@ def test_kernel_tiling_model(shape, kv, causal, window, softcap):
 # the wrapper
 # ---------------------------------------------------------------------------
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_check_flash_holds_to_the_tolerances(dtype):
+    """``ref.check_flash``, the card's check of a flash output: the f32
+    plain version's own output passes (bf16 inputs also within 2e-2 of
+    the plain version in bf16); 3e-4 off it, or a NaN, fails."""
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn((1, 4, 64, 32), generator=g).to(dtype)
+               for _ in range(3))
+    k, v = k[:, :2], v[:, :2]
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                   window=16)
+    err, err16 = ref.check_flash(want, q, k, v, True, 16, None, "case")
+    assert err == 0.0
+    assert (err16 is None) == (dtype == torch.float32)
+    if err16 is not None:
+        assert 0.0 < err16 <= ref.FLASH_BF16_TOL
+    bad = want.clone()
+    bad[0, 1, 5, 7] += 3e-4
+    with pytest.raises(AssertionError, match="case: max"):
+        ref.check_flash(bad, q, k, v, True, 16, None, "case")
+    bad[0, 1, 5, 7] = float("nan")
+    with pytest.raises(AssertionError, match="case: bad output"):
+        ref.check_flash(bad, q, k, v, True, 16, None, "case")
+
+
 def test_wrapper_takes_cuda_tensors_only():
     _, (q, k, v) = _as(_qkv((1, 1, 8, 16), 1), jnp.float32)
     before = fa.flash_attention.launches

@@ -1,8 +1,8 @@
 """The port stands alone: no file of ``src/repro_torch/``, of
 ``examples/torch/``, of ``benchmarks_torch/``, nor ``chip_smoke.py`` and
 the gloo workers it runs (``tests/test_torch_gloo_workers.py``) imports
-``jax``, anything of ``repro`` or the reference's ``benchmarks``; its entry points (the host mesh, the examples' and the
-kernel bench's ``--device`` included) default to the card; and
+``jax``, anything of ``repro`` or the reference's ``benchmarks``; its entry points (the host mesh, the examples', the
+kernel bench's and the spread script's ``--device`` included) default to the card; and
 ``chip_smoke.py`` fails, printing no result, where there is no card or
 no repository around it."""
 
@@ -114,19 +114,19 @@ def test_entry_points_default_to_cuda():
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     assert inspect.signature(make_production_mesh).parameters[
         "device_type"].default == "cuda"
-    from benchmarks_torch import kernel_bench
-    assert inspect.signature(kernel_bench.main).parameters[
-        "device"].default == "cuda"
+    from benchmarks_torch import kernel_bench, spread
+    for main in (kernel_bench.main, spread.main):
+        assert inspect.signature(main).parameters["device"].default == "cuda"
 
 
 DEVICE_SCRIPTS = [ROOT / "examples" / "torch" / n for n in DEVICE_EXAMPLES] \
-    + [ROOT / "benchmarks_torch" / "kernel_bench.py"]
+    + [ROOT / "benchmarks_torch" / n for n in ("kernel_bench.py", "spread.py")]
 
 
 @pytest.mark.parametrize("path", DEVICE_SCRIPTS, ids=lambda p: p.name)
 def test_device_examples_default_to_cuda(path):
-    """The examples that touch tensors and the kernel bench take
-    ``--device``, default ``cuda``."""
+    """The examples that touch tensors, the kernel bench and the spread
+    script take ``--device``, default ``cuda``."""
     tree = ast.parse(path.read_text())
     defaults = [kw.value.value for node in ast.walk(tree)
                 if isinstance(node, ast.Call)

@@ -388,6 +388,23 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                    torch.zeros((3, 3, 8, 2), dtype=torch.int8), 0.1, torch.ones(2))
 
 
+@pytest.mark.parametrize("launcher", ["conv", "mvm"])
+def test_cuda_launchers_refuse_cpu_tensors(launcher):
+    """The uncounted launches the kernel bench times check their inputs as
+    the wrappers do (they are the wrappers' own launch)."""
+    before = (imc_conv2d.launches, imc_mvm.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        if launcher == "mvm":
+            imc_mvm_mod.mvm_launcher(torch.zeros((4, 8), dtype=torch.int8),
+                                     torch.zeros((8, 2), dtype=torch.int8),
+                                     0.1, torch.ones(2))
+        else:
+            conv2d.conv_launcher(torch.zeros((1, 4, 4, 8), dtype=torch.int8),
+                                 torch.zeros((3, 3, 8, 2), dtype=torch.int8),
+                                 0.1, torch.ones(2), stride=1, pads=(1,) * 4)
+    assert (imc_conv2d.launches, imc_mvm.launches) == before
+
+
 def test_build_flags_target_sm90a():
     assert _build.sources() == ["flash_attention", "imc_conv2d", "imc_mvm"]
     flags = " ".join(_build.NVCC_FLAGS)
