@@ -385,6 +385,14 @@ def flash_case(B, H, S, hd, dev, gen, iters):
     return rec
 
 
+def plan(hd: int) -> str:
+    """The plan of the bf16 flash instance serving ``hd``: the wgmma
+    instance's padded width or the tensor-core instance's steps."""
+    if fa.instance(torch.bfloat16, hd) == fa.WGMMA:
+        return f"wgmma width {fa.wg_width(hd)}"
+    return f"{fa.tc_steps(hd)} steps"
+
+
 def _launched(case, by_instance, launches):
     """The port case's launches by instance, which must all be on the
     instance the dispatch rule names."""
@@ -437,7 +445,7 @@ def port_flash_case(case, dev, gen, iters, flush):
     rec.update(launches=flash_attention.launches,
                instances=_launched(case, flash_attention.instance_launches,
                                    flash_attention.launches),
-               tc_steps=fa.tc_steps(hd), max_abs_err=err, max_abs_err_bf16=err16,
+               plan=plan(hd), max_abs_err=err, max_abs_err_bf16=err16,
                check=f"max |d| <= {ref.FLASH_F32_TOL} (f32 plain), <= "
                      f"{ref.FLASH_BF16_TOL} (bf16 plain)", matches_plain=True)
     _, n_bytes, n_ops = flash_bf16_work(B, H, KV, S, hd, window)

@@ -8,12 +8,15 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
 1. the card's name and power limit; build every kernel in
    ``src/repro_torch/csrc`` with nvcc (one process per source, in
    parallel) and print the build time and ptxas resource lines, and the
-   registers and spill bytes of each instance of the two flash
-   tensor-core kernels (bf16 and f32) and of each INT8 instance (the
-   serving path's flash instance, the 4-step and 16-step flash instances
-   of the other families, the f32 instances at hd 128, the kernel bench's,
-   and at 256, its widest, and the ResNet path's INT8 instances must not
-   spill);
+   registers and spill bytes of each instance of the three flash
+   tensor-core kernels (bf16 on wgmma up to hd 128, bf16 on mma.sync at
+   hd 129-288, f32) and of each INT8 instance (the serving path's hd-288
+   flash instance, granite's wgmma instance, the 16-step instance of the
+   other families, the f32 instances at hd 128, the kernel bench's, and
+   at 256, its widest, and the ResNet path's INT8 instances must not
+   spill; granite's wgmma instance must not have its wgmma serialized,
+   and every wgmma instance's SASS, from ``cuobjdump -sass``, must issue
+   ``HGMMA``);
 2. hold the INT8 kernels' C dispatch rules against their Python mirrors,
    then each kernel against its plain PyTorch version on the card with
    ``torch.equal``: every ResNet-18-CIFAR conv shape at batch 256, the fc
@@ -64,14 +67,15 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
    prefill shapes (B=4, H=4, MQA, S=2048, hd=288) in bf16 and f32, with
    the 512 window and global, and ragged shapes (S = 1000, 300, 100, 1;
    hd 16/64/100/128/256/288/320, f32 at 256, 288 and 320 too; softcap;
-   non-causal; GQA), then the other families' prefill shapes in bf16
-   (hd 64 GQA 24/8; hd 64 non-causal at S = 1,500; hd 256 MQA with a
-   2,048 window at S = 4,096; hd 256 MQA at S = 512; a ragged hd 200 on
-   the 16-step instance); each check logs
-   the instance that ran it and its max |d| (bf16 within the register
-   plan on the tensor cores, f32 within its plan on the f32 tensor-core
-   instance, wider heads of both on the CUDA cores), and the Python mirror
-   of the three-way dispatch rule is held against the C entry's;
+   non-causal; GQA groups of 1, 3, 4 and 8), then the other families'
+   prefill shapes in bf16 (hd 64 GQA 24/8 and 64/4; hd 64 non-causal at
+   S = 1,500; hd 256 MQA with a 2,048 window at S = 4,096; hd 256 MQA at
+   S = 512; a ragged hd 200 on the 16-step instance); each check logs
+   the instance that ran it and its max |d| (bf16 up to hd 128 on the
+   wgmma instance, to hd 288 on the mma.sync tensor cores, f32 within its
+   plan on the f32 tensor-core instance, wider heads of both on the CUDA
+   cores), and the Python mirror of the four-way dispatch rule is held
+   against the C entry's;
 7. gemma3-1b at full width and one window period of depth (6 layers: 5
    local, 1 global), bf16 weights from a CPU generator seeded 0: prefill
    of a 640-token prompt and 4 greedy decode steps on the card against the
@@ -121,7 +125,7 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
 14. this slice's main path: granite-moe-3b-a800m at full width and depth
    (32 layers, random bf16 weights from seed 0) serving 8 requests of
    1024-2048 tokens, 32 new each, through ``Server``: 32 flash launches
-   a prefill, all on the tensor-core instance; prefill and decode rates,
+   a prefill, all on the wgmma instance; prefill and decode rates,
    time to first token, step latency, peak memory; one prefill and one
    decode step under ``torch.profiler`` by kernel class (GEMMs, flash,
    the MoE dispatch's gather/scatter/sort/scan glue); the flash kernel's
@@ -134,7 +138,8 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
    non-causal and 12 causal launches), paligemma-3b (4 x (256 + 256),
    18 launches) and qwen3-moe-235b-a22b cut to 1 layer (~470 GB in bf16
    at full depth) through the step functions, 32 decode steps (4 for
-   qwen3), finite logits;
+   qwen3), finite logits, and each distinct flash call of their prefill
+   timed again: their flash time a prefill;
 16. one training step at full width, 2 layers, 1 x 256 tokens, card
    against CPU with T1's limits, for granite-moe (the backward through
    the dispatch's gathers) and falcon-mamba (through the scan); no
@@ -144,7 +149,7 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
    left-padded to 4 x 2,048) through ``make_prefill_step`` and
    ``make_decode_step`` unsharded, then on a real one-rank NCCL process
    group (``make_host_mesh()``) with parameters, batch and cache placed by
-   ``sharding`` as DTensors under ``activation_mesh``: 32 tensor-core
+   ``sharding`` as DTensors under ``activation_mesh``: 32 wgmma
    flash launches a prefill (run shard by shard through ``local_map``), 32
    greedy decode steps whose tokens must equal the unsharded run's; max
    |logit d|, prefill and decode-step times, peak memory;
@@ -278,6 +283,51 @@ def ptxas_report(text: str) -> dict:
         if m:
             out[fn]["registers"] = int(m.group(1))
     return out
+
+
+def wgmma_instances(lib, report):
+    """Phase 1 for the wgmma flash instance: its ptxas rows (registers,
+    spills, and whether ptxas serialized its wgmma), and the ``HGMMA``
+    instructions of each instantiation in the library's SASS (``cuobjdump
+    -sass``).  Every instantiation must issue ``HGMMA``; the one on
+    granite's path (hd 64, staged by cp.async) must not spill and its wgmma
+    must not be serialized."""
+    import re
+    from repro_torch.kernels import _build, flash_attention as fa
+    rows = {fn: dict(r) for fn, r in report.items() if "flash_wg_kernel" in fn}
+    if not rows:
+        raise AssertionError("ptxas reported no wgmma flash instance")
+    log_text = Path(f"{lib}.log").read_text()
+    for fn, r in rows.items():
+        r["serialized"] = any("C7512" in line and fn in line
+                              for line in log_text.splitlines())
+    cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    fn = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+        elif fn in rows and "HGMMA" in line:
+            rows[fn]["hgmma"] = rows[fn].get("hgmma", 0) + 1
+    for fn, r in sorted(rows.items()):
+        log(f"ptxas flash wgmma instance {fn}: {r.get('registers')} registers,"
+            f" {r.get('spill_stores')} bytes spill stores, "
+            f"{r.get('spill_loads')} bytes spill loads, wgmma "
+            f"{'serialized' if r['serialized'] else 'not serialized'}; "
+            f"{r.get('hgmma', 0)} HGMMA in its SASS")
+        if not r.get("hgmma"):
+            raise AssertionError(f"SASS: {fn} issues no HGMMA")
+    tag = f"flash_wg_kernelILi{fa.wg_width(64)}ELb1E"
+    path = [r for f, r in rows.items() if tag in f]
+    if len(path) != 1 or path[0].get("spill_stores") != 0 \
+            or path[0].get("spill_loads") != 0 or path[0]["serialized"]:
+        raise AssertionError(f"ptxas: granite's wgmma flash instance {tag} "
+                             f"spills, is serialized or is missing: {path}")
+    log(f"ptxas: granite's wgmma flash instance ({tag}) does not spill and "
+        f"its wgmma are not serialized; every wgmma instance issues HGMMA")
+    return rows
 
 
 def int8_ptxas(libs, path_instances):
@@ -830,11 +880,11 @@ def flash_inputs(gen, dev, B, H, KV, S, hd, dtype, path_layout, scale=1.0):
     return make(H), make(KV), make(KV)
 
 
-def flash_check(q, k, v, causal, window, softcap, label):
-    """Kernel against its plain version on the same inputs; returns the
-    tight error (f32 inputs, or bf16 against the f32 upcast).  The
-    instance that ran (by its launch count) must be the one the dispatch
-    rule names."""
+def flash_check(q, k, v, causal, window, softcap, label, errs):
+    """Kernel against its plain version on the same inputs; keeps in
+    ``errs`` the largest tight error (f32 inputs, or bf16 against the f32
+    upcast) of the instance that ran, which (by its launch count) must be
+    the one the dispatch rule names."""
     import torch
     from repro_torch.kernels import flash_attention as fa, ref
     flash_attention = fa.flash_attention
@@ -853,14 +903,15 @@ def flash_check(q, k, v, causal, window, softcap, label):
     if err16 is not None:
         line += f", {err16:.2e} (bf16 plain)"
     log(line)
-    return err
+    errs[ran[0]] = max(errs.get(ran[0], 0.0), err)
 
 
 #: B, H, KV, S, hd, causal, window, path layout: the other LM families'
 #: prefill shapes (granite-moe and qwen3-moe, whisper's non-causal encoder,
-#: recurrentgemma's 2,048 window, paligemma's prefix + text) and a ragged
-#: case on the 16-step instance
+#: on the wgmma instance; recurrentgemma's 2,048 window, paligemma's
+#: prefix + text) and a ragged case on the 16-step instance
 FAMILY_FLASH_SHAPES = [(4, 24, 8, 2048, 64, True, None, True),
+                       (2, 64, 4, 2048, 64, True, None, True),
                        (4, 12, 12, 1500, 64, False, None, True),
                        (2, 16, 1, 4096, 256, True, 2048, True),
                        (4, 8, 1, 512, 256, True, None, True),
@@ -869,27 +920,29 @@ FAMILY_FLASH_SHAPES = [(4, 24, 8, 2048, 64, True, None, True),
 
 def flash_checks(dev, hd_path, local_window):
     """Phase 6: the flash kernel against its plain version at the serving
-    path's shapes (both dtypes, window and global) and at ragged ones."""
+    path's shapes (both dtypes, window and global) and at ragged ones.
+    Returns each instance's largest error against the f32 plain version."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     rule = _build.load("flash_attention", "flash_attention_instance",
                        [ctypes.c_int, ctypes.c_int])
     for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
-        for hd in (0, 8, 16, 64, 100, 128, 200, 256, 288, 289, 300, 320, 512):
+        for hd in (0, 8, 16, 64, 100, 128, 129, 200, 256, 288, 289, 300, 320,
+                   512):
             if fa.INSTANCES.get(rule(code, hd)) != fa.instance(dtype, hd):
                 raise AssertionError(f"flash dispatch: the C rule and "
                                      f"instance() differ at {dtype} {hd}")
     log("check flash dispatch: instance() agrees with the C rule for the "
-        "three instances")
+        "four instances")
     gen = torch.Generator(device=dev).manual_seed(7)
-    err = 0.0
+    errs: dict = {}
     for dtype in (torch.bfloat16, torch.float32):
         for window in (local_window, None):
             qkv = flash_inputs(gen, dev, PATH_B, 4, 1, PATH_S, hd_path, dtype,
                                path_layout=True)
-            err = max(err, flash_check(*qkv, True, window, None,
-                                       f"path {str(dtype)[6:]} window {window}"))
+            flash_check(*qkv, True, window, None,
+                        f"path {str(dtype)[6:]} window {window}", errs)
     ragged = [  # B, H, KV, S, hd, dtype, causal, window, softcap, scale
         (1, 3, 3, 1000, 64, torch.float32, True, None, None, 1.0),
         (3, 5, 5, 100, 16, torch.bfloat16, True, None, None, 1.0),
@@ -900,11 +953,17 @@ def flash_checks(dev, hd_path, local_window):
         (1, 2, 2, 1000, 128, torch.float32, True, None, 50.0, 3.0),
         (2, 2, 1, 100, 16, torch.float32, False, 32, 50.0, 3.0),
         (1, 1, 1, 1, 16, torch.float32, True, None, None, 1.0),
-        # bf16 on the tensor cores: stablelm-1.6b's width with GQA, hd 288
-        # with softcap, rows that are not 16-byte aligned (hd 100), S = 1;
+        # bf16 on the wgmma instance: stablelm-1.6b's width with GQA, groups
+        # of 1, 3 and 8 query heads a KV head (ragged S, S = 1, softcap),
+        # rows that are not 16-byte aligned (hd 100, also with a group);
+        # bf16 on the tensor-core instance: hd 288 with softcap, S = 1;
         # bf16 and f32 wider than the register plans, on the CUDA cores (f32
         # at hd 288 above too)
         (2, 8, 2, 1000, 64, torch.bfloat16, True, None, None, 1.0),
+        (1, 3, 1, 257, 64, torch.bfloat16, True, None, None, 1.0),
+        (2, 6, 2, 1, 64, torch.bfloat16, True, None, None, 1.0),
+        (1, 8, 1, 1000, 64, torch.bfloat16, True, None, 2.0, 1.0),
+        (1, 6, 2, 300, 100, torch.bfloat16, True, 100, None, 1.0),
         (1, 4, 1, 1000, 288, torch.bfloat16, True, 512, 2.0, 1.0),
         (1, 2, 2, 300, 100, torch.bfloat16, False, None, None, 1.0),
         (1, 2, 1, 1, 288, torch.bfloat16, True, None, None, 1.0),
@@ -918,14 +977,14 @@ def flash_checks(dev, hd_path, local_window):
                            scale=scale)
         label = (f"({B},{H},{KV},{S},{hd}) {str(dtype)[6:]} causal={causal} "
                  f"window={window} softcap={softcap}")
-        err = max(err, flash_check(*qkv, causal, window, softcap, label))
+        flash_check(*qkv, causal, window, softcap, label, errs)
     for B, H, KV, S, hd, causal, window, path_layout in FAMILY_FLASH_SHAPES:
         qkv = flash_inputs(gen, dev, B, H, KV, S, hd, torch.bfloat16,
                            path_layout=path_layout)
         label = (f"({B},{H},{KV},{S},{hd}) bfloat16 causal={causal} "
-                 f"window={window} ({fa.tc_steps(hd)}-step instance)")
-        err = max(err, flash_check(*qkv, causal, window, None, label))
-    return err
+                 f"window={window} ({kb.plan(hd)})")
+        flash_check(*qkv, causal, window, None, label, errs)
+    return errs
 
 
 class RouteMatch:
@@ -1152,7 +1211,7 @@ def log_port_cases(cases, recs, total, label):
         + "  x path, bound by, instance, max |d|, library")
     for case in cases:
         rec = recs[case.key]
-        steps = f", {rec['tc_steps']} steps" if "tc_steps" in rec else ""
+        steps = f", {rec['plan']}" if "plan" in rec else ""
         log(f"  {kb.port_row(case.key, rec)}  x{case.path_launches}, "
             f"{rec['bound']}, {rec['instances']}{steps}, "
             f"{rec['max_abs_err']:.2e}, {rec['library']}")
@@ -1168,6 +1227,10 @@ def path_ms(total) -> dict:
             "library_ms": (None if total.get("library_us") is None
                            else total["library_us"] / 1e3),
             "bound_ms": total["bound_us"] / 1e3, "bound_by": total["bound"]}
+
+
+#: the ``kernels`` line's fields of a flash path (``flash_timings``)
+FLASH_MS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
 def flash_timings(dev, cfg, B=None, S=None):
@@ -1552,17 +1615,21 @@ def read_counts():
             "conv": imc_conv2d.launches, "mvm": imc_mvm.launches}
 
 
-def check_flash_counts(counts, per_prefill, prefills, label):
+def check_flash_counts(counts, per_prefill, prefills, label, hd):
     """The path's launches: ``per_prefill`` flash launches a prefill, all on
-    the tensor-core instance, and no INT8 kernel."""
+    the instance the rule names for bf16 at head width ``hd`` (the wgmma
+    instance up to hd 128, the tensor-core instance above), and no INT8
+    kernel."""
+    import torch
     from repro_torch.kernels import flash_attention as fa
     if prefills == 0 or counts["flash"] != per_prefill * prefills:
         raise AssertionError(f"{label}: {counts['flash']} flash launches for "
                              f"{prefills} prefills, want {per_prefill} each")
-    if counts["flash_instances"][fa.TENSOR_CORE] != counts["flash"]:
+    inst = fa.instance(torch.bfloat16, hd)
+    if counts["flash_instances"][inst] != counts["flash"]:
         raise AssertionError(f"{label}: flash launches by instance "
                              f"{counts['flash_instances']}, not all on the "
-                             f"tensor cores")
+                             f"{inst} instance")
     if counts["conv"] or counts["mvm"]:
         raise AssertionError(f"{label}: the LM path launched an INT8 kernel")
 
@@ -1580,7 +1647,8 @@ def serve_counted(cfg, dev, n_requests, lens, max_new, max_batch,
     stats = server.serve(reqs)
     sync()
     counts = read_counts()
-    check_flash_counts(counts, flash_per_prefill, stats.prefills, cfg.name)
+    check_flash_counts(counts, flash_per_prefill, stats.prefills, cfg.name,
+                       cfg.hd)
     for r in reqs:
         if len(r.out_tokens) != max_new or not all(
                 0 <= t < cfg.vocab for t in r.out_tokens):
@@ -1682,7 +1750,8 @@ def step_path(cfg, dev, batch, prompt, steps, frames, flash_per_prefill, sync):
     generator seeded 0, one warm-up prefill, then, with the counts set to
     0, one prefill and ``steps`` greedy decode steps, timed on the host
     clock ending in ``sync``.  Flash launches are split by ``causal`` with
-    a counting wrapper around ``ops.attention``."""
+    a counting wrapper around ``ops.attention``, which also keeps each
+    call for ``replay_flash``: the prefill's flash time."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.models.lm import model, transformer
@@ -1697,10 +1766,11 @@ def step_path(cfg, dev, batch, prompt, steps, frames, flash_per_prefill, sync):
     prefill(params, batch_in)               # warm-up
     sync()
     torch.cuda.reset_peak_memory_stats(dev)
-    by_causal, real = {True: 0, False: 0}, ops.attention
+    by_causal, real, calls = {True: 0, False: 0}, ops.attention, []
 
     def counting(q, k, v, **kw):
         by_causal[kw.get("causal", True)] += 1
+        calls.append((q, k, v, kw))
         return real(q, k, v, **kw)
 
     ops.attention = counting
@@ -1724,12 +1794,13 @@ def step_path(cfg, dev, batch, prompt, steps, frames, flash_per_prefill, sync):
         ops.attention = real
     if not torch.isfinite(logits).all() or logits.shape != (batch, 1, cfg.vocab):
         raise AssertionError(f"{cfg.name}: bad logits {tuple(logits.shape)}")
-    check_flash_counts(counts, flash_per_prefill, 1, cfg.name)
+    check_flash_counts(counts, flash_per_prefill, 1, cfg.name, cfg.hd)
     if cache.cur_pos != prompt + cfg.num_prefix_tokens + steps:
         raise AssertionError(f"{cfg.name}: cache at {cache.cur_pos}")
+    flash = replay_flash(calls[:counts["flash"]])
     out = {"batch": batch, "prompt": prompt, "frames": frames,
            "prefix": cfg.num_prefix_tokens, "layers": cfg.n_layers,
-           "flash_launches": counts["flash"],
+           "flash_launches": counts["flash"], "flash": flash,
            "flash_by_causal": {str(k): v for k, v in by_causal.items()},
            "ttft_ms": ttft * 1e3, "decode_steps": steps,
            "decode_step_ms_mean": sum(secs) / max(len(secs), 1) * 1e3,
@@ -1739,10 +1810,36 @@ def step_path(cfg, dev, batch, prompt, steps, frames, flash_per_prefill, sync):
         f") batch {batch}: {frames or cfg.num_prefix_tokens or 0} "
         f"{'frames' if frames else 'prefix'} + {prompt} tokens; prefill "
         f"{out['ttft_ms']:.1f} ms, flash launches {counts['flash']} "
-        f"(causal {by_causal[True]}, non-causal {by_causal[False]}); "
+        f"(causal {by_causal[True]}, non-causal {by_causal[False]}; "
+        f"{flash['sum_us']:.1f} µs of flash a prefill: "
+        + ", ".join(f"{c['launches']} x {c['us']:.2f} µs at q {c['q']}"
+                    f"{'' if c['causal'] else ' non-causal'}"
+                    for c in flash["cases"]) + "); "
         f"{steps} decode steps, {out['decode_step_ms_mean']:.3f} ms mean; "
         f"peak memory {out['peak_bytes'] / 2**30:.2f} GiB; logits finite")
     return params, out
+
+
+def replay_flash(calls, iters=20):
+    """Each distinct flash call of one prefill (``calls``: q, k, v and the
+    keyword arguments, as the model made them) timed again on its own
+    inputs, back to back with CUDA events (``kernel_bench.cuda_us``), and
+    the prefill's flash time: the sum of launches x µs."""
+    from repro_torch.kernels import ops
+    groups: dict = {}
+    for q, k, v, kw in calls:
+        key = (tuple(q.shape), q.stride(), tuple(k.shape), k.stride(),
+               tuple(sorted(kw.items())))
+        groups.setdefault(key, [q, k, v, kw, 0])[4] += 1
+    cases = []
+    for q, k, v, kw, n in groups.values():
+        us = kb.cuda_us(lambda: ops.attention(q, k, v, **kw), iters)
+        cases.append({"q": list(q.shape), "kv": list(k.shape),
+                      "causal": kw.get("causal", True),
+                      "window": kw.get("window"), "softcap": kw.get("softcap"),
+                      "launches": n, "us": us})
+    return {"cases": cases, "sum_us": sum(c["launches"] * c["us"]
+                                          for c in cases)}
 
 
 def families_train(dev):
@@ -1997,7 +2094,7 @@ def sharded_serving(dev, sync):
             peak = torch.cuda.max_memory_allocated(dev)
     finally:
         dist.destroy_process_group()
-    check_flash_counts(counts, cfg.n_layers, 1, f"sharded {cfg.name}")
+    check_flash_counts(counts, cfg.n_layers, 1, f"sharded {cfg.name}", cfg.hd)
     if not torch.isfinite(full).all() or full.shape != (SHARD_BATCH, 1,
                                                         cfg.vocab):
         raise AssertionError(f"sharded {cfg.name}: bad logits "
@@ -2255,7 +2352,7 @@ def bench_on_card(card, phase_sums):
             rec = bench[case.key]
             log(f"  {kb.port_row(case.key, rec)}  x{case.path_launches} "
                 f"({case.path}), {rec['bound']}, {rec['instances']}, "
-                f"{rec['tc_steps']} steps, {rec['max_abs_err']:.2e}, "
+                f"{rec['plan']}, {rec['max_abs_err']:.2e}, "
                 f"{rec['library']}")
     suites = {n: json.loads((art / f"{f}.json").read_text()) for n, f in
               (("fig2", "fig2_resnet8"), ("fig3", "fig3_resnet18"),
@@ -2543,17 +2640,18 @@ def run_phases(dryruns, gloo) -> int:
             or path_inst[0].get("spill_loads") != 0:
         raise AssertionError(f"ptxas: the serving path's flash instance "
                              f"{path_tag} spills or is missing: {path_inst}")
-    # the other families' path instances, cp.async-staged like the one
-    # above: hd 64 (4 steps) and hd 256 (16 steps)
-    for steps in (4, 16):
-        tag = f"ILi{steps}ELb1E"
-        inst = [r for fn, r in tc_ptxas.items() if tag in fn]
-        if len(inst) != 1 or inst[0].get("spill_stores") != 0 \
-                or inst[0].get("spill_loads") != 0:
-            raise AssertionError(f"ptxas: the other families' flash instance "
-                                 f"{tag} spills or is missing: {inst}")
-    log("ptxas: the 4-step and 16-step cp.async flash instances (the other "
-        "families' paths) do not spill")
+    # the other families' hd-256 path instance, cp.async-staged like the
+    # one above (16 steps)
+    tag = "ILi16ELb1E"
+    inst = [r for fn, r in tc_ptxas.items() if tag in fn]
+    if len(inst) != 1 or inst[0].get("spill_stores") != 0 \
+            or inst[0].get("spill_loads") != 0:
+        raise AssertionError(f"ptxas: the other families' flash instance "
+                             f"{tag} spills or is missing: {inst}")
+    log("ptxas: the 16-step cp.async flash instance (the other families' "
+        "hd-256 paths) does not spill")
+    detail["flash_wg"] = wgmma_instances(libs["flash_attention"],
+                                         flash_report)
     tc32_ptxas = {fn: r for fn, r in flash_report.items()
                   if "flash_tc32_kernel" in fn}
     if not tc32_ptxas:
@@ -2803,7 +2901,7 @@ def run_phases(dryruns, gloo) -> int:
         f"{torch.backends.cuda.matmul.allow_tf32}")
     gemma = get_config("gemma3-1b")
     local_window = min(gemma.segments[0].window_pattern)
-    flash_err = flash_checks(dev, gemma.hd, local_window)
+    flash_errs = flash_checks(dev, gemma.hd, local_window)
 
     # ---- 7. full width, cut depth: card against the CPU plain path ---------
     period = cut(gemma, len(gemma.segments[0].window_pattern))
@@ -2964,12 +3062,19 @@ def run_phases(dryruns, gloo) -> int:
          "source": "src/repro_torch/csrc/imc_mvm.cu",
          "replaces": "src/repro/kernels/imc_mvm.py:69",
          "launches": counts18[1], "max_abs_err": err["imc_mvm"], **fc_ms},
+        # bf16 flash on wgmma: granite-moe's prefills (phase 14)
+        {"name": "flash_attention_wgmma", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:29",
+         "launches": main_launches, "max_abs_err": flash_errs[fa.WGMMA],
+         **{k: main_flash[k] for k in FLASH_MS}},
+        # bf16 flash on mma.sync at hd 288: gemma3-1b's prefills (phase 8)
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:29",
-         "launches": main_launches, "max_abs_err": flash_err,
-         **{k: main_flash[k] for k in ("ms", "plain_ms", "bound_ms",
-                                        "bound_by", "library_ms")}},
+         "launches": detail["serve"]["flash_launches"],
+         "max_abs_err": flash_errs[fa.TENSOR_CORE],
+         **{k: detail["flash_attention"][k] for k in FLASH_MS}},
     ]
     log(card)
     print(json.dumps({"kernels": kernels}))

@@ -11,12 +11,14 @@
 // views; the head dimension must be contiguous.  Built without
 // --use_fast_math: expf and tanhf are the accurate versions.
 //
-// Three instances of that function, chosen by dtype and head width in one
+// Four instances of that function, chosen by dtype and head width in one
 // place (`flash_attention_instance`, mirrored by `instance` in
 // kernels/flash_attention.py), never on a failure:
 //
+// * the wgmma instance (`flash_wg_kernel`): bfloat16 inputs with
+//   hd <= kWgMaxHeadDim (128; granite-moe's, whisper's and qwen3-moe's 64);
 // * the tensor-core instance (`flash_tc_kernel`): bfloat16 inputs with
-//   hd <= kTcMaxHeadDim (every registered arch: 64, 128, 288);
+//   kWgMaxHeadDim < hd <= kTcMaxHeadDim (recurrentgemma's 256, gemma3's 288);
 // * the f32 tensor-core instance (`flash_tc32_kernel`): float32 inputs with
 //   hd <= kTc32MaxHeadDim (256; the kernel bench's hd 128);
 // * the CUDA-core instance (`flash_attention_kernel`): float32 and bfloat16
@@ -32,9 +34,10 @@
 // bytes; the f32 tensor-core instance's split arithmetic below is 2.25x
 // that one pass.
 //
-// Tensor-core instance.  Q.K^T runs as mma.sync m16n8k16 bf16 -> f32 fed by
-// ldmatrix: a product of two bf16 values is exact in f32, so the logits
-// keep the TPU kernel's f32 accuracy (it upcasts before its dot).  P.V
+// Tensor-core instance (bf16, hd 129-288).  Q.K^T runs as mma.sync
+// m16n8k16 bf16 -> f32 fed by ldmatrix: a product of two bf16 values is
+// exact in f32, so the logits keep the TPU kernel's f32 accuracy (it
+// upcasts before its dot).  P.V
 // splits each f32 probability into hi = bf16(p) and lo = bf16(p - hi) and
 // runs two mma into one f32 accumulator: V is exact in bf16 and hi + lo is
 // p to ~2^-16, where a single bf16 term (~2^-9) would miss the 2e-4 check
@@ -59,6 +62,51 @@
 // walks query tiles from the last (heaviest under the causal mask) to the
 // first, so the causal tail is short.  Inputs whose rows are not 16-byte
 // aligned are staged element by element instead.
+//
+// wgmma instance.  The tensor-core instance's arithmetic (exact bf16
+// products summed in f32 for Q.K^T, P_hi.V + P_lo.V into one f32
+// accumulator) on Hopper's warpgroup MMA, the only way to the card's full
+// bf16 rate.  At granite-moe's prefill (B 4, H 24, KV 8, S 2,048, hd 64,
+// causal) one pass is 52 us at 989 TFLOP/s, 78 us with the split P.V, and
+// the softmax's 2.0e8 exponentials take the special function units 48 us
+// (16 a clock an SM at 1.98 GHz): it is bound by operations on both.
+//
+// A block is two consumer warpgroups and a producer warpgroup, one block
+// an SM, persistent: it walks work items heaviest first (`wg_item`).  An
+// item's 128 query rows pack the `group` query heads of one KV head by
+// position (row pr is position pr / group of head pr % group), so each
+// staged K/V tile serves every head that reads it (granite: 3) and MQA/GQA
+// needs no second pass over K and V; a consumer owns 64 of the rows.  S =
+// Q.K^T is wgmma m64n128k16 with Q and a 128-key K tile read from shared
+// memory through descriptors (both K-major, hd contiguous); P.V is
+// m64nNPk16 (NP the padded head width, 64 or 128) with P in registers,
+// since the S accumulator's layout is the register A layout of 16-bit
+// wgmma, and V read MN-major (the transpose bit).  Tiles are stored in the
+// 128-byte swizzle the descriptors read (`wg_swizzle`): 64-column blocks
+// of 128-byte rows, 16-byte chunk c of row r at c ^ (r % 8), 1,024-byte
+// aligned.
+//
+// The producer stages each item's Q into one of two buffers and its K/V
+// tiles into a ring of stages (three at NP 64, two at 128) with cp.async,
+// or element by element where rows are not 16-byte aligned; every buffer
+// has a full mbarrier (the producer's copies landed) and an empty one (the
+// consumers are done), so a consumer waits only for the tile it needs and
+// the next item's Q and first tiles load while the current item finishes.
+// The producer gives registers to the consumers (setmaxnreg).  Each
+// consumer runs a software pipeline: S_i = Q.K_i^T is issued together with
+// O += P_{i-1}.V_{i-1}, the softmax of S_i runs while the latter is on the
+// tensor cores, and every wait on a product is unconditional (a wait
+// under a condition makes ptxas serialize every wgmma of the kernel).  The
+// two consumers take turns to issue their products (named barriers), so
+// one's softmax overlaps the other's products.  The softmax works in base
+// 2 on the accumulator fragments: maximum over the raw products, the scale
+// times log2 e folded into the FMA before ex2.approx, masked products -inf
+// (see wg_mask), row max and sum over the quad by shuffles, the rescale of
+// O skipped when no row maximum moved.  P_hi is p truncated to bf16, which
+// one byte permute packs for two values.  Heaviest-first order and the
+// skip of key tiles outside the causal band or the window (by the item's
+// first and last positions) are the other instances'.  Two Q buffers (32
+// KB at hd 64), three K/V stages (96 KB) and the barriers take 129 KB.
 //
 // f32 tensor-core instance.  A single TF32 pass (10-bit mantissas) misses
 // the 2e-4 check against the f32 plain version, and three bf16 products
@@ -992,26 +1040,776 @@ cudaError_t tc_dispatch(const void* q, const void* k, const void* v,
                                        q_sh, q_ss, k_sb, k_sh, k_ss, v_sb,    \
                                        v_sh, v_ss, scale, causal, window,     \
                                        softcap, stream)
+  // bf16 below hd 129 goes to the wgmma instance, so only its 16- and
+  // 18-step instances are built; f32 stops at 16 (kTc32MaxHeadDim)
+  constexpr bool f32 = std::is_same<T, float>::value;
   switch (tc_steps(hd)) {
-    case 2: FLASH_TC_LAUNCH(2);
-    case 4: FLASH_TC_LAUNCH(4);
-    case 8: FLASH_TC_LAUNCH(8);
+    case 2:
+      if constexpr (f32) FLASH_TC_LAUNCH(2);
+      break;
+    case 4:
+      if constexpr (f32) FLASH_TC_LAUNCH(4);
+      break;
+    case 8:
+      if constexpr (f32) FLASH_TC_LAUNCH(8);
+      break;
     case 16: FLASH_TC_LAUNCH(16);
-    case 18:  // past the f32 instance's plan (kTc32MaxHeadDim)
-      if constexpr (std::is_same<T, bf16>::value) FLASH_TC_LAUNCH(18);
+    case 18:
+      if constexpr (!f32) FLASH_TC_LAUNCH(18);
   }
 #undef FLASH_TC_LAUNCH
   return cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// wgmma instance: bfloat16 inputs, hd <= kWgMaxHeadDim
+// ---------------------------------------------------------------------------
+
+constexpr int kWgMaxHeadDim = 128;  // widest hd of the instance
+constexpr int kWgBM = 64;           // packed query rows of a consumer warpgroup
+constexpr int kWgConsumers = 2;     // consumer warpgroups a block
+constexpr int kWgRows = kWgBM * kWgConsumers;  // packed query rows a block
+constexpr int kWgBN = 128;          // keys a tile
+constexpr int kWgThreads = 128 * (kWgConsumers + 1);  // and a producer
+constexpr int kWgProducerRegs = 40;   // setmaxnreg: the producer gives up
+constexpr int kWgConsumerRegs = 232;  // registers the consumers take
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Padded head width of the instance serving hd (whole 128-byte swizzle
+// rows, 64 or 128 columns) and the K/V stages of its ring at that width
+// (as many as shared memory holds beside two Q buffers).  Must agree with
+// wg_width and wg_stages in kernels/flash_attention.py.
+__host__ __device__ inline int wg_width(int hd) { return hd <= 64 ? 64 : 128; }
+__host__ __device__ constexpr int wg_stages(int width) {
+  return width == 64 ? 3 : 2;
+}
+
+// Dynamic shared memory: 1 KB of slack to align the tiles to the 1,024-byte
+// swizzle atom, two buffers of Q tiles, the K/V ring, and a full and an
+// empty mbarrier a stage and a Q buffer.
+__host__ __device__ inline size_t wg_smem_bytes(int hd) {
+  const int w = wg_width(hd);
+  return 1024 + (size_t)(2 * kWgRows + 2 * wg_stages(w) * kWgBN) * w * 2 +
+         (size_t)2 * (wg_stages(w) + 2) * 8;
+}
+
+// Byte offset of 16-byte chunk c of row r in a swizzled tile of `rows` rows:
+// 64-column blocks of `rows` x 128 bytes, chunk c % 8 of a row stored at
+// (c % 8) ^ (r % 8), the 128-byte swizzle that wgmma's descriptors read
+// (layout type 1) from a tile aligned to 1,024 bytes.
+__host__ __device__ inline uint32_t wg_swizzle(int r, int c, int rows) {
+  return (uint32_t)((c >> 3) * rows * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4));
+}
+
+// Shared-memory matrix descriptor: start address, leading and stride byte
+// offsets (16-byte units), 128-byte swizzle.
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo,
+                                            uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N committed groups of this warpgroup's wgmma are
+// pending (they complete in order).
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of a wgmma accumulator
+// across the asynchronous product's issue and wait.
+template <int N>
+__device__ __forceinline__ void wg_fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile(
+      "{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(
+          bar)
+      : "memory");
+}
+
+// Arrive on `bar` once every cp.async this thread issued has landed.
+__device__ __forceinline__ void mbar_arrive_cp_async(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   bar)
+               : "memory");
+}
+
+// Wait for the phase of `bar` with this parity to complete.  A wait that
+// lasts ~10 s of SM clock traps, so a fault in the ring's counts shows as a
+// launch error, not a hung card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  long long start = 0;
+  for (;;) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) start = clock64();
+    else if (clock64() - start > 20000000000ll) __trap();
+  }
+}
+
+// Named barriers over `n` threads (bar 0 is __syncthreads).
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// d (64 x 128, f32) = (scale_d ? d : 0) + A (64 x 16) . B (16 x 128), A and B
+// bf16 in shared memory, both K-major, read through descriptors
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 64, f32) += A (64 x 16) . B (16 x 64), A bf16 in registers (the
+// mma.sync m16n8k16 A layout, a warp per 16 rows), B bf16 in shared memory,
+// MN-major (transposed), read through a descriptor
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 128, f32) += A (64 x 16) . B (16 x 128), A bf16 in registers (the
+// mma.sync m16n8k16 A layout, a warp per 16 rows), B bf16 in shared memory,
+// MN-major (transposed), read through a descriptor
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+
+// Stage keys [k0, k0 + kWgBN) of a (S, hd) K or V slice with row stride ss
+// into a swizzled tile at shared address dst (generic pointer dst_g), zero
+// past S and past hd: by cp.async (VEC) or element by element, by the 128
+// threads of the producer warpgroup.
+template <int NP, bool VEC>
+__device__ __forceinline__ void wg_stage_kv(uint32_t dst, unsigned char* dst_g,
+                                            const bf16* __restrict__ src,
+                                            int k0, int S, int hd,
+                                            long long ss, int t) {
+  constexpr int CH = NP / 8;     // 16-byte chunks a row
+  constexpr int RP = 128 / CH;   // rows the warpgroup covers a pass
+  if (VEC) {
+    // this thread's chunk column, and so its swizzle, is the same in every
+    // pass: each copy moves the addresses by RP rows
+    const int r = t / CH;
+    const int c = t - r * CH;
+    const bool col_in = c * 8 < hd;
+    const uint32_t d0 = dst + wg_swizzle(r, c, kWgBN);
+    const bf16* s0 = src + (long long)(k0 + r) * ss + c * 8;
+#pragma unroll
+    for (int j = 0; j < kWgBN / RP; ++j) {
+      const bool in = col_in && k0 + r + RP * j < S;
+      cp_async16(d0 + RP * j * 128, in ? s0 + (long long)RP * j * ss : src,
+                 in ? 16 : 0);
+    }
+  } else {
+    for (int idx = t; idx < kWgBN * NP; idx += 128) {
+      const int r = idx / NP;
+      const int d = idx - r * NP;
+      const int row = k0 + r;
+      *reinterpret_cast<bf16*>(dst_g + wg_swizzle(r, d >> 3, kWgBN) +
+                               (d & 7) * 2) =
+          row < S && d < hd ? src[(long long)row * ss + d] : zero<bf16>();
+    }
+  }
+}
+
+// Stage an item's kWgRows packed query rows from row r0 on, each consumer
+// warpgroup's 64 as its own swizzled tile: row pr is position pr / group
+// of query head hk * group + pr % group (qb points at head hk * group),
+// zero at positions past S and past hd.  By the producer warpgroup's 128
+// threads; with cp.async each keeps one chunk column.
+template <int NP, bool VEC>
+__device__ __forceinline__ void wg_stage_q(uint32_t dst, unsigned char* dst_g,
+                                           const bf16* __restrict__ qb,
+                                           int r0, int group, int S, int hd,
+                                           long long q_sh, long long q_ss,
+                                           int t) {
+  constexpr int CH = NP / 8;
+  constexpr int RP = 128 / CH;
+  constexpr int QT = kWgBM * NP * 2;
+  if (VEC) {
+    const int rr = t / CH;
+    const int c = t - rr * CH;
+#pragma unroll
+    for (int j = 0; j < kWgRows / RP; ++j) {
+      const int r = rr + RP * j;
+      const int pos = (r0 + r) / group;
+      const int g = r0 + r - pos * group;
+      const bool in = pos < S && c * 8 < hd;
+      cp_async16(dst + (r / kWgBM) * QT + wg_swizzle(r % kWgBM, c, kWgBM),
+                 in ? qb + (long long)pos * q_ss + g * q_sh + c * 8 : qb,
+                 in ? 16 : 0);
+    }
+  } else {
+    for (int idx = t; idx < kWgRows * NP; idx += 128) {
+      const int r = idx / NP;
+      const int d = idx - r * NP;
+      const int pos = (r0 + r) / group;
+      const int g = r0 + r - pos * group;
+      *reinterpret_cast<bf16*>(dst_g + (r / kWgBM) * QT +
+                               wg_swizzle(r % kWgBM, d >> 3, kWgBM) +
+                               (d & 7) * 2) =
+          pos < S && d < hd ? qb[(long long)pos * q_ss + g * q_sh + d]
+                            : zero<bf16>();
+    }
+  }
+}
+
+// S (64 x kWgBN, f32) = Q . K^T over NP / 16 steps of 16 head columns:
+// the warpgroup's Q tile (descriptor q_desc) against the K tile at k_t.
+template <int NP>
+__device__ __forceinline__ void wg_qk(float (&sc)[kWgBN / 2], uint64_t q_desc,
+                                      uint32_t k_t) {
+  const uint64_t k_desc = wg_desc(k_t, 16, 1024);
+#pragma unroll
+  for (int kk = 0; kk < NP / 16; ++kk) {
+    const uint32_t col = (kk & 3) * 32;
+    wgmma_ss(sc, q_desc + (((kk >> 2) * kWgBM * 128 + col) >> 4),
+             k_desc + (((kk >> 2) * kWgBN * 128 + col) >> 4), kk > 0);
+  }
+}
+
+// O += (P_hi + P_lo) . V, 16 keys a step, V the tile at v_t: the S
+// fragments of two 8-key column tiles are the register A fragment of one
+// step.
+template <int NO>
+__device__ __forceinline__ void wg_pv(float (&o)[NO],
+                                      const uint32_t (&ph)[kWgBN / 16][4],
+                                      const uint32_t (&pl)[kWgBN / 16][4],
+                                      uint32_t v_t) {
+  const uint64_t v_desc = wg_desc(v_t, kWgBN * 128, 1024);
+#pragma unroll
+  for (int kk = 0; kk < kWgBN / 16; ++kk) {
+    wgmma_rs(o, ph[kk], v_desc + kk * (2048 >> 4));
+    wgmma_rs(o, pl[kk], v_desc + kk * (2048 >> 4));
+  }
+}
+
+// The tanh softcap on this thread's S fragments, in log2 units after it.
+template <int NS>
+__device__ __forceinline__ void wg_softcap(float (&s)[NS], float scale,
+                                           float softcap) {
+  const float in = scale / softcap;
+  const float out = softcap * kLog2e;
+#pragma unroll
+  for (int i = 0; i < NS; ++i) s[i] = tanhf(s[i] * in) * out;
+}
+
+// The causal, window and padded-key masks on this thread's S fragments
+// (rows pos[0] and pos[1], columns k0 + 8n + 2 (lane % 4) and the next):
+// -inf where masked.  A finite stand-in such as the reference's -1e30 would
+// leave wg_softmax's FMA the rounding error of its own product (~1e22 at
+// -1e30 x scale) and overflow ex2; -inf gives the reference's result on
+// every row written, since each has a valid key, its own position.
+template <int NS>
+__device__ __forceinline__ void wg_mask(float (&s)[NS], int k0, int lane,
+                                        const int (&pos)[2], int S,
+                                        int causal, int window) {
+#pragma unroll
+  for (int n = 0; n < NS / 4; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = k0 + 8 * n + 2 * (lane & 3) + (e & 1);
+      const int dd = pos[e >> 1] - col;
+      const bool ok = col < S && (!causal || dd >= 0) && dd < window;
+      s[4 * n + e] = ok ? s[4 * n + e] : __uint_as_float(0xff800000u);
+    }
+  }
+}
+
+// One key tile of the online softmax on the S fragments, whose logits in
+// log2 units are s * mul (mul: scale * log2 e, or 1 after the softcap):
+// s becomes the probabilities, m (log2 units) and l (this thread's share
+// of the row sums) move on, and corr is the factor O must be rescaled by.
+// The maximum is taken before the multiply (mul > 0), which the exponent's
+// FMA then applies.
+template <int NS>
+__device__ __forceinline__ void wg_softmax(float (&s)[NS], float (&m)[2],
+                                           float (&l)[2], float (&corr)[2],
+                                           float mul) {
+  // four partial maxima and sums a row (element i's row is (i / 2) % 2,
+  // its partial i / 4 % 4) keep the dependency chains short
+  float mp[2][4], lp[2][4];
+#pragma unroll
+  for (int i = 0; i < 16; i += 2)
+    mp[(i >> 1) & 1][(i >> 2) & 3] = fmaxf(s[i], s[i + 1]);
+#pragma unroll
+  for (int i = 16; i < NS; ++i)
+    mp[(i >> 1) & 1][(i >> 2) & 3] = fmaxf(mp[(i >> 1) & 1][(i >> 2) & 3], s[i]);
+  float mx[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(fmaxf(mp[r][0], mp[r][1]), fmaxf(mp[r][2], mp[r][3]));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r] * mul);
+    corr[r] = ex2(m[r] - m_new);
+    m[r] = m_new;
+  }
+#pragma unroll
+  for (int i = 0; i < NS; ++i) s[i] = ex2(fmaf(s[i], mul, -m[(i >> 1) & 1]));
+#pragma unroll
+  for (int i = 0; i < 16; i += 2)
+    lp[(i >> 1) & 1][(i >> 2) & 3] = s[i] + s[i + 1];
+#pragma unroll
+  for (int i = 16; i < NS; ++i) lp[(i >> 1) & 1][(i >> 2) & 3] += s[i];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    l[r] = l[r] * corr[r] + ((lp[r][0] + lp[r][1]) + (lp[r][2] + lp[r][3]));
+}
+
+// P_hi = p truncated to bf16 (its upper 16 bits: one byte permute packs
+// two), P_lo = bf16(p - P_hi) (p - P_hi is exact), of this thread's
+// probabilities, in the register A layout of wgmma.  P_hi + P_lo is p to
+// ~2^-16, as with a rounded P_hi, in fewer instructions.
+template <int NS>
+__device__ __forceinline__ void wg_split(const float (&s)[NS],
+                                         uint32_t (&ph)[kWgBN / 16][4],
+                                         uint32_t (&pl)[kWgBN / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kWgBN / 16; ++kk) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t b0 = __float_as_uint(s[8 * kk + 2 * j]);
+      const uint32_t b1 = __float_as_uint(s[8 * kk + 2 * j + 1]);
+      ph[kk][j] = __byte_perm(b0, b1, 0x7632);
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(
+          __uint_as_float(b0) - __uint_as_float(b0 & 0xffff0000u),
+          __uint_as_float(b1) - __uint_as_float(b1 & 0xffff0000u));
+      pl[kk][j] = *reinterpret_cast<const uint32_t*>(&lo);
+    }
+  }
+}
+
+// One work item of the wgmma instance: kWgRows packed query rows from r0
+// of KV head hk of batch b, and the key tiles they can see.
+struct WgItem {
+  int b, hk, r0, p_first, p_last, t0, n_tiles;
+};
+
+// Work item `it` of (B * KV) x row tiles, the heaviest (last) row tiles
+// first: the grid's blocks take items it, it + gridDim.x, ...
+__device__ __forceinline__ WgItem wg_item(int it, int KV, int n_bkv,
+                                          int n_rt, int group, int S,
+                                          int causal, int window) {
+  WgItem w;
+  const int rt = n_rt - 1 - it / n_bkv;
+  const int bkv = it - (it / n_bkv) * n_bkv;
+  w.b = bkv / KV;
+  w.hk = bkv - w.b * KV;
+  w.r0 = rt * kWgRows;
+  w.p_first = w.r0 / group;
+  w.p_last = (min(w.r0 + kWgRows, S * group) - 1) / group;
+  // key range that can hold a valid key for some row of the item
+  const int k_end = causal ? w.p_last + 1 : S;
+  const long long lo = (long long)w.p_first - window + 1;
+  w.t0 = (lo > 0 ? (int)lo : 0) / kWgBN * kWgBN;
+  w.n_tiles = (k_end - w.t0 + kWgBN - 1) / kWgBN;
+  return w;
+}
+
+// NP: padded head width (wg_width); VEC: staged by cp.async (see tc_stage).
+// Persistent: one block an SM walks its work items (wg_item), so the
+// producer stages the next item's Q and first K/V tiles while the
+// consumers finish the current one.
+template <int NP, bool VEC>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, float* __restrict__ out, int B,
+                int H, int group, int S, int hd, long long q_sb, long long q_sh,
+                long long q_ss, long long k_sb, long long k_sh, long long k_ss,
+                long long v_sb, long long v_sh, long long v_ss, float scale,
+                int causal, int window, float softcap) {
+  constexpr int NST = wg_stages(NP);
+  constexpr int QT = kWgBM * NP * 2;           // bytes of a warpgroup's Q
+  constexpr int KT = kWgBN * NP * 2;           // bytes of a K or V tile
+  constexpr int NO = NP / 2;                   // O accumulator registers
+  constexpr int NS = kWgBN / 2;                // S accumulator registers
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  // two Q buffers of kWgConsumers tiles, the K/V ring (stage s: K, then
+  // V), then 8-byte mbarriers: full and empty a stage, full and empty a
+  // Q buffer
+  const uint32_t kv_s = base + 2 * kWgConsumers * QT;
+  const uint32_t full_bar = kv_s + 2 * NST * KT;
+  const uint32_t empty_bar = full_bar + 8 * NST;
+  const uint32_t q_full = empty_bar + 8 * NST;
+  const uint32_t q_empty = q_full + 16;
+
+  const int KV = H / group;
+  const int n_bkv = B * KV;
+  const int n_rt = (S * group + kWgRows - 1) / kWgRows;
+  const int n_items = n_bkv * n_rt;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(full_bar + 8 * s, 128);                // the producer's threads
+      mbar_init(empty_bar + 8 * s, 4 * kWgConsumers);  // consumer warps
+    }
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(q_full + 8 * s, 128);
+      mbar_init(q_empty + 8 * s, 4 * kWgConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7;
+  const int t = threadIdx.x & 127;
+  if (wg == kWgConsumers) {
+    // producer warpgroup: each item's Q into a free Q buffer, then its K/V
+    // tiles into the ring, a stage once its last reader is done
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 ::"n"(kWgProducerRegs));
+    int g = 0;  // tiles staged so far, over all items
+    for (int it = blockIdx.x, j = 0; it < n_items; it += gridDim.x, ++j) {
+      const WgItem w = wg_item(it, KV, n_bkv, n_rt, group, S, causal, window);
+      const int qb = j & 1;
+      if (j >= 2) mbar_wait(q_empty + 8 * qb, (j / 2 - 1) & 1);
+      wg_stage_q<NP, VEC>(base + qb * kWgConsumers * QT,
+                          smem + qb * kWgConsumers * QT,
+                          q + w.b * q_sb + w.hk * group * q_sh, w.r0, group, S,
+                          hd, q_sh, q_ss, t);
+      if (VEC) {
+        mbar_arrive_cp_async(q_full + 8 * qb);
+      } else {
+        fence_proxy_async();
+        mbar_arrive(q_full + 8 * qb);
+      }
+      const bf16* kb = k + w.b * k_sb + w.hk * k_sh;
+      const bf16* vb = v + w.b * v_sb + w.hk * v_sh;
+      for (int i = 0; i < w.n_tiles; ++i, ++g) {
+        const int s = g % NST;
+        if (g >= NST) mbar_wait(empty_bar + 8 * s, (g / NST - 1) & 1);
+        const int k0 = w.t0 + i * kWgBN;
+        const uint32_t off = (uint32_t)(2 * s * KT);
+        wg_stage_kv<NP, VEC>(kv_s + off, smem + (kv_s - base) + off, kb, k0,
+                             S, hd, k_ss, t);
+        wg_stage_kv<NP, VEC>(kv_s + off + KT, smem + (kv_s - base) + off + KT,
+                             vb, k0, S, hd, v_ss, t);
+        if (VEC) {
+          mbar_arrive_cp_async(full_bar + 8 * s);
+        } else {
+          fence_proxy_async();
+          mbar_arrive(full_bar + 8 * s);
+        }
+      }
+    }
+    if (VEC) cp_async_wait_all();
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+               ::"n"(kWgConsumerRegs));
+
+  // consumer warpgroup wg: packed rows r0 + 64 wg .. + 63 of each item
+  const int warp = t >> 5;
+  const int lane = t & 31;
+  const float mul = softcap > 0.0f ? 1.0f : scale * kLog2e;
+  // The two warpgroups take turns to issue their products (named barriers
+  // 3 and 4, warpgroup 0 first), so one's softmax runs while the other's
+  // products are on the tensor cores.
+  const int my_turn = 3 + wg, next_turn = 4 - wg;
+  if (wg == 1) bar_arrive(next_turn, 256);
+  int g = 0;  // tiles consumed so far, over all items
+  for (int it = blockIdx.x, j = 0; it < n_items; it += gridDim.x, ++j) {
+    const WgItem w = wg_item(it, KV, n_bkv, n_rt, group, S, causal, window);
+    const int qb = j & 1;
+    // this thread's packed rows (the accumulator's row and row + 8) and
+    // their positions
+    const int pr = w.r0 + wg * kWgBM + warp * 16 + (lane >> 2);
+    const int pos[2] = {pr / group, (pr + 8) / group};
+    const uint64_t q_desc =
+        wg_desc(base + (qb * kWgConsumers + wg) * QT, 16, 1024);
+
+    float o[NO];
+#pragma unroll
+    for (int i = 0; i < NO; ++i) o[i] = 0.0f;
+    float m[2] = {kNegInf, kNegInf};  // running maxima, log2 units
+    float l[2] = {0.0f, 0.0f};        // this thread's share of the sums
+    float corr[2];
+    float sc[NS];                     // S of the current tile
+    uint32_t ph[kWgBN / 16][4], pl[kWgBN / 16][4];  // P of the previous tile
+
+    // Tile i's logits, masks and softmax; `full`: no logit of it is
+    // masked.  Each branch is taken or not for the whole item.
+    auto softmax = [&](int k0) {
+      const bool full = k0 + kWgBN <= S &&
+                        (!causal || k0 + kWgBN - 1 <= w.p_first) &&
+                        w.p_last - k0 < window;
+      if (softcap > 0.0f) wg_softcap(sc, scale, softcap);
+      if (!full) wg_mask(sc, k0, lane, pos, S, causal, window);
+      wg_softmax(sc, m, l, corr, mul);
+    };
+
+    // Software pipeline: S_i = Q . K_i^T is issued together with
+    // O += P_{i-1} . V_{i-1}, and the softmax of S_i runs while the latter
+    // is on the tensor cores; O is rescaled by tile i's correction once
+    // P_{i-1} . V_{i-1} is done.  Tile 0's S and the last tile's P.V stand
+    // outside the loop.
+    mbar_wait(q_full + 8 * qb, (j / 2) & 1);
+    mbar_wait(full_bar + 8 * (g % NST), (g / NST) & 1);
+    fence_proxy_async();
+    bar_sync(my_turn, 256);
+    wgmma_fence();
+    wg_qk<NP>(sc, q_desc, kv_s + 2 * (g % NST) * KT);
+    wgmma_commit();
+    bar_arrive(next_turn, 256);
+    wgmma_wait<0>();
+    wg_fence_regs(sc);
+    softmax(w.t0);
+    wg_split(sc, ph, pl);
+    for (int i = 1; i < w.n_tiles; ++i) {
+      const int s = (g + i) % NST;
+      const int sp = (g + i - 1) % NST;
+      mbar_wait(full_bar + 8 * s, ((g + i) / NST) & 1);
+      fence_proxy_async();
+      wg_fence_regs(o);
+      bar_sync(my_turn, 256);
+      wgmma_fence();
+      wg_qk<NP>(sc, q_desc, kv_s + 2 * s * KT);
+      wgmma_commit();
+      wg_pv(o, ph, pl, kv_s + (2 * sp + 1) * KT);
+      wgmma_commit();
+      bar_arrive(next_turn, 256);
+      wgmma_wait<1>();  // S_i landed; P_{i-1} . V_{i-1} may still run
+      wg_fence_regs(sc);
+      softmax(w.t0 + i * kWgBN);
+      wgmma_wait<0>();  // P_{i-1} . V_{i-1} done: O and its stage are free
+      wg_fence_regs(o);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty_bar + 8 * sp);
+      // once the row maxima settle, corr is exactly 1 for the whole warp
+      if (__any_sync(0xffffffffu, corr[0] != 1.0f || corr[1] != 1.0f)) {
+#pragma unroll
+        for (int n = 0; n < NO / 4; ++n) {
+          o[4 * n] *= corr[0];
+          o[4 * n + 1] *= corr[0];
+          o[4 * n + 2] *= corr[1];
+          o[4 * n + 3] *= corr[1];
+        }
+      }
+      wg_split(sc, ph, pl);
+    }
+    g += w.n_tiles;
+    const int sl = (g - 1) % NST;
+    wg_fence_regs(o);
+    bar_sync(my_turn, 256);
+    wgmma_fence();
+    wg_pv(o, ph, pl, kv_s + (2 * sl + 1) * KT);
+    wgmma_commit();
+    // warpgroup 1 takes the last turn of all
+    if (wg == 0 || it + (int)gridDim.x < n_items) bar_arrive(next_turn, 256);
+    wgmma_wait<0>();
+    wg_fence_regs(o);
+    __syncwarp();
+    if (lane == 0) {
+      mbar_arrive(empty_bar + 8 * sl);
+      mbar_arrive(q_empty + 8 * qb);  // every read of this Q is done
+    }
+
+    // O / l to rows (pos, head hk * group + pr % group) of the output
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      if (pos[r] >= S) continue;
+      const int h = w.hk * group + (pr + 8 * r - pos[r] * group);
+      const float inv = 1.0f / fmaxf(l[r], 1e-30f);
+      float* orow = out + (((long long)w.b * H + h) * S + pos[r]) * hd;
+#pragma unroll
+      for (int n = 0; n < NO / 4; ++n) {
+        const int d = 8 * n + 2 * (lane & 3);
+        const float x0 = o[4 * n + 2 * r] * inv;
+        const float x1 = o[4 * n + 2 * r + 1] * inv;
+        if (d + 1 < hd && (hd & 1) == 0) {
+          *reinterpret_cast<float2*>(orow + d) = make_float2(x0, x1);
+        } else {
+          if (d < hd) orow[d] = x0;
+          if (d + 1 < hd) orow[d + 1] = x1;
+        }
+      }
+    }
+  }
+}
+
+template <int NP, bool VEC>
+cudaError_t wg_launch(const void* q, const void* k, const void* v, void* out,
+                      int B, int H, int KV, int S, int hd, long long q_sb,
+                      long long q_sh, long long q_ss, long long k_sb,
+                      long long k_sh, long long k_ss, long long v_sb,
+                      long long v_sh, long long v_ss, float scale, int causal,
+                      int window, float softcap, cudaStream_t stream) {
+  const long long items =
+      (long long)B * KV * (((long long)S * (H / KV) + kWgRows - 1) / kWgRows);
+  if (items > 0x7fffffffll) return cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const size_t smem = wg_smem_bytes(hd);
+  err = cudaFuncSetAttribute(flash_wg_kernel<NP, VEC>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  const int grid = (int)(items < sms ? items : sms);
+  flash_wg_kernel<NP, VEC><<<grid, kWgThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<float*>(out), B, H, H / KV, S,
+      hd, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, scale, causal,
+      window, softcap);
+  return cudaGetLastError();
+}
+
+cudaError_t wg_dispatch(const void* q, const void* k, const void* v, void* out,
+                        int B, int H, int KV, int S, int hd, long long q_sb,
+                        long long q_sh, long long q_ss, long long k_sb,
+                        long long k_sh, long long k_ss, long long v_sb,
+                        long long v_sh, long long v_ss, float scale,
+                        int causal, int window, float softcap,
+                        cudaStream_t stream) {
+  auto al = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const bool vec = hd % 8 == 0 && al(q) && al(k) && al(v) &&
+                   (q_sb | q_sh | q_ss | k_sb | k_sh | k_ss | v_sb | v_sh |
+                    v_ss) % 8 == 0;
+#define FLASH_WG_LAUNCH(NP)                                                   \
+  return vec ? wg_launch<NP, true>(q, k, v, out, B, H, KV, S, hd, q_sb, q_sh, \
+                                   q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,  \
+                                   scale, causal, window, softcap, stream)    \
+             : wg_launch<NP, false>(q, k, v, out, B, H, KV, S, hd, q_sb,      \
+                                    q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, \
+                                    v_ss, scale, causal, window, softcap,     \
+                                    stream)
+  if (wg_width(hd) == 64) FLASH_WG_LAUNCH(64);
+  FLASH_WG_LAUNCH(128);
+#undef FLASH_WG_LAUNCH
+}
+
 }  // namespace
 
-// Which instance serves (dtype, hd): 2 the f32 tensor-core instance, 1 the
-// tensor-core instance, 0 the CUDA-core instance, -1 none.  The one place
-// the rule lives; mirrored by `instance` in kernels/flash_attention.py.
+// Which instance serves (dtype, hd): 3 the wgmma instance, 2 the f32
+// tensor-core instance, 1 the tensor-core instance, 0 the CUDA-core
+// instance, -1 none.  The one place the rule lives; mirrored by `instance`
+// in kernels/flash_attention.py.
 extern "C" int flash_attention_instance(int dtype, int hd) {
   if (hd <= 0 || (dtype != 0 && dtype != 1)) return -1;
   if (dtype == 0) return hd <= kTc32MaxHeadDim ? 2 : 0;
+  if (hd <= kWgMaxHeadDim) return 3;
   return hd <= kTcMaxHeadDim ? 1 : 0;
 }
 
@@ -1029,6 +1827,10 @@ extern "C" int flash_attention_launch(
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int instance = flash_attention_instance(dtype, hd);
+  if (instance == 3)
+    return wg_dispatch(q, k, v, out, B, H, KV, S, hd, q_sb, q_sh, q_ss, k_sb,
+                       k_sh, k_ss, v_sb, v_sh, v_ss, scale, causal, window,
+                       softcap, st);
   if (instance == 2)
     return tc_dispatch<float>(q, k, v, out, B, H, KV, S, hd, q_sb, q_sh, q_ss,
                               k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, scale,

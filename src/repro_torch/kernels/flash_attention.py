@@ -16,13 +16,15 @@ only; ``ops.attention`` sends CPU tensors to the plain version.  Inputs
 may be strided views (a (B, S, H, hd) projection transposed to
 (B, H, S, hd)) as long as the head dimension is contiguous.
 
-The source holds three instances of the function.  bfloat16 inputs with
-``hd <= TC_MAX_HEAD_DIM`` go to the tensor-core instance (``TC_*`` and
-``tc_*`` below describe it); float32 inputs with ``hd <=
-TC32_MAX_HEAD_DIM`` go to the f32 tensor-core instance (split TF32 for
-Q.K^T, split bf16 for P.V; its tiles are ``TC_BQ`` and ``TC_BK``, its
-layout ``tc32_*``); wider inputs of either dtype go to the CUDA-core
-instance (``BQ``, ``BK``, ``smem_stride``, ``smem_bytes``).  The rule is
+The source holds four instances of the function.  bfloat16 inputs with
+``hd <= WG_MAX_HEAD_DIM`` go to the wgmma instance (Hopper's warpgroup
+MMA; ``WG_*`` and ``wg_*`` below describe it), wider bfloat16 inputs
+with ``hd <= TC_MAX_HEAD_DIM`` to the tensor-core instance (``mma.sync``;
+``TC_*`` and ``tc_*``); float32 inputs with ``hd <= TC32_MAX_HEAD_DIM``
+go to the f32 tensor-core instance (split TF32 for Q.K^T, split bf16 for
+P.V; its tiles are ``TC_BQ`` and ``TC_BK``, its layout ``tc32_*``); wider
+inputs of either dtype go to the CUDA-core instance (``BQ``, ``BK``,
+``smem_stride``, ``smem_bytes``).  The rule is
 the C entry ``flash_attention_instance``; ``instance`` mirrors it
 (``chip_smoke.py`` holds the two together on the card).
 ``flash_attention.launches`` counts every launch and
@@ -60,11 +62,15 @@ TC_BQ, TC_BK = 64, 32
 TC_MAX_HEAD_DIM = 288
 #: widest head dimension of the f32 tensor-core instance's register plan
 TC32_MAX_HEAD_DIM = 256
+#: wgmma instance: widest head dimension, packed query rows of a consumer
+#: warpgroup, consumer warpgroups a block, keys a tile
+WG_MAX_HEAD_DIM = 128
+WG_BM, WG_CONSUMERS, WG_BN = 64, 2, 128
 #: instance names, as counted in ``flash_attention.instance_launches``
-TENSOR_CORE, TENSOR_CORE_F32, CUDA_CORE = ("tensor_core", "tensor_core_f32",
-                                           "cuda_core")
+WGMMA, TENSOR_CORE, TENSOR_CORE_F32, CUDA_CORE = (
+    "wgmma", "tensor_core", "tensor_core_f32", "cuda_core")
 #: instance names by the C rule's codes (``flash_attention_instance``)
-INSTANCES = {0: CUDA_CORE, 1: TENSOR_CORE, 2: TENSOR_CORE_F32}
+INSTANCES = {0: CUDA_CORE, 1: TENSOR_CORE, 2: TENSOR_CORE_F32, 3: WGMMA}
 
 
 def smem_stride(hd: int, elem_bytes: int) -> int:
@@ -86,13 +92,16 @@ def smem_bytes(hd: int, elem_bytes: int) -> int:
 
 def instance(dtype: torch.dtype, hd: int) -> Optional[str]:
     """The instance that serves (dtype, hd), None where none does: bfloat16
-    within ``TC_MAX_HEAD_DIM`` on the tensor cores, float32 within
+    within ``WG_MAX_HEAD_DIM`` on the wgmma instance, then within
+    ``TC_MAX_HEAD_DIM`` on the tensor-core instance, float32 within
     ``TC32_MAX_HEAD_DIM`` on the f32 tensor-core instance, wider on the
     CUDA cores.  Mirrors ``flash_attention_instance`` in the CUDA source."""
     if hd <= 0 or dtype not in _DTYPES:
         return None
     if dtype == torch.float32:
         return TENSOR_CORE_F32 if hd <= TC32_MAX_HEAD_DIM else CUDA_CORE
+    if hd <= WG_MAX_HEAD_DIM:
+        return WGMMA
     return TENSOR_CORE if hd <= TC_MAX_HEAD_DIM else CUDA_CORE
 
 
@@ -135,6 +144,37 @@ def tc32_smem_bytes(hd: int) -> int:
         + 2 * TC_BK * tc_smem_stride(hd) * 2
 
 
+def wg_width(hd: int) -> int:
+    """The wgmma instance's padded head width: whole 128-byte rows of the
+    swizzle its descriptors read, 64 or 128 bf16 columns.  Must agree with
+    ``wg_width`` in the CUDA source."""
+    return 64 if hd <= 64 else 128
+
+
+def wg_stages(hd: int) -> int:
+    """K/V stages of the wgmma instance's ring at ``hd``'s padded width: as
+    many as shared memory holds beside two Q buffers (``wg_stages`` in the
+    CUDA source)."""
+    return 3 if wg_width(hd) == 64 else 2
+
+
+def wg_swizzle(r: int, c: int, rows: int) -> int:
+    """Byte offset of 16-byte chunk ``c`` of row ``r`` in a wgmma tile of
+    ``rows`` rows: 64-column blocks of ``rows`` x 128 bytes, chunk ``c % 8``
+    stored at ``(c % 8) ^ (r % 8)`` (the 128-byte swizzle).  Mirrors
+    ``wg_swizzle`` in the CUDA source."""
+    return (c >> 3) * rows * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4)
+
+
+def wg_smem_bytes(hd: int) -> int:
+    """The wgmma instance's dynamic shared memory: 1 KB of alignment slack,
+    two buffers of the block's Q tiles, the K/V ring and a full and an
+    empty mbarrier a stage and a Q buffer."""
+    rows = WG_CONSUMERS * WG_BM
+    return (1024 + (2 * rows + 2 * wg_stages(hd) * WG_BN) * wg_width(hd) * 2
+            + 2 * (wg_stages(hd) + 2) * 8)
+
+
 def _check(t: torch.Tensor, name: str) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
@@ -174,6 +214,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              f"kernel's shared memory")
         if B * H > 65_535:
             raise ValueError(f"B*H = {B * H} exceeds the grid's y extent")
+    elif inst == WGMMA:
+        if B * KV * -(-S * (H // KV) // (WG_CONSUMERS * WG_BM)) >= 2**31:
+            raise ValueError(f"B = {B}, S = {S} at {H} heads exceed the "
+                             f"kernel's work items")
     else:
         smem = tc_smem_bytes(hd) if inst == TENSOR_CORE else tc32_smem_bytes(hd)
         if smem > MAX_SMEM_BYTES:

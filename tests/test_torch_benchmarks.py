@@ -396,9 +396,10 @@ def test_kernel_bench_served_flash_cases_are_the_configs():
     """One bf16 flash case per distinct window of each served arch's first
     segment, at batch 4 and its served prompt width, with its launches a
     prefill: granite 32 (global), recurrentgemma 12 (its 2,048 window at
-    3,072 tokens), gemma3-1b 22 local and 4 global.  Every one runs on the
-    bf16 tensor-core instance: granite on the 4-step plan, hd 256 on the
-    16-step and hd 288 on the 18-step one."""
+    3,072 tokens), gemma3-1b 22 local and 4 global.  Each runs on the
+    instance the rule names: granite (hd 64) on the wgmma instance at
+    width 64, hd 256 on the bf16 tensor-core instance's 16-step plan and
+    hd 288 on its 18-step one."""
     from benchmarks_torch import kernel_bench as kb
     from repro_torch.configs import GLOBAL_WINDOW, get_config
     from repro_torch.kernels import flash_attention as fa
@@ -415,8 +416,10 @@ def test_kernel_bench_served_flash_cases_are_the_configs():
     assert [(c.shape, c.path_launches) for c in flash] == [
         ((4, 24, 8, 2048, 64, None), 32), ((4, 16, 1, 3072, 256, 2048), 12),
         ((4, 4, 1, 2048, 288, 512), 22), ((4, 4, 1, 2048, 288, None), 4)]
-    assert [fa.tc_steps(c.shape[4]) for c in flash] == [4, 16, 18, 18]
-    assert {kb.rule_instance(c) for c in flash} == {fa.TENSOR_CORE}
+    assert [kb.rule_instance(c) for c in flash] == [
+        fa.WGMMA, fa.TENSOR_CORE, fa.TENSOR_CORE, fa.TENSOR_CORE]
+    assert [kb.plan(c.shape[4]) for c in flash] == [
+        "wgmma width 64", "16 steps", "18 steps", "18 steps"]
     assert len({c.key for c in kb.served_cases()}) == len(kb.served_cases())
 
 

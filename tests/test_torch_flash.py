@@ -276,6 +276,12 @@ def _bf16(x):
     return b.astype(np.uint32).view(np.float32)
 
 
+def _bf16_trunc(x):
+    """float32 -> its upper 16 bits (bfloat16 by truncation), as float32."""
+    b = np.asarray(x, np.float32).view(np.uint32) & np.uint32(0xFFFF0000)
+    return b.view(np.float32)
+
+
 def _tf32(x):
     """float32 -> the nearest TF32 value (10 mantissa bits, ties away from
     zero: ``cvt.rna.tf32.f32``), as float32."""
@@ -298,61 +304,93 @@ def _split3(a, b, rnd):
     return al @ bh + ah @ bl + ah @ bh
 
 
-def _tc_loop(q, k, v, causal, window, softcap, logits, pv):
-    """The tensor-core instances' loop in float32 numpy: TC_BQ-row query
-    tiles, TC_BK-row key tiles from ``k_begin`` (rounded down to a tile) to
-    ``k_end``, logits ``logits(q_tile, k_tile)``, masked logits -1e30,
-    online softmax in f32, ``pv(p, v_tile)`` added to the rescaled
-    accumulator, denominator clamped at 1e-30."""
+def _tc_loop(q, k, v, causal, window, softcap, logits, pv, bq=None, bk=None,
+             packed=False, log2=False):
+    """The tensor-core instances' loop in float32 numpy: ``bq``-row query
+    tiles (``TC_BQ``), ``bk``-row key tiles (``TC_BK``) from ``k_begin``
+    (rounded down to a tile) to ``k_end``, logits ``logits(q_tile,
+    k_tile)``, masked logits -1e30, online softmax in f32, ``pv(p,
+    v_tile)`` added to the rescaled accumulator, denominator clamped at
+    1e-30.  ``packed``: a block's rows are the query heads of one KV head
+    packed by position, row ``pr`` being position ``pr // group`` of head
+    ``pr % group`` of the group, and the key range is that of the block's
+    first and last positions (the wgmma instance).  ``log2``: the logits
+    are scaled by ``scale * log2(e)`` (after the softcap, if any),
+    exponentiated in base 2 and masked with -inf (the wgmma instance's
+    stand-in for -1e30, which gives the same result on every row that has
+    a valid key)."""
+    bq, bk = bq or fa.TC_BQ, bk or fa.TC_BK
     B, H, S, hd = q.shape
     group = H // k.shape[1]
+    pg = group if packed else 1          # query heads packed in a block
     win = fa.NO_WINDOW if window is None else window
     scale = np.float32(1.0 / math.sqrt(hd))
+    log2e = np.float32(math.log2(math.e))
     neg = np.float32(-1e30)
     out = np.zeros(q.shape, np.float32)
     for b in range(B):
-        for h in range(H):
-            kb, vb = k[b, h // group], v[b, h // group]
-            for q0 in range(0, S, fa.TC_BQ):
-                rows = np.arange(q0, min(q0 + fa.TC_BQ, S))
-                k_end = rows[-1] + 1 if causal else S
-                k_begin = max(0, q0 - win + 1)
-                m = np.full(len(rows), neg, np.float32)
-                l = np.zeros(len(rows), np.float32)
-                acc = np.zeros((len(rows), hd), np.float32)
-                for k0 in range(k_begin // fa.TC_BK * fa.TC_BK, k_end, fa.TC_BK):
-                    cols = np.arange(k0, k0 + fa.TC_BK)
+        for h0 in range(0, H, pg):
+            kb, vb = k[b, h0 // group], v[b, h0 // group]
+            qp = q[b, h0:h0 + pg].transpose(1, 0, 2).reshape(S * pg, hd)
+            for r0 in range(0, S * pg, bq):
+                pr = np.arange(r0, min(r0 + bq, S * pg))
+                pos = pr // pg
+                k_end = pos[-1] + 1 if causal else S
+                k_begin = max(0, pos[0] - win + 1)
+                m = np.full(len(pr), neg, np.float32)
+                l = np.zeros(len(pr), np.float32)
+                acc = np.zeros((len(pr), hd), np.float32)
+                for k0 in range(k_begin // bk * bk, k_end, bk):
+                    cols = np.arange(k0, k0 + bk)
                     pad = (cols < S)[:, None]
                     kt = np.where(pad, kb[np.minimum(cols, S - 1)], 0).astype(np.float32)
                     vt = np.where(pad, vb[np.minimum(cols, S - 1)], 0).astype(np.float32)
-                    s = logits(q[b, h, rows], kt.T) * scale
+                    s = logits(qp[pr], kt.T)
                     if softcap is not None:
                         sc = np.float32(softcap)
-                        s = np.tanh(s / sc) * sc
-                    d = rows[:, None] - cols[None, :]
+                        s = np.tanh(s * scale / sc) * sc
+                        s = s * log2e if log2 else s
+                    else:
+                        s = s * (scale * log2e) if log2 else s * scale
+                    d = pos[:, None] - cols[None, :]
                     ok = (cols < S)[None, :] & (d < win)
                     if causal:
                         ok &= d >= 0
-                    s = np.where(ok, s, neg).astype(np.float32)
+                    s = np.where(ok, s, -np.inf if log2 else neg)
+                    s = s.astype(np.float32)
                     m_new = np.maximum(m, s.max(axis=1))
-                    p = np.exp(s - m_new[:, None])
-                    corr = np.exp(m - m_new)
+                    ex = np.exp2 if log2 else np.exp
+                    p = ex(s - m_new[:, None])
+                    corr = ex(m - m_new)
                     l = l * corr + p.sum(axis=1, dtype=np.float32)
                     acc = acc * corr[:, None] + pv(p, vt)
                     m = m_new
-                out[b, h, rows] = acc / np.maximum(l, np.float32(1e-30))[:, None]
+                res = acc / np.maximum(l, np.float32(1e-30))[:, None]
+                out[b, h0 + pr % pg, pos] = res
     return out
 
 
-def _tc_model(q, k, v, causal, window, softcap, split=True):
+def _tc_model(q, k, v, causal, window, softcap, split=True, hi=_bf16,
+              **tiles):
     """The tensor-core instance on bf16-valued inputs: logits as f32 sums
-    of exact bf16 products, and P.V as hi.V + lo.V with hi = bf16(p),
-    lo = bf16(p - hi) (only hi.V when not ``split``)."""
+    of exact bf16 products, and P.V as hi.V + lo.V with hi = bf16(p)
+    (``hi``: rounded, or truncated as the wgmma instance does), lo =
+    bf16(p - hi) (only hi.V when not ``split``).  ``tiles``: the loop's
+    tile widths, packing and exponent base (``_tc_loop``)."""
     def pv(p, vt):
-        hi = _bf16(p)
-        return hi @ vt + _bf16(p - hi) @ vt if split else hi @ vt
+        h = hi(p)
+        return h @ vt + _bf16(p - h) @ vt if split else h @ vt
 
-    return _tc_loop(q, k, v, causal, window, softcap, np.matmul, pv)
+    return _tc_loop(q, k, v, causal, window, softcap, np.matmul, pv, **tiles)
+
+
+def _wg_model(q, k, v, causal, window, softcap, split=True):
+    """The wgmma instance: the tensor-core instance's arithmetic with P_hi
+    truncated, over ``WG_CONSUMERS * WG_BM`` packed rows a block and
+    ``WG_BN``-key tiles, in base 2."""
+    return _tc_model(q, k, v, causal, window, softcap, split, _bf16_trunc,
+                     bq=fa.WG_CONSUMERS * fa.WG_BM, bk=fa.WG_BN, packed=True,
+                     log2=True)
 
 
 #: the f32 tensor-core instance's arithmetic and the alternatives it was
@@ -397,6 +435,34 @@ def test_tensor_core_model(shape, kv, causal, window, softcap, scale):
     np.testing.assert_allclose(got, want, rtol=F32_TOL, atol=F32_TOL)
 
 
+@pytest.mark.parametrize("shape,kv,causal,window,softcap,scale", [
+    ((1, 6, 200, 64), 2, True, None, None, 1.0),    # granite's group, ragged
+    ((1, 6, 257, 64), 2, True, 48, None, 1.0),      # window, S % 128 = 1
+    ((1, 6, 1, 64), 2, True, None, None, 1.0),      # S = 1
+    ((1, 6, 257, 64), 2, False, None, None, 1.0),   # non-causal, padded keys
+    ((1, 6, 200, 64), 2, True, None, 50.0, 3.0),    # softcap, logits ~9
+    ((2, 3, 200, 16), 3, True, None, None, 1.0),    # hd 16, group 1
+    ((1, 4, 257, 128), 1, True, 100, None, 1.0),    # hd 128, MQA, window
+    ((1, 2, 200, 128), 2, False, None, 2.0, 1.0),   # hd 128, softcap
+    ((1, 8, 130, 100), 1, True, None, None, 1.0),   # hd 100, group 8
+])
+def test_wgmma_model(shape, kv, causal, window, softcap, scale):
+    """The wgmma instance's arithmetic, packing and tiles on bf16-valued
+    inputs within 2e-4 of the Pallas kernel (interpret mode) on their f32
+    upcast, K/V expanded to H heads as the reference takes them, and of
+    the port's plain version."""
+    q, k, v = _bf16_qkv(shape, 37, kv, scale)
+    got = _wg_model(q, k, v, causal, window, softcap)
+    rep = shape[1] // kv
+    jq, jk, jv = (jnp.asarray(a) for a in (q, np.repeat(k, rep, axis=1),
+                                           np.repeat(v, rep, axis=1)))
+    kern = pallas_flash(jq, jk, jv, causal=causal, window=window,
+                        softcap=softcap, bq=64, bk=64, interpret=True)
+    _close(got, kern, F32_TOL)
+    want = _plain_f32(q, k, v, causal=causal, window=window, softcap=softcap)
+    np.testing.assert_allclose(got, want, rtol=F32_TOL, atol=F32_TOL)
+
+
 def test_split_probabilities_are_needed():
     """At hd 288 a single bf16 term for P misses the 2e-4 check against
     the f32 plain version (bf16 keeps 8 significant bits of p); hi + lo
@@ -406,6 +472,20 @@ def test_split_probabilities_are_needed():
     single = np.abs(_tc_model(q, k, v, True, None, None, split=False) - want).max()
     split = np.abs(_tc_model(q, k, v, True, None, None) - want).max()
     assert single > F32_TOL, single
+    assert split <= F32_TOL / 10, split
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_wgmma_split_probabilities_are_needed(hd):
+    """The same holds for the wgmma instance at granite's group and head
+    width, and at its widest: one bf16 term for P misses 2e-4 by ~15x,
+    hi + lo holds it by ~30x.  So it runs two wgmma for P.V as well."""
+    q, k, v = _bf16_qkv((1, 6, 256, hd), 41, 2)
+    want = _plain_f32(q, k, v, causal=True)
+    single = np.abs(_wg_model(q, k, v, True, None, None, split=False)
+                    - want).max()
+    split = np.abs(_wg_model(q, k, v, True, None, None) - want).max()
+    assert single > 5 * F32_TOL, single
     assert split <= F32_TOL / 10, split
 
 
@@ -507,6 +587,48 @@ def test_tc32_shared_memory_layout(hd):
     assert "(size_t)2 * kTcBK * tc_smem_stride(hd) * sizeof(bf16);" in src
 
 
+@pytest.mark.parametrize("hd", [8, 16, 17, 32, 64, 100, 128])
+def test_wg_shared_memory_layout(hd):
+    """The wgmma instance's tiles (a warpgroup's 64 Q rows, a 128-key K or
+    V tile) in 64-column blocks of 128-byte rows: each 16-byte chunk has
+    its own place inside the tile, and the place is the unswizzled one with
+    address bits 4-6 XORed with bits 7-9, the 128-byte swizzle that the
+    descriptors' layout type 1 reads from a tile aligned to 1,024 bytes;
+    the 8 rows of a core matrix fall in 8 distinct 16-byte bank groups at
+    every chunk, so the producer's stores and the reads do not conflict.
+    Every tile is a whole number of swizzle atoms, the block's shared
+    memory fits at the widest head, and the Python mirrors are the CUDA
+    source's formulas."""
+    width = fa.wg_width(hd)
+    assert width >= hd and width % 64 == 0
+    for rows in (fa.WG_BM, fa.WG_BN):
+        assert rows * width * 2 % 1024 == 0
+        offs = {}
+        for r in range(rows):
+            for c in range(width // 8):
+                off = fa.wg_swizzle(r, c, rows)
+                plain = (c >> 3) * rows * 128 + r * 128 + (c & 7) * 16
+                assert off ^ plain == ((plain >> 7) & 7) << 4, (r, c)
+                offs[off] = (r, c)
+        assert len(offs) == rows * width // 8
+        assert sorted(offs) == list(range(0, rows * width * 2, 16))
+        for c in range(width // 8):
+            for r0 in range(0, rows, 8):
+                groups = {fa.wg_swizzle(r, c, rows) // 16 % 8
+                          for r in range(r0, r0 + 8)}
+                assert len(groups) == 8, (hd, rows, c, r0)
+    assert fa.wg_smem_bytes(fa.WG_MAX_HEAD_DIM) <= fa.MAX_SMEM_BYTES
+    assert fa.wg_smem_bytes(64) <= fa.MAX_SMEM_BYTES
+    assert (fa.wg_stages(64), fa.wg_stages(128)) == (3, 2)
+    src = CU_SOURCE.read_text()
+    assert ("return (uint32_t)((c >> 3) * rows * 128 + r * 128 + "
+            "(((c & 7) ^ (r & 7)) << 4));") in src
+    assert "inline int wg_width(int hd) { return hd <= 64 ? 64 : 128; }" in src
+    assert "return width == 64 ? 3 : 2;" in src
+    assert ("return 1024 + (size_t)(2 * kWgRows + 2 * wg_stages(w) * kWgBN) "
+            "* w * 2 +\n         (size_t)2 * (wg_stages(w) + 2) * 8;") in src
+
+
 def _cu_int(name):
     m = re.search(rf"constexpr int {name} = (\d+);", CU_SOURCE.read_text())
     assert m, name
@@ -514,13 +636,18 @@ def _cu_int(name):
 
 
 def test_dispatch_rule_and_mirror():
-    """bf16 within the register plan goes to the tensor cores, f32 within
-    its plan to the f32 tensor-core instance, wider heads of either dtype
-    to the CUDA cores; the Python constants mirror the CUDA source's, and
-    the choice depends on dtype and hd only: no ``try`` in the wrapper or
-    in ``ops`` gives way to another instance or the plain version."""
-    for hd in (64, 128, 288, 16, 100):
+    """bf16 at hd 1-128 goes to the wgmma instance, at hd 129-288 to the
+    tensor-core instance, f32 within its plan to the f32 tensor-core
+    instance, wider heads of either dtype to the CUDA cores; the Python
+    constants mirror the CUDA source's, the bf16 tensor-core instance is
+    built only at the 16 and 18 steps that hd 129-288 take, and the choice
+    depends on dtype and hd only: no ``try`` in the wrapper or in ``ops``
+    gives way to another instance or the plain version."""
+    for hd in range(1, fa.WG_MAX_HEAD_DIM + 1):
+        assert fa.instance(torch.bfloat16, hd) == fa.WGMMA
+    for hd in range(fa.WG_MAX_HEAD_DIM + 1, fa.TC_MAX_HEAD_DIM + 1):
         assert fa.instance(torch.bfloat16, hd) == fa.TENSOR_CORE
+        assert fa.tc_steps(hd) in (16, 18)
     for hd in (16, 64, 100, 128, 200, 256):
         assert fa.instance(torch.float32, hd) == fa.TENSOR_CORE_F32
     for hd in (289, 320, 512):
@@ -530,6 +657,9 @@ def test_dispatch_rule_and_mirror():
     assert fa.instance(torch.float16, 64) is None
     assert fa.instance(torch.float32, 0) is None
     assert _cu_int("kTcMaxHeadDim") == fa.TC_MAX_HEAD_DIM
+    assert _cu_int("kWgMaxHeadDim") == fa.WG_MAX_HEAD_DIM
+    assert (_cu_int("kWgBM"), _cu_int("kWgConsumers"), _cu_int("kWgBN")) == (
+        fa.WG_BM, fa.WG_CONSUMERS, fa.WG_BN)
     assert _cu_int("kTc32MaxHeadDim") == fa.TC32_MAX_HEAD_DIM
     assert (_cu_int("kTcBQ"), _cu_int("kTcBK")) == (fa.TC_BQ, fa.TC_BK)
     assert (_cu_int("kBQ"), _cu_int("kBK")) == (fa.BQ, fa.BK)
@@ -537,9 +667,16 @@ def test_dispatch_rule_and_mirror():
     rule = src[src.index('extern "C" int flash_attention_instance'):]
     rule = rule[:rule.index("\n}\n")]
     assert "if (dtype == 0) return hd <= kTc32MaxHeadDim ? 2 : 0;" in rule
+    assert "if (hd <= kWgMaxHeadDim) return 3;" in rule
     assert "return hd <= kTcMaxHeadDim ? 1 : 0;" in rule
+    assert rule.index("return 3;") < rule.index("? 1 : 0;")
     assert fa.INSTANCES == {0: fa.CUDA_CORE, 1: fa.TENSOR_CORE,
-                            2: fa.TENSOR_CORE_F32}
+                            2: fa.TENSOR_CORE_F32, 3: fa.WGMMA}
+    launch = src[src.index("cudaError_t tc_dispatch("):]
+    launch = launch[:launch.index("#undef FLASH_TC_LAUNCH")]
+    for steps in (2, 4, 8):
+        assert f"if constexpr (f32) FLASH_TC_LAUNCH({steps});" in launch
+    assert "if constexpr (!f32) FLASH_TC_LAUNCH(18);" in launch
     body = src[src.index("inline int tc_steps(int hd)"):]
     body = body[:body.index("}")]
     steps = [int(x) for x in re.findall(r"\? (\d+)", body)]
@@ -551,4 +688,4 @@ def test_dispatch_rule_and_mirror():
         tree = ast.parse(Path(mod.__file__).read_text())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), mod
     assert set(fa.flash_attention.instance_launches) == {
-        fa.TENSOR_CORE, fa.TENSOR_CORE_F32, fa.CUDA_CORE}
+        fa.WGMMA, fa.TENSOR_CORE, fa.TENSOR_CORE_F32, fa.CUDA_CORE}
