@@ -3,7 +3,16 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure is an uncaught exception and a nonzero exit:
+Phases, in order; any failure is an uncaught exception and a nonzero exit.
+Three kinds of host work run as background jobs from before phase 1 (no
+card visible, one thread, nice 19), each joined by its phase: phase 18's
+dry runs, phase 21's gloo ranks and phase 20's host suites and perf gate.
+A job that exits nonzero, or still runs ``JOB_TIMEOUT_S`` after its
+start, fails the run at its join.  The time account logs each phase's
+wall seconds when it ends ("phase <id> (<name>): <s> s"), each join's
+job wall and the main thread's wait on it ("join <job>: ..."), and the
+total ("time account: ..."), and writes them to ``chip_smoke.json``
+under ``timing``.
 
 1. the card's name and power limit; build every kernel in
    ``src/repro_torch/csrc`` with nvcc (one process per source, in
@@ -107,10 +116,10 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
    last below the first, and no kernel launched (the training path is
    plain PyTorch, as in the reference);
 12. (T3) ``examples/train_lm.py``'s ~100M stablelm geometry through the
-   port's ``train()``: batch 8 x 256, 300 steps, checkpoints every 50
+   port's ``train()``: batch 8 x 256, 120 steps, checkpoints every 20
    into a temporary directory (loss must fall), restore and save timed;
-   then an interrupted pair (150 steps, then 300), which must resume from
-   150 with its next loss within 10%; 0 retries and 0 rollbacks in every
+   then an interrupted pair (60 steps, then 120), which must resume from
+   60 with its next loss within 10%; 0 retries and 0 rollbacks in every
    run; then one step of that model under ``torch.profiler``.
 
 13. the other LM families at full width and cut depth, card against the
@@ -171,7 +180,15 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
    under H100 constants, not measurements);
 19. ``examples/torch/serve_lm.py`` and ``schedule_and_run_cnn.py`` on the
    card as subprocesses: each must exit 0 and report kernel launches;
-20. this slice's path, the port's benchmark harness: ``python -m
+20. this slice's path, the port's benchmark harness.  First its host
+   half, a background job (joined here, before the run below, which
+   writes the same suites' JSON): ``python -m benchmarks_torch.run
+   --frames 16`` with the beyond-paper suites (quality, elastic,
+   multi_tenant, replication, serving, sensitivity, partition) must exit
+   0 and write their JSON, then the simulator's perf gate, ``python -m
+   benchmarks_torch.sim_speed --frames 64 --check BENCH_sim_torch.json``,
+   must exit 0 and leave that baseline and the reference's
+   ``BENCH_sim.json`` unchanged (sha256).  Then ``python -m
    benchmarks_torch.run fig2 fig3 table1 fig4 yolo kernels`` in a
    subprocess must exit 0; the paper's suites run on the host, and the
    kernel bench launches ``imc_mvm`` at the reference's three shapes and
@@ -191,16 +208,10 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
    library and bound times is printed with the card's name and power
    limit, and the two path sums (launches x µs over ResNet-18's request
    and granite's prefill) beside phases 5's and 14's sums of the same
-   cases, timed in this process by the same ``time_case``; then ``python -m
-   benchmarks_torch.run --frames 16`` with the beyond-paper suites
-   (quality, elastic, multi_tenant, replication, serving, sensitivity,
-   partition) on the host must exit 0 and write their JSON, and the
-   simulator's perf gate, ``python -m benchmarks_torch.sim_speed --frames
-   64 --check BENCH_sim_torch.json``, must exit 0 and leave that baseline
-   and the reference's ``BENCH_sim.json`` unchanged (sha256);
+   cases, timed in this process by the same ``time_case``;
 21. the gloo ranks of ``tests/test_torch_sharding.py`` on this machine's
    CPU and PyTorch (``tests/test_torch_gloo_workers.py``, which imports no
-   jax, started as a subprocess before phase 1 and collected here): the
+   jax, a background job from before phase 1, joined here): the
    3-rank serving and train steps of gemma3-1b and granite-moe, the (2, 2)
    gradients of gemma3-1b, granite-moe, falcon-mamba, recurrentgemma and
    qwen3-moe (an fsdp MoE arch, also served and trained there, by the
@@ -219,7 +230,7 @@ Phases, in order; any failure is an uncaught exception and a nonzero exit:
    them; granite's tokens must be equal in every round), host probes (a
    Python loop, 1,000 CUDA enqueues) and an ``nvidia-smi`` sample of
    clocks, power and temperature each round, then one round traced by
-   ``torch.profiler``; it must exit 0 and its table (n, median,
+   ``torch.profiler`` (8 decode steps); it must exit 0 and its table (n, median,
    quartiles, IQR/median, the highest percentile with 10 samples beyond
    it, the round medians' min/max, rank correlations with the probes, and
    each call's device time from the trace and host share) is logged.
@@ -236,9 +247,13 @@ import ctypes
 import json
 import subprocess
 import sys
+import threading
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
+#: the run's start, for the time account's total (before the heavy imports)
+STARTED = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 sys.path.insert(0, str(ROOT / "src"))
@@ -258,6 +273,124 @@ LOGIT_RTOL = 1e-4      # max |card - cpu| <= LOGIT_RTOL * max |logits|
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+class Account:
+    """The run's time account: each phase's wall seconds, each background
+    job's own wall and the seconds the main thread waited on it at its
+    join, and the total since ``start`` (a ``time.perf_counter()``
+    stamp).  Each figure is logged when it is taken."""
+
+    def __init__(self, start: float):
+        self.start = start
+        self.phase_s: dict = {}
+        self.background_s: dict = {}
+        self.wait_s: dict = {}
+
+    @contextmanager
+    def phase(self, pid: str, name: str):
+        t = time.perf_counter()
+        yield
+        self.phase_s[pid] = time.perf_counter() - t
+        log(f"phase {pid} ({name}): {self.phase_s[pid]:.1f} s")
+
+    def joined(self, job: str, wall: float, waited: float, walls) -> None:
+        """``job`` ran ``wall`` s (``walls``: each command's), and the main
+        thread waited ``waited`` s for it at its join."""
+        self.background_s[job], self.wait_s[job] = wall, waited
+        each = (f" ({', '.join(f'{w:.1f}' for w in walls)} s a command)"
+                if len(walls) > 1 else "")
+        log(f"join {job}: the job ran {wall:.1f} s{each}, the main thread "
+            f"waited {waited:.1f} s for it")
+
+    def record(self) -> dict:
+        """The account so far, logged: {phase_s, background_s, wait_s,
+        total_s}."""
+        total = time.perf_counter() - self.start
+        log(f"time account: total {total:.1f} s, phases "
+            f"{sum(self.phase_s.values()):.1f} s, waits on background jobs "
+            f"{sum(self.wait_s.values()):.1f} s")
+        return {"phase_s": self.phase_s, "background_s": self.background_s,
+                "wait_s": self.wait_s, "total_s": total}
+
+
+class Job:
+    """``cmds``, one command after another (until one exits nonzero), run
+    in the background from the repo root with no card visible, one
+    thread, at the lowest CPU priority (the card phases' host-bound
+    timings keep the cores they need), their output in ``log_path``.  A
+    thread runs them and stamps each one's end, so that ``join`` tells the
+    job's own wall, and each command's, from the main thread's wait on
+    it."""
+
+    def __init__(self, name: str, cmds, log_path: Path, timeout_s: float):
+        self.name, self.log_path, self.timeout_s = name, Path(log_path), timeout_s
+        self.log_path.parent.mkdir(parents=True, exist_ok=True)
+        self.out = open(self.log_path, "w")
+        self.lock = threading.Lock()
+        self.proc, self.stopped, self.walls = None, False, []
+        self.started = time.perf_counter()
+        self.ended = None
+        self.waiter = threading.Thread(target=self._run, args=(cmds,),
+                                       daemon=True)
+        self.waiter.start()
+
+    def _run(self, cmds) -> None:
+        import os
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+        try:
+            for cmd in cmds:
+                with self.lock:
+                    if self.stopped:
+                        break
+                    t = time.perf_counter()
+                    # ``nice`` rather than a ``preexec_fn``: this thread
+                    # forks while the main thread runs
+                    self.proc = subprocess.Popen(
+                        ["nice", "-n", "19", *cmd], cwd=ROOT, env=env,
+                        stdout=self.out, stderr=subprocess.STDOUT,
+                        start_new_session=True)
+                rc = self.proc.wait()
+                self.walls.append(time.perf_counter() - t)
+                if rc != 0:
+                    break
+        finally:
+            self.ended = time.perf_counter()
+
+    def join(self, account: Account) -> None:
+        """Wait for the job until ``timeout_s`` after its start and account
+        its wall and the wait.  A job still running then is killed, and it
+        or a job that exited nonzero fails the run; the error names its
+        log."""
+        t = time.perf_counter()
+        self.waiter.join(max(self.started + self.timeout_s - t, 0.0))
+        waited = time.perf_counter() - t
+        where = f"{self.log_path.parent.name}/{self.log_path.name}"
+        if self.waiter.is_alive():
+            self.stop()
+            raise AssertionError(f"{self.name}: still running {self.timeout_s}"
+                                 f" s after its start, killed (log in {where})")
+        self.out.close()
+        account.joined(self.name, self.ended - self.started, waited,
+                       self.walls)
+        rc = None if self.proc is None else self.proc.returncode
+        if rc != 0:
+            tail = self.log_path.read_text()[-2000:]
+            raise AssertionError(f"{self.name}: exit {rc} (log in {where}): "
+                                 f"{tail}")
+
+    def stop(self) -> None:
+        """End the job if it still runs, with every process it started
+        (its own process group), and start none of its commands after."""
+        import os
+        import signal
+        with self.lock:
+            self.stopped = True
+            if self.proc is not None and self.proc.poll() is None:
+                os.killpg(self.proc.pid, signal.SIGKILL)
+        self.waiter.join()
+        self.out.close()
 
 
 def ptxas_report(text: str) -> dict:
@@ -1321,7 +1454,9 @@ T1_GRAD_RTOL = 5e-2
 T2_SEQ, T2_BATCH, T2_MICROBATCH = 4096, 8, 2
 T2_STEPS = 4           # one warm step, then 3 timed
 # T3, the repo's training example (examples/train_lm.py) on the card
-T3_STEPS, T3_BATCH, T3_SEQ, T3_CKPT_EVERY = 300, 8, 256, 50
+# at 120 steps (past the schedule's 30 warm-up steps, and the resume from
+# 60) its checks hold as at 300, in 240 steps of ~200 ms instead of 600
+T3_STEPS, T3_BATCH, T3_SEQ, T3_CKPT_EVERY = 120, 8, 256, 20
 T3_RESUME_RTOL = 0.10  # loss at the first resumed step against the last one
 
 
@@ -1875,48 +2010,52 @@ def families_train(dev):
     return out
 
 
-def other_families(dev, detail, sync):
-    """Phases 13-16.  Returns the main path's flash launches and its flash
-    timings for the ``kernels`` line."""
+def other_families(dev, detail, sync, account):
+    """Phases 13-16, each timed by ``account``.  Returns the main path's
+    flash launches and its flash timings for the ``kernels`` line."""
     import torch
     from repro_torch.configs import get_config
-    detail["families_card_vs_cpu"] = families_card_vs_cpu(dev)
+    with account.phase("13", "the families at cut depth, card against CPU"):
+        detail["families_card_vs_cpu"] = families_card_vs_cpu(dev)
 
-    # ---- 14. the main path: granite-moe-3b-a800m through Server ------------
-    granite = get_config(MAIN_ARCH)
-    server, detail["granite_serve"] = serve_counted(
-        granite, dev, SERVE_REQUESTS, SERVE_LENS, SERVE_MAX_NEW,
-        SERVE_MAX_BATCH, granite.n_layers, sync)
-    main_launches = detail["granite_serve"]["flash_launches"]
-    detail["granite_profile"] = profile_serving(granite, server.params, dev,
-                                                PATH_B, PATH_S)
-    detail["granite_flash"] = flash_timings(dev, granite)
-    del server
-    torch.cuda.empty_cache()
-
-    # ---- 15. the other families at full width ------------------------------
-    for arch, n, lens, max_new, per_prefill in FAMILY_SERVE:
-        cfg = get_config(arch)
-        server, rec = serve_counted(cfg, dev, n, lens, max_new, SERVE_MAX_BATCH,
-                                    per_prefill, sync)
-        detail[f"serve_{arch}"] = rec
-        detail[f"profile_{arch}"] = profile_serving(cfg, server.params, dev,
-                                                    PATH_B, lens[1])
-        if per_prefill:
-            detail[f"flash_{arch}"] = flash_timings(dev, cfg, PATH_B, lens[1])
+    with account.phase("14", "granite-moe-3b-a800m through Server"):
+        granite = get_config(MAIN_ARCH)
+        server, detail["granite_serve"] = serve_counted(
+            granite, dev, SERVE_REQUESTS, SERVE_LENS, SERVE_MAX_NEW,
+            SERVE_MAX_BATCH, granite.n_layers, sync)
+        main_launches = detail["granite_serve"]["flash_launches"]
+        detail["granite_profile"] = profile_serving(granite, server.params,
+                                                    dev, PATH_B, PATH_S)
+        detail["granite_flash"] = flash_timings(dev, granite)
         del server
         torch.cuda.empty_cache()
-    for arch, batch, prompt, steps, frames, layers, per_prefill in FAMILY_STEPS:
-        cfg = get_config(arch)
-        if layers is not None:
-            cfg = cut(cfg, layers)
-        params, detail[f"steps_{arch}"] = step_path(
-            cfg, dev, batch, prompt, steps, frames, per_prefill, sync)
-        del params
-        torch.cuda.empty_cache()
 
-    # ---- 16. training, card against CPU ------------------------------------
-    detail["families_train"] = families_train(dev)
+    with account.phase("15", "the other families at full width"):
+        for arch, n, lens, max_new, per_prefill in FAMILY_SERVE:
+            cfg = get_config(arch)
+            server, rec = serve_counted(cfg, dev, n, lens, max_new,
+                                        SERVE_MAX_BATCH, per_prefill, sync)
+            detail[f"serve_{arch}"] = rec
+            detail[f"profile_{arch}"] = profile_serving(cfg, server.params, dev,
+                                                        PATH_B, lens[1])
+            if per_prefill:
+                detail[f"flash_{arch}"] = flash_timings(dev, cfg, PATH_B,
+                                                        lens[1])
+            del server
+            torch.cuda.empty_cache()
+        for arch, batch, prompt, steps, frames, layers, per_prefill in \
+                FAMILY_STEPS:
+            cfg = get_config(arch)
+            if layers is not None:
+                cfg = cut(cfg, layers)
+            params, detail[f"steps_{arch}"] = step_path(
+                cfg, dev, batch, prompt, steps, frames, per_prefill, sync)
+            del params
+            torch.cuda.empty_cache()
+
+    with account.phase("16", "the families' training steps, card against "
+                       "CPU"):
+        detail["families_train"] = families_train(dev)
     return main_launches, detail["granite_flash"]
 
 
@@ -1931,7 +2070,8 @@ SHARD_BATCH, SHARD_PROMPT, SHARD_STEPS = 4, 2048, 32
 #: whole run on the host)
 DRYRUN_RUNS = (("gemma3-1b", None), ("granite-moe-3b-a800m", None),
                ("gemma2-27b", "long_500k"), ("falcon-mamba-7b", "prefill_32k"))
-DRYRUN_TIMEOUT_S = 900
+#: each background job's limit, counted from its start
+JOB_TIMEOUT_S = 900
 DRYRUN_REFERENCE = ROOT / "tests" / "data" / "dryrun_reference_pod16x16.json"
 CARD_EXAMPLES = ("serve_lm.py", "schedule_and_run_cnn.py")
 BENCH_SUITES = ("fig2", "fig3", "table1", "fig4", "yolo", "kernels")
@@ -1941,59 +2081,61 @@ BENCH_SMOKE_SUITES = ("quality", "elastic", "multi_tenant", "replication",
                       "serving", "sensitivity", "partition")
 SIM_BASELINE = ROOT / "BENCH_sim_torch.json"
 GLOO_WORKERS = ROOT / "tests" / "test_torch_gloo_workers.py"
-GLOO_TIMEOUT_S = 900
 
 
 def start_dryruns():
     """Phase 18's dry runs, started before phase 1 so that they run on the
-    host's cores while the card phases run: one subprocess per entry of
-    ``DRYRUN_RUNS`` (``background``), each on a fake process group (the
-    fake group never shares a process with the card's).  Returns {name:
-    (process, log)}."""
-    procs = {}
+    host's cores while the card phases run: one ``Job`` per entry of
+    ``DRYRUN_RUNS``, each on a fake process group (the fake group never
+    shares a process with the card's).  Returns {name: job}."""
+    jobs = {}
     for arch, shape in DRYRUN_RUNS:
         name = arch if shape is None else f"{arch}__{shape}"
-        procs[name] = background(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-             "--force"] + ([] if shape is None else ["--shape", shape]),
-            OUT_DIR / f"dryrun_{name}.log")
-    return procs
-
-
-def background(cmd, log_path):
-    """``cmd`` started from the repo root with no card visible, one thread,
-    at the lowest CPU priority (the card phases' host-bound timings keep
-    the cores they need); returns (process, log file)."""
-    import os
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
-    OUT_DIR.mkdir(exist_ok=True)
-    out = open(log_path, "w")
-    return (subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=out,
-                             stderr=subprocess.STDOUT,
-                             preexec_fn=lambda: os.nice(19)), out)
+        jobs[name] = Job(
+            f"dry run {name}",
+            [[sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+              arch, "--force"] + ([] if shape is None else ["--shape", shape])],
+            OUT_DIR / f"dryrun_{name}.log", JOB_TIMEOUT_S)
+    return jobs
 
 
 def start_gloo():
     """Phase 21's gloo ranks (``tests/test_torch_gloo_workers.py``, which
     imports no jax), started before phase 1 as the dry runs are: three sets
-    of CPU ranks, one after another, under this machine's PyTorch.
-    Returns {"gloo": (process, log)}."""
+    of CPU ranks, one after another, under this machine's PyTorch."""
     import shutil
     out_dir = OUT_DIR / "gloo"
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
-    return {"gloo": background([sys.executable, str(GLOO_WORKERS),
-                                str(out_dir)], OUT_DIR / "gloo.log")}
+    return Job("gloo ranks", [[sys.executable, str(GLOO_WORKERS),
+                               str(out_dir)]], OUT_DIR / "gloo.log",
+               JOB_TIMEOUT_S)
 
 
-def stop(procs) -> None:
-    """End every process of ``start_dryruns`` that still runs."""
-    for proc, out in procs.values():
-        if proc.poll() is None:
-            proc.kill()
-        proc.wait()
-        out.close()
+def baseline_digests() -> dict:
+    """sha256 of the port's ``BENCH_sim_torch.json`` and the reference's
+    ``BENCH_sim.json``, by file name."""
+    import hashlib
+    return {p.name: hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in (SIM_BASELINE, ROOT / "BENCH_sim.json")}
+
+
+def start_host_suites():
+    """Phase 20's host half, started before phase 1 as the dry runs are,
+    off the card phases' critical path: the beyond-paper suites at
+    ``--frames 16``, then the simulator's perf gate, ``python -m
+    benchmarks_torch.sim_speed --frames 64 --check BENCH_sim_torch.json``
+    (its ratios are of runs alternated in one process, so a loaded host
+    slows both sides of each).  One job runs them in turn: both write the
+    suites' JSON.  Returns the job and ``baseline_digests()`` taken before
+    it starts."""
+    before = baseline_digests()
+    return Job("host suites",
+               [[sys.executable, "-m", "benchmarks_torch.run", "--frames",
+                 "16", *BENCH_SMOKE_SUITES],
+                [sys.executable, "-m", "benchmarks_torch.sim_speed",
+                 "--frames", "64", "--check", SIM_BASELINE.name]],
+               OUT_DIR / "host_suites.log", JOB_TIMEOUT_S), before
 
 
 def phase14_prompts(cfg, n, width):
@@ -2124,19 +2266,14 @@ def sharded_serving(dev, sync):
     return rec
 
 
-def dryrun_cells(procs):
-    """Phase 18: wait for the dry runs of ``start_dryruns``, then print each
+def dryrun_cells(jobs, account):
+    """Phase 18: join the dry runs of ``start_dryruns``, then print each
     cell's status, per-device peak, FLOPs and collective bytes, and the
     roofline's row for it.  Every supported cell must end ``ok``."""
     from repro_torch.configs import SHAPES, get_config, shape_supported
     from repro_torch.launch import dryrun, roofline
-    deadline = time.perf_counter() + DRYRUN_TIMEOUT_S
-    for name, (proc, out) in procs.items():
-        rc = proc.wait(timeout=max(deadline - time.perf_counter(), 1))
-        out.close()
-        if rc != 0:
-            raise AssertionError(f"dry run {name}: exit {rc} (log in "
-                                 f"{OUT_DIR.name}/dryrun_{name}.log)")
+    for job in jobs.values():
+        job.join(account)
     log("dry run on the fake 16x16 mesh (256 ranks, CPU; model estimates "
         "under H100 constants, not measurements), each figure beside the "
         "reference's dry run of the cell [ref] and port / ref:")
@@ -2360,10 +2497,8 @@ def bench_on_card(card, phase_sums):
                ("yolo", "yolo_latency"))}
     log(f"benchmarks_torch.run {' '.join(BENCH_SUITES)}: exit 0 in "
         f"{wall:.1f} s (process start and kernel load included)")
-    rec = {"wall_s": wall, "kernel_bench": bench, "suites": suites,
-           "path_sums_vs_phases": compared}
-    rec.update(bench_host_suites())
-    return rec
+    return {"wall_s": wall, "kernel_bench": bench, "suites": suites,
+            "path_sums_vs_phases": compared}
 
 
 def run_logged(cmd, name, timeout=900):
@@ -2383,20 +2518,18 @@ def run_logged(cmd, name, timeout=900):
     return res.stdout, wall
 
 
-def bench_host_suites():
-    """Phase 20, continued: the beyond-paper suites on the host at
-    ``--frames 16`` (each writes its JSON), then the simulator's perf gate,
-    ``python -m benchmarks_torch.sim_speed --frames 64 --check
-    BENCH_sim_torch.json``: it must exit 0 (each suite's speedup within
-    its slack of the committed baseline's, after one re-measure) and leave
-    the committed baseline, and the reference's ``BENCH_sim.json``,
-    byte for byte as they were (sha256 before and after)."""
-    import hashlib
-    out, wall = run_logged([sys.executable, "-m", "benchmarks_torch.run",
-                            "--frames", "16", *BENCH_SMOKE_SUITES],
-                           "bench_torch_smoke")
+def host_suites(job, before, account):
+    """Phase 20, its host half: join the job of ``start_host_suites``.  Both
+    commands must exit 0: the beyond-paper suites, each writing its JSON,
+    and the perf gate (each suite's speedup within its slack of the
+    committed baseline's, after one re-measure); the committed baseline,
+    and the reference's ``BENCH_sim.json``, must be byte for byte as they
+    were (``before``, sha256)."""
+    job.join(account)
+    smoke_wall, gate_wall = job.walls
+    out = job.log_path.read_text()
     for line in out.splitlines():
-        if line.startswith("CSV,"):
+        if line.startswith("CSV,") and not line.startswith("CSV,sim_speed."):
             log(f"  {line}")
     art = ROOT / "artifacts" / "bench_torch"
     missing = [f for f in ("scheduler_quality", "elastic_bench",
@@ -2406,30 +2539,23 @@ def bench_host_suites():
     if missing:
         raise AssertionError(f"benchmarks_torch.run: no artifact {missing}")
     log(f"benchmarks_torch.run --frames 16 {' '.join(BENCH_SMOKE_SUITES)}: "
-        f"exit 0 in {wall:.1f} s on the host ({host_cpu()})")
-
-    def digests():
-        return {p.name: hashlib.sha256(p.read_bytes()).hexdigest()
-                for p in (SIM_BASELINE, ROOT / "BENCH_sim.json")}
-    before = digests()
-    out, gate_wall = run_logged([sys.executable, "-m",
-                                 "benchmarks_torch.sim_speed", "--frames",
-                                 "64", "--check", SIM_BASELINE.name],
-                                "sim_speed_check")
-    after = digests()
+        f"exit 0 in {smoke_wall:.1f} s on the host ({host_cpu()}), in the "
+        f"background")
+    after = baseline_digests()
     if after != before:
         raise AssertionError(f"sim_speed --check changed {before} -> {after}")
-    for line in out.splitlines():
+    gate = out[out.index("== sim_speed"):]
+    for line in gate.splitlines():
         if line.startswith(("yolo", "mt ", "event loop", "benchmarks_torch",
                             "  ", "perf gate", "re-measuring")):
             log(f"  {line}")
     sim = json.loads((art / "sim_speed.json").read_text())
     log(f"sim_speed --frames 64 --check {SIM_BASELINE.name}: exit 0 in "
-        f"{gate_wall:.1f} s on the host ({host_cpu()}), "
+        f"{gate_wall:.1f} s on the host ({host_cpu()}), in the background, "
         f"{sim['check']['regressions']} regressions; both baselines "
         f"unchanged (sha256 {before[SIM_BASELINE.name][:12]}, "
         f"{before['BENCH_sim.json'][:12]})")
-    return {"smoke_wall_s": wall, "sim_speed": sim,
+    return {"smoke_wall_s": smoke_wall, "sim_speed": sim,
             "sim_speed_wall_s": gate_wall, "host_cpu": host_cpu()}
 
 
@@ -2462,13 +2588,16 @@ def spread_on_card():
         raise AssertionError(f"spread: no {missing}, no traced round's "
                              f"device times or no card in its record (tokens "
                              f"equal: {rec.get('tokens_equal')})")
-    log(f"benchmarks_torch.spread: exit 0 in {wall:.1f} s (process start, "
-        f"build of both paths and warm-up included), {rec['rounds']} rounds")
+    inside = rec["build_s"] + rec["rounds_s"] + rec["traced_s"]
+    log(f"benchmarks_torch.spread: exit 0 in {wall:.1f} s, {rec['rounds']} "
+        f"rounds: build of both paths and warm-up {rec['build_s']:.1f} s, "
+        f"rounds {rec['rounds_s']:.1f} s, traced round {rec['traced_s']:.1f} "
+        f"s, the rest (process start, imports, exit) {wall - inside:.1f} s")
     return rec
 
 
-def gloo_ranks(procs):
-    """Phase 21: wait for the gloo ranks of ``start_gloo`` (the 3-rank
+def gloo_ranks(job, account):
+    """Phase 21: join the gloo ranks of ``start_gloo`` (the 3-rank
     serving and train steps of ``GLOO_ARCHS``, the (2, 2) gradients of
     every ``GRAD_ARCHS`` family, the sequence-split decode and the FSDP
     arch's batch-1 decode, all on this machine's CPU and PyTorch) and hold
@@ -2476,13 +2605,7 @@ def gloo_ranks(procs):
     against the unsharded port, and no weight gathered where the
     reference keeps it split."""
     import importlib.util
-    proc, out = procs["gloo"]
-    rc = proc.wait(timeout=GLOO_TIMEOUT_S)
-    out.close()
-    if rc != 0:
-        tail = (OUT_DIR / "gloo.log").read_text()[-3000:]
-        raise AssertionError(f"gloo ranks: exit {rc} (log in "
-                             f"{OUT_DIR.name}/gloo.log): {tail}")
+    job.join(account)
     spec = importlib.util.spec_from_file_location("gloo_workers",
                                                   GLOO_WORKERS)
     w = importlib.util.module_from_spec(spec)
@@ -2582,16 +2705,22 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 1
-    dryruns = start_dryruns()
-    gloo = start_gloo()
+    account = Account(STARTED)
+    jobs = []
     try:
-        return run_phases(dryruns, gloo)
+        dryruns = start_dryruns()
+        jobs += dryruns.values()
+        gloo = start_gloo()
+        jobs.append(gloo)
+        host, baselines = start_host_suites()
+        jobs.append(host)
+        return run_phases(dryruns, gloo, host, baselines, account)
     finally:
-        stop(dryruns)
-        stop(gloo)
+        for job in jobs:
+            job.stop()
 
 
-def run_phases(dryruns, gloo) -> int:
+def run_phases(dryruns, gloo, host_job, baselines, account) -> int:
     import torch
     from repro_torch.core.graph import OpKind
     from repro_torch.kernels import _build, conv2d, imc_mvm as mvm_mod, ref
@@ -2605,324 +2734,325 @@ def run_phases(dryruns, gloo) -> int:
     dev = torch.device("cuda", 0)
     detail: dict = {}
 
-    # ---- 1. device and build --------------------------------------------
-    card = kb.card_line()
-    log(f"card: {card}")
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"python {sys.version.split()[0]}")
-    t0 = time.perf_counter()
-    libs = _build.build()
-    detail["build_s"] = time.perf_counter() - t0
-    log(f"build: {len(libs)} kernels in {detail['build_s']:.2f} s")
-    for name, lib in libs.items():
-        log_path = Path(f"{lib}.log")
-        lines = log_path.read_text().splitlines() if log_path.exists() else []
-        for line in lines:
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
-    flash_report = ptxas_report(
-        Path(f"{libs['flash_attention']}.log").read_text())
-    tc_ptxas = {fn: r for fn, r in flash_report.items()
-                if "flash_tc_kernel" in fn}
-    if not tc_ptxas:
-        raise AssertionError("ptxas reported no flash tensor-core instance")
-    detail["flash_tc_ptxas"] = tc_ptxas
-    for fn, r in sorted(tc_ptxas.items()):
-        log(f"ptxas flash tensor-core instance {fn}: {r.get('registers')} "
-            f"registers, {r.get('spill_stores')} bytes spill stores, "
-            f"{r.get('spill_loads')} bytes spill loads")
-    # the serving path's instance: hd 288, staged by cp.async
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as fa
-    path_tag = f"ILi{fa.tc_steps(get_config('gemma3-1b').hd)}ELb1E"
-    path_inst = [r for fn, r in tc_ptxas.items() if path_tag in fn]
-    if len(path_inst) != 1 or path_inst[0].get("spill_stores") != 0 \
-            or path_inst[0].get("spill_loads") != 0:
-        raise AssertionError(f"ptxas: the serving path's flash instance "
-                             f"{path_tag} spills or is missing: {path_inst}")
-    # the other families' hd-256 path instance, cp.async-staged like the
-    # one above (16 steps)
-    tag = "ILi16ELb1E"
-    inst = [r for fn, r in tc_ptxas.items() if tag in fn]
-    if len(inst) != 1 or inst[0].get("spill_stores") != 0 \
-            or inst[0].get("spill_loads") != 0:
-        raise AssertionError(f"ptxas: the other families' flash instance "
-                             f"{tag} spills or is missing: {inst}")
-    log("ptxas: the 16-step cp.async flash instance (the other families' "
-        "hd-256 paths) does not spill")
-    detail["flash_wg"] = wgmma_instances(libs["flash_attention"],
-                                         flash_report)
-    tc32_ptxas = {fn: r for fn, r in flash_report.items()
-                  if "flash_tc32_kernel" in fn}
-    if not tc32_ptxas:
-        raise AssertionError("ptxas reported no flash f32 tensor-core instance")
-    detail["flash_tc32_ptxas"] = tc32_ptxas
-    for fn, r in sorted(tc32_ptxas.items()):
-        log(f"ptxas flash f32 tensor-core instance {fn}: {r.get('registers')} "
-            f"registers, {r.get('spill_stores')} bytes spill stores, "
-            f"{r.get('spill_loads')} bytes spill loads")
-    # the kernel bench's instance (hd 128) and the widest the instance
-    # takes, both cp.async-staged
-    for hd in (128, fa.TC32_MAX_HEAD_DIM):
-        tag = f"ILi{fa.tc_steps(hd)}ELb1E"
-        inst = [r for fn, r in tc32_ptxas.items() if tag in fn]
+    with account.phase("1", "device and build"):
+        card = kb.card_line()
+        log(f"card: {card}")
+        log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+            f"python {sys.version.split()[0]}")
+        t0 = time.perf_counter()
+        libs = _build.build()
+        detail["build_s"] = time.perf_counter() - t0
+        log(f"build: {len(libs)} kernels in {detail['build_s']:.2f} s")
+        for name, lib in libs.items():
+            log_path = Path(f"{lib}.log")
+            lines = log_path.read_text().splitlines() if log_path.exists() else []
+            for line in lines:
+                if "registers" in line or "spill" in line:
+                    log(f"  ptxas {name}: {line.strip()}")
+        flash_report = ptxas_report(
+            Path(f"{libs['flash_attention']}.log").read_text())
+        tc_ptxas = {fn: r for fn, r in flash_report.items()
+                    if "flash_tc_kernel" in fn}
+        if not tc_ptxas:
+            raise AssertionError("ptxas reported no flash tensor-core instance")
+        detail["flash_tc_ptxas"] = tc_ptxas
+        for fn, r in sorted(tc_ptxas.items()):
+            log(f"ptxas flash tensor-core instance {fn}: {r.get('registers')} "
+                f"registers, {r.get('spill_stores')} bytes spill stores, "
+                f"{r.get('spill_loads')} bytes spill loads")
+        # the serving path's instance: hd 288, staged by cp.async
+        from repro_torch.configs import get_config
+        from repro_torch.kernels import flash_attention as fa
+        path_tag = f"ILi{fa.tc_steps(get_config('gemma3-1b').hd)}ELb1E"
+        path_inst = [r for fn, r in tc_ptxas.items() if path_tag in fn]
+        if len(path_inst) != 1 or path_inst[0].get("spill_stores") != 0 \
+                or path_inst[0].get("spill_loads") != 0:
+            raise AssertionError(f"ptxas: the serving path's flash instance "
+                                 f"{path_tag} spills or is missing: {path_inst}")
+        # the other families' hd-256 path instance, cp.async-staged like the
+        # one above (16 steps)
+        tag = "ILi16ELb1E"
+        inst = [r for fn, r in tc_ptxas.items() if tag in fn]
         if len(inst) != 1 or inst[0].get("spill_stores") != 0 \
                 or inst[0].get("spill_loads") != 0:
-            raise AssertionError(f"ptxas: the f32 tensor-core flash instance "
-                                 f"at hd {hd} ({tag}) spills or is missing: "
-                                 f"{inst}")
-        log(f"ptxas: the f32 tensor-core flash instance at hd {hd} ({tag}) "
-            f"does not spill")
-    g18 = graphs.resnet18_graph()
-    path_convs = kb.conv_shapes(g18, BATCH)
-    path_instances = {f"imc_conv2d/{conv2d.conv_instance(c[3], c[4], True)}"
-                      for c in path_convs}
-    path_instances.add(f"imc_mvm/{mvm_mod.mvm_instance(256, True)}")
-    detail["int8_ptxas"] = int8_ptxas(libs, path_instances)
+            raise AssertionError(f"ptxas: the other families' flash instance "
+                                 f"{tag} spills or is missing: {inst}")
+        log("ptxas: the 16-step cp.async flash instance (the other families' "
+            "hd-256 paths) does not spill")
+        detail["flash_wg"] = wgmma_instances(libs["flash_attention"],
+                                             flash_report)
+        tc32_ptxas = {fn: r for fn, r in flash_report.items()
+                      if "flash_tc32_kernel" in fn}
+        if not tc32_ptxas:
+            raise AssertionError("ptxas reported no flash f32 tensor-core instance")
+        detail["flash_tc32_ptxas"] = tc32_ptxas
+        for fn, r in sorted(tc32_ptxas.items()):
+            log(f"ptxas flash f32 tensor-core instance {fn}: {r.get('registers')} "
+                f"registers, {r.get('spill_stores')} bytes spill stores, "
+                f"{r.get('spill_loads')} bytes spill loads")
+        # the kernel bench's instance (hd 128) and the widest the instance
+        # takes, both cp.async-staged
+        for hd in (128, fa.TC32_MAX_HEAD_DIM):
+            tag = f"ILi{fa.tc_steps(hd)}ELb1E"
+            inst = [r for fn, r in tc32_ptxas.items() if tag in fn]
+            if len(inst) != 1 or inst[0].get("spill_stores") != 0 \
+                    or inst[0].get("spill_loads") != 0:
+                raise AssertionError(f"ptxas: the f32 tensor-core flash instance "
+                                     f"at hd {hd} ({tag}) spills or is missing: "
+                                     f"{inst}")
+            log(f"ptxas: the f32 tensor-core flash instance at hd {hd} ({tag}) "
+                f"does not spill")
+        g18 = graphs.resnet18_graph()
+        path_convs = kb.conv_shapes(g18, BATCH)
+        path_instances = {f"imc_conv2d/{conv2d.conv_instance(c[3], c[4], True)}"
+                          for c in path_convs}
+        path_instances.add(f"imc_mvm/{mvm_mod.mvm_instance(256, True)}")
+        detail["int8_ptxas"] = int8_ptxas(libs, path_instances)
 
-    gen = torch.Generator(device=dev).manual_seed(1234)
+        gen = torch.Generator(device=dev).manual_seed(1234)
 
-    def rand_int8(shape):
-        return torch.randint(-127, 128, shape, generator=gen, device=dev,
-                             dtype=torch.int8)
+        def rand_int8(shape):
+            return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                                 dtype=torch.int8)
 
-    def rand_scales(n):
-        return torch.rand((n,), generator=gen, device=dev) * 0.1 + 1e-3
+        def rand_scales(n):
+            return torch.rand((n,), generator=gen, device=dev) * 0.1 + 1e-3
 
-    # ---- 2. kernels against their plain versions -------------------------
-    int8_rule_checks()
-    distinct = sorted(set(path_convs), key=path_convs.index)
-    ragged_convs = [(2, 12, 12, 8, 130, 5, 1, "SAME"),
-                    (2, 9, 9, 3, 6, 3, 2, "SAME"),
-                    (2, 10, 10, 5, 7, 1, 1, "SAME"),
-                    (3, 11, 13, 3, 130, 3, 2, "SAME"),
-                    (2, 9, 9, 4, 6, 3, 2, "VALID"),
-                    # Cin 16 and 48 (16-byte pieces, not 32), Cin 24 (only
-                    # a multiple of 8: gathered), Cout 130 on cp.async
-                    (4, 10, 10, 16, 40, 3, 1, "SAME"),
-                    (4, 10, 10, 48, 96, 3, 2, "SAME"),
-                    (4, 10, 10, 24, 64, 3, 1, "SAME"),
-                    (4, 8, 8, 64, 130, 3, 1, "SAME")]
-    err = {"imc_conv2d": 0.0, "imc_mvm": 0.0}
-    for shape in distinct + ragged_convs:
-        B, H, W, cin, cout, k, s, padding = shape
-        qx, qw = rand_int8((B, H, W, cin)), rand_int8((k, k, cin, cout))
-        sw, bias = rand_scales(cout), torch.randn((cout,), generator=gen,
-                                                  device=dev)
-        sx = torch.full((), 0.04, device=dev)
-        pads = layers.conv_pads(H, W, k, s, padding)
-        conv_check(qx, qw, sx, sw, bias, s, pads, str(shape), err)
-    # x one byte off 16-byte alignment at a stage-1 shape: the gather
-    # staging at path width
-    B, H, W, cin, cout, k, s, padding = distinct[1]
-    buf = rand_int8((B * H * W * cin + 1,))
-    qx = buf[1:].view(B, H, W, cin)
-    qw = rand_int8((k, k, cin, cout))
-    conv_check(qx, qw, torch.full((), 0.04, device=dev), rand_scales(cout),
-               torch.randn((cout,), generator=gen, device=dev), s,
-               layers.conv_pads(H, W, k, s, padding),
-               f"{distinct[1]} x at 16-byte offset 1", err)
-    # all-+-127 operands at stage 4's K = 2,304: |acc| = 127^2 * 2304 at
-    # interior pixels, exact in int32 and in the kernel
-    qx = torch.full((BATCH, 4, 4, 256), 127, dtype=torch.int8, device=dev)
-    qw = torch.full((3, 3, 256, 256), 127, dtype=torch.int8, device=dev)
-    qw[..., 1::2] = -127
-    acc = ref.conv2d_acc(qx, qw, 1, (1, 1, 1, 1))
-    if acc.abs().max().item() != 127 * 127 * 2304:
-        raise AssertionError("extreme conv: the interior sum is not 127^2 * 2304")
-    conv_check(qx, qw, torch.full((), 1e-6, device=dev), rand_scales(256),
-               torch.randn((256,), generator=gen, device=dev), 1, (1, 1, 1, 1),
-               f"({BATCH},4,4,256->256) all +-127, |acc| max "
-               f"{acc.abs().max().item()}", err)
-    log(f"check imc_conv2d: torch.equal at {len(distinct)} path shapes "
-        f"(batch {BATCH}), {len(ragged_convs)} ragged shapes, an unaligned x "
-        f"and all-+-127 operands")
+    with account.phase("2", "INT8 kernels against their plain versions"):
+        int8_rule_checks()
+        distinct = sorted(set(path_convs), key=path_convs.index)
+        ragged_convs = [(2, 12, 12, 8, 130, 5, 1, "SAME"),
+                        (2, 9, 9, 3, 6, 3, 2, "SAME"),
+                        (2, 10, 10, 5, 7, 1, 1, "SAME"),
+                        (3, 11, 13, 3, 130, 3, 2, "SAME"),
+                        (2, 9, 9, 4, 6, 3, 2, "VALID"),
+                        # Cin 16 and 48 (16-byte pieces, not 32), Cin 24 (only
+                        # a multiple of 8: gathered), Cout 130 on cp.async
+                        (4, 10, 10, 16, 40, 3, 1, "SAME"),
+                        (4, 10, 10, 48, 96, 3, 2, "SAME"),
+                        (4, 10, 10, 24, 64, 3, 1, "SAME"),
+                        (4, 8, 8, 64, 130, 3, 1, "SAME")]
+        err = {"imc_conv2d": 0.0, "imc_mvm": 0.0}
+        for shape in distinct + ragged_convs:
+            B, H, W, cin, cout, k, s, padding = shape
+            qx, qw = rand_int8((B, H, W, cin)), rand_int8((k, k, cin, cout))
+            sw, bias = rand_scales(cout), torch.randn((cout,), generator=gen,
+                                                      device=dev)
+            sx = torch.full((), 0.04, device=dev)
+            pads = layers.conv_pads(H, W, k, s, padding)
+            conv_check(qx, qw, sx, sw, bias, s, pads, str(shape), err)
+        # x one byte off 16-byte alignment at a stage-1 shape: the gather
+        # staging at path width
+        B, H, W, cin, cout, k, s, padding = distinct[1]
+        buf = rand_int8((B * H * W * cin + 1,))
+        qx = buf[1:].view(B, H, W, cin)
+        qw = rand_int8((k, k, cin, cout))
+        conv_check(qx, qw, torch.full((), 0.04, device=dev), rand_scales(cout),
+                   torch.randn((cout,), generator=gen, device=dev), s,
+                   layers.conv_pads(H, W, k, s, padding),
+                   f"{distinct[1]} x at 16-byte offset 1", err)
+        # all-+-127 operands at stage 4's K = 2,304: |acc| = 127^2 * 2304 at
+        # interior pixels, exact in int32 and in the kernel
+        qx = torch.full((BATCH, 4, 4, 256), 127, dtype=torch.int8, device=dev)
+        qw = torch.full((3, 3, 256, 256), 127, dtype=torch.int8, device=dev)
+        qw[..., 1::2] = -127
+        acc = ref.conv2d_acc(qx, qw, 1, (1, 1, 1, 1))
+        if acc.abs().max().item() != 127 * 127 * 2304:
+            raise AssertionError("extreme conv: the interior sum is not 127^2 * 2304")
+        conv_check(qx, qw, torch.full((), 1e-6, device=dev), rand_scales(256),
+                   torch.randn((256,), generator=gen, device=dev), 1, (1, 1, 1, 1),
+                   f"({BATCH},4,4,256->256) all +-127, |acc| max "
+                   f"{acc.abs().max().item()}", err)
+        log(f"check imc_conv2d: torch.equal at {len(distinct)} path shapes "
+            f"(batch {BATCH}), {len(ragged_convs)} ragged shapes, an unaligned x "
+            f"and all-+-127 operands")
 
-    for M, K, N in [(BATCH, 256, 10), (257, 129, 65), (1, 512, 512)]:
-        qx, qw = rand_int8((M, K)), rand_int8((K, N))
-        sw, bias = rand_scales(N), torch.randn((N,), generator=gen, device=dev)
-        sx = torch.full((), 0.02, device=dev)
-        before = dict(imc_mvm.launches_by_instance)
-        got = imc_mvm(qx, qw, sx, sw, bias)
-        want = ref.imc_mvm_ref(qx, qw, sx, sw, bias)
-        torch.cuda.synchronize()
-        ran = [n for n, c in imc_mvm.launches_by_instance.items()
-               if c != before[n]]
-        rule = mvm_mod.mvm_instance(K, qx.data_ptr() % 16 == 0)
-        if ran != [rule]:
-            raise AssertionError(f"imc_mvm {(M, K, N)}: ran {ran}, the rule "
-                                 f"names {rule}")
-        if not torch.equal(got, want):
-            raise AssertionError(f"imc_mvm != plain at {(M, K, N)}: max |d| "
-                                 f"{(got - want).abs().max().item()}")
-        err["imc_mvm"] = max(err["imc_mvm"], (got - want).abs().max().item())
-        log(f"check imc_mvm {(M, K, N)} [{rule}]: torch.equal")
-
-    grad_guard_checks(dev)
-
-    # ---- 3. placement: schedule and simulate the graph phase 4 executes ----
-    lblp, detail["placement"] = schedule_and_simulate(g18)
-    if set(lblp.mapping) != set(g18.nodes):
-        raise AssertionError("place: the LBLP mapping does not cover the graph")
-    detail["placement"]["yolov8n"] = place_yolov8n()
-    detail["elastic"] = elastic_sessions()
-    detail["serving"] = serving_plane()
-    detail["partition"] = stage_partition()
-
-    # ---- 4. main path ------------------------------------------------------
-    def serve(cfg, g, n_requests, label):
-        params = resnet.init(torch.Generator().manual_seed(0), cfg, device=dev)
-        data = torch.Generator(device=dev).manual_seed(1)
-        x_cal = torch.randn((BATCH, 32, 32, 3), generator=data, device=dev)
-        scales = quant.calibrate_resnet(params, x_cal, cfg)
-        xs = torch.randn((n_requests, BATCH, 32, 32, 3), generator=data,
-                         device=dev)
-        executor.execute(g, params, x_cal, mode="int8", act_scales=scales)
-        torch.cuda.synchronize()
-        zero_counts()
-        outs, lat = [], []
-        t_all = time.perf_counter()
-        for r in range(n_requests):
-            t = time.perf_counter()
-            outs.append(executor.execute(g, params, xs[r], mode="int8",
-                                         act_scales=scales))
+        for M, K, N in [(BATCH, 256, 10), (257, 129, 65), (1, 512, 512)]:
+            qx, qw = rand_int8((M, K)), rand_int8((K, N))
+            sw, bias = rand_scales(N), torch.randn((N,), generator=gen, device=dev)
+            sx = torch.full((), 0.02, device=dev)
+            before = dict(imc_mvm.launches_by_instance)
+            got = imc_mvm(qx, qw, sx, sw, bias)
+            want = ref.imc_mvm_ref(qx, qw, sx, sw, bias)
             torch.cuda.synchronize()
-            lat.append(time.perf_counter() - t)
-        total = time.perf_counter() - t_all
-        counts = (imc_conv2d.launches, imc_mvm.launches)
-        n_conv, n_mvm = g.num_nodes(OpKind.CONV), g.num_nodes(OpKind.MVM)
-        if counts != (n_conv * n_requests, n_mvm * n_requests):
-            raise AssertionError(f"{label}: launches {counts}, expected "
-                                 f"{(n_conv * n_requests, n_mvm * n_requests)}")
-        by_inst = dict(imc_conv2d.launches_by_instance)
-        want_inst = dict.fromkeys(by_inst, 0)
-        for c in kb.conv_shapes(g, BATCH):
-            want_inst[conv2d.conv_instance(c[3], c[4], True)] += n_requests
-        if by_inst != want_inst:
-            raise AssertionError(f"{label}: conv launches by instance {by_inst}"
-                                 f", the rule names {want_inst}")
-        staging = {st: sum(v for k, v in by_inst.items() if k.startswith(st))
-                   for st in ("cp_async", "gather")}
-        log(f"{label}: {n_requests} requests x {BATCH} frames; launches "
-            f"conv {counts[0]} mvm {counts[1]} ({n_conv} + {n_mvm} per request)"
-            f"; conv by instance {by_inst} (cp.async {staging['cp_async']}, "
-            f"gather {staging['gather']}); mvm by instance "
-            f"{imc_mvm.launches_by_instance}")
-        for y in outs:
-            if y.shape != (BATCH, cfg["num_classes"]) or not torch.isfinite(y).all():
-                raise AssertionError(f"{label}: bad logits {tuple(y.shape)}")
-        # the plain path: the same executor on CPU copies
-        y_cpu = executor.execute(g, to_device(params, "cpu"), xs[0].cpu(),
-                                 mode="int8", act_scales=scales)
-        y_dev = outs[0].cpu()
-        dmax = (y_dev - y_cpu).abs().max().item()
-        lmax = y_cpu.abs().max().item()
-        top1 = bool(torch.equal(y_dev.argmax(-1), y_cpu.argmax(-1)))
-        log(f"{label}: card vs cpu plain path: max |d| {dmax:.3e}, "
-            f"max |logit| {lmax:.4f}, top-1 identical {top1}")
-        if not top1 or dmax > LOGIT_RTOL * lmax:
-            raise AssertionError(f"{label}: logits disagree with the plain path")
-        return params, scales, xs, lat, total, counts
+            ran = [n for n, c in imc_mvm.launches_by_instance.items()
+                   if c != before[n]]
+            rule = mvm_mod.mvm_instance(K, qx.data_ptr() % 16 == 0)
+            if ran != [rule]:
+                raise AssertionError(f"imc_mvm {(M, K, N)}: ran {ran}, the rule "
+                                     f"names {rule}")
+            if not torch.equal(got, want):
+                raise AssertionError(f"imc_mvm != plain at {(M, K, N)}: max |d| "
+                                     f"{(got - want).abs().max().item()}")
+            err["imc_mvm"] = max(err["imc_mvm"], (got - want).abs().max().item())
+            log(f"check imc_mvm {(M, K, N)} [{rule}]: torch.equal")
 
-    zero_counts()
-    log(f"resnet18_cifar: executing the graph LBLP placed ({len(g18)} nodes on "
-        f"{len(set(lblp.mapping.values()))} PUs of the IMCE model)")
-    params, scales, xs, lat, total, counts18 = serve(
-        resnet.RESNET18_CIFAR, g18, REQUESTS, "resnet18_cifar")
-    cp_async = sum(v for k, v in imc_conv2d.launches_by_instance.items()
-                   if k.startswith("cp_async"))
-    if (cp_async, counts18[0] - cp_async) != (19 * REQUESTS, REQUESTS):
-        raise AssertionError(f"resnet18_cifar: {cp_async} cp.async conv "
-                             f"launches of {counts18[0]}; want 19 and 1 a "
-                             f"request")
-    fps = REQUESTS * BATCH / total
-    detail["e2e"] = {"frames_per_s": fps, "requests": REQUESTS, "batch": BATCH,
-                     "latency_ms": [t * 1e3 for t in lat]}
-    log(f"resnet18_cifar int8: {fps:.1f} frames/s, request latency mean "
-        f"{sum(lat) / len(lat) * 1e3:.3f} ms, max {max(lat) * 1e3:.3f} ms")
-    zero_counts()
-    serve(resnet.RESNET8, graphs.resnet8_graph(), 1, "resnet8")
+        grad_guard_checks(dev)
 
-    # device busy share over one request
-    wall, busy, top = profile_kernels(lambda: executor.execute(
-        g18, params, xs[0], mode="int8", act_scales=scales))
-    detail["profile"] = {"wall_ms": wall, "device_busy_ms": busy, "top": top}
-    log(f"profile of one request: wall {wall:.3f} ms (under the profiler), "
-        f"kernels {busy:.3f} ms")
-    for row in top[:8]:
-        log(f"  {row['ms']:9.3f} ms  x{row['calls']:<4d} {row['name'][:70]}")
+    with account.phase("3", "placement"):
+        lblp, detail["placement"] = schedule_and_simulate(g18)
+        if set(lblp.mapping) != set(g18.nodes):
+            raise AssertionError("place: the LBLP mapping does not cover the graph")
+        detail["placement"]["yolov8n"] = place_yolov8n()
+        detail["elastic"] = elastic_sessions()
+        detail["serving"] = serving_plane()
+        detail["partition"] = stage_partition()
 
-    # ---- 5. kernel timings at the path's shapes ----------------------------
-    # the kernel bench's own cases (``kernel_bench.cnn_cases``), run here
-    cnn_cases = kb.cnn_cases(g18, BATCH)
-    cnn_recs, cnn_total = kb.time_path(
-        cnn_cases, dev, torch.Generator(device=dev).manual_seed(5))
-    conv_cases = [c for c in cnn_cases if c.kind == "imc_conv2d"]
-    fc_case, = [c for c in cnn_cases if c.kind == "imc_mvm"]
-    conv_total = kb.path_sum(conv_cases, cnn_recs)
-    fc = cnn_recs[fc_case.key]
-    log(f"per request of {BATCH} frames ({conv_total['path_launches']} conv "
-        f"+ 1 mvm launches; µs; cold: each launch alone after a "
-        f"{kb.FLUSH_BYTES >> 20} MiB write; graph: replayed from a CUDA "
-        f"graph; wrapper: through imc_conv2d/imc_mvm):")
-    log_port_cases(cnn_cases, cnn_recs, cnn_total, "per request")
-    log(f"  {kb.port_row('imc_conv2d per request', conv_total)}")
-    detail["imc_conv2d"] = {"cases": cnn_recs, "per_request": conv_total,
-                            "with_fc": cnn_total}
-    detail["imc_mvm"] = fc
+    with account.phase("4", "the main path, ResNet-18 INT8"):
+        def serve(cfg, g, n_requests, label):
+            params = resnet.init(torch.Generator().manual_seed(0), cfg, device=dev)
+            data = torch.Generator(device=dev).manual_seed(1)
+            x_cal = torch.randn((BATCH, 32, 32, 3), generator=data, device=dev)
+            scales = quant.calibrate_resnet(params, x_cal, cfg)
+            xs = torch.randn((n_requests, BATCH, 32, 32, 3), generator=data,
+                             device=dev)
+            executor.execute(g, params, x_cal, mode="int8", act_scales=scales)
+            torch.cuda.synchronize()
+            zero_counts()
+            outs, lat = [], []
+            t_all = time.perf_counter()
+            for r in range(n_requests):
+                t = time.perf_counter()
+                outs.append(executor.execute(g, params, xs[r], mode="int8",
+                                             act_scales=scales))
+                torch.cuda.synchronize()
+                lat.append(time.perf_counter() - t)
+            total = time.perf_counter() - t_all
+            counts = (imc_conv2d.launches, imc_mvm.launches)
+            n_conv, n_mvm = g.num_nodes(OpKind.CONV), g.num_nodes(OpKind.MVM)
+            if counts != (n_conv * n_requests, n_mvm * n_requests):
+                raise AssertionError(f"{label}: launches {counts}, expected "
+                                     f"{(n_conv * n_requests, n_mvm * n_requests)}")
+            by_inst = dict(imc_conv2d.launches_by_instance)
+            want_inst = dict.fromkeys(by_inst, 0)
+            for c in kb.conv_shapes(g, BATCH):
+                want_inst[conv2d.conv_instance(c[3], c[4], True)] += n_requests
+            if by_inst != want_inst:
+                raise AssertionError(f"{label}: conv launches by instance {by_inst}"
+                                     f", the rule names {want_inst}")
+            staging = {st: sum(v for k, v in by_inst.items() if k.startswith(st))
+                       for st in ("cp_async", "gather")}
+            log(f"{label}: {n_requests} requests x {BATCH} frames; launches "
+                f"conv {counts[0]} mvm {counts[1]} ({n_conv} + {n_mvm} per request)"
+                f"; conv by instance {by_inst} (cp.async {staging['cp_async']}, "
+                f"gather {staging['gather']}); mvm by instance "
+                f"{imc_mvm.launches_by_instance}")
+            for y in outs:
+                if y.shape != (BATCH, cfg["num_classes"]) \
+                        or not torch.isfinite(y).all():
+                    raise AssertionError(f"{label}: bad logits {tuple(y.shape)}")
+            # the plain path: the same executor on CPU copies
+            y_cpu = executor.execute(g, to_device(params, "cpu"), xs[0].cpu(),
+                                     mode="int8", act_scales=scales)
+            y_dev = outs[0].cpu()
+            dmax = (y_dev - y_cpu).abs().max().item()
+            lmax = y_cpu.abs().max().item()
+            top1 = bool(torch.equal(y_dev.argmax(-1), y_cpu.argmax(-1)))
+            log(f"{label}: card vs cpu plain path: max |d| {dmax:.3e}, "
+                f"max |logit| {lmax:.4f}, top-1 identical {top1}")
+            if not top1 or dmax > LOGIT_RTOL * lmax:
+                raise AssertionError(f"{label}: logits disagree with the plain path")
+            return params, scales, xs, lat, total, counts
 
-    # ---- 5b. YOLOv8n at 640x640 in float on the card ------------------------
-    log(f"torch.backends.cudnn.allow_tf32 = {torch.backends.cudnn.allow_tf32}")
-    yolo_params, detail["yolov8n_card_vs_cpu"] = yolo_card_vs_cpu(
-        dev, YOLO_HW, YOLO_CHECK_FRAMES)
-    detail["yolov8n_serve"] = yolo_serve(yolo_params, dev, YOLO_HW,
-                                         YOLO_REQUESTS, YOLO_BATCH,
-                                         torch.cuda.synchronize)
-    from repro_torch.models.cnn import yolo
-    x_yolo = torch.randn((YOLO_BATCH, YOLO_HW, YOLO_HW, 3), device=dev,
-                         generator=torch.Generator(device=dev).manual_seed(3))
-    wall, busy, top = profile_kernels(lambda: yolo.forward(yolo_params, x_yolo))
-    detail["yolov8n_profile"] = {"wall_ms": wall, "device_busy_ms": busy,
-                                 "top": top}
-    yb = detail["yolov8n_serve"]
-    log(f"profile of one yolov8n request ({YOLO_BATCH} frames): wall "
-        f"{wall:.3f} ms (under the profiler), kernels {busy:.3f} ms "
-        f"({100 * busy / wall:.1f}% busy); bound {yb['bound_ms']:.4f} ms, "
-        f"measured request latency mean {yb['latency_ms_mean']:.3f} ms")
-    for row in top[:8]:
-        log(f"  {row['ms']:9.3f} ms  x{row['calls']:<4d} {row['name'][:70]}")
-    del yolo_params, x_yolo
-    torch.cuda.empty_cache()
+        zero_counts()
+        log(f"resnet18_cifar: executing the graph LBLP placed ({len(g18)} nodes on "
+            f"{len(set(lblp.mapping.values()))} PUs of the IMCE model)")
+        params, scales, xs, lat, total, counts18 = serve(
+            resnet.RESNET18_CIFAR, g18, REQUESTS, "resnet18_cifar")
+        cp_async = sum(v for k, v in imc_conv2d.launches_by_instance.items()
+                       if k.startswith("cp_async"))
+        if (cp_async, counts18[0] - cp_async) != (19 * REQUESTS, REQUESTS):
+            raise AssertionError(f"resnet18_cifar: {cp_async} cp.async conv "
+                                 f"launches of {counts18[0]}; want 19 and 1 a "
+                                 f"request")
+        fps = REQUESTS * BATCH / total
+        detail["e2e"] = {"frames_per_s": fps, "requests": REQUESTS, "batch": BATCH,
+                         "latency_ms": [t * 1e3 for t in lat]}
+        log(f"resnet18_cifar int8: {fps:.1f} frames/s, request latency mean "
+            f"{sum(lat) / len(lat) * 1e3:.3f} ms, max {max(lat) * 1e3:.3f} ms")
+        zero_counts()
+        serve(resnet.RESNET8, graphs.resnet8_graph(), 1, "resnet8")
 
-    # ---- 6. flash attention against its plain version --------------------
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.models.lm import transformer
-    log(f"torch.backends.cuda.matmul.allow_tf32 = "
-        f"{torch.backends.cuda.matmul.allow_tf32}")
-    gemma = get_config("gemma3-1b")
-    local_window = min(gemma.segments[0].window_pattern)
-    flash_errs = flash_checks(dev, gemma.hd, local_window)
+        # device busy share over one request
+        wall, busy, top = profile_kernels(lambda: executor.execute(
+            g18, params, xs[0], mode="int8", act_scales=scales))
+        detail["profile"] = {"wall_ms": wall, "device_busy_ms": busy, "top": top}
+        log(f"profile of one request: wall {wall:.3f} ms (under the profiler), "
+            f"kernels {busy:.3f} ms")
+        for row in top[:8]:
+            log(f"  {row['ms']:9.3f} ms  x{row['calls']:<4d} {row['name'][:70]}")
 
-    # ---- 7. full width, cut depth: card against the CPU plain path ---------
-    period = cut(gemma, len(gemma.segments[0].window_pattern))
-    detail["lm_card_vs_cpu"] = lm_card_vs_cpu(period, dev, LM_PROMPT,
-                                              LM_DECODE_STEPS)
-    log(f"gemma3-1b {period.n_layers} layers, full width: card vs cpu within "
-        f"{detail['lm_card_vs_cpu']['worst_rel']:.3e} of max |logit| (limit "
-        f"{LM_LOGIT_TOL}), {detail['lm_card_vs_cpu']['tokens_compared']} "
-        f"tokens compared; cpu prefill "
-        f"{detail['lm_card_vs_cpu']['cpu_prefill_s']:.1f} s")
+    with account.phase("5", "kernel timings at the path's shapes"):
+        # the kernel bench's own cases (``kernel_bench.cnn_cases``), run here
+        cnn_cases = kb.cnn_cases(g18, BATCH)
+        cnn_recs, cnn_total = kb.time_path(
+            cnn_cases, dev, torch.Generator(device=dev).manual_seed(5))
+        conv_cases = [c for c in cnn_cases if c.kind == "imc_conv2d"]
+        fc_case, = [c for c in cnn_cases if c.kind == "imc_mvm"]
+        conv_total = kb.path_sum(conv_cases, cnn_recs)
+        fc = cnn_recs[fc_case.key]
+        log(f"per request of {BATCH} frames ({conv_total['path_launches']} conv "
+            f"+ 1 mvm launches; µs; cold: each launch alone after a "
+            f"{kb.FLUSH_BYTES >> 20} MiB write; graph: replayed from a CUDA "
+            f"graph; wrapper: through imc_conv2d/imc_mvm):")
+        log_port_cases(cnn_cases, cnn_recs, cnn_total, "per request")
+        log(f"  {kb.port_row('imc_conv2d per request', conv_total)}")
+        detail["imc_conv2d"] = {"cases": cnn_recs, "per_request": conv_total,
+                                "with_fc": cnn_total}
+        detail["imc_mvm"] = fc
 
-    # ---- 8. the LM main path: 26-layer gemma3-1b through Server ------------
-    server, detail["serve"] = serve_counted(
-        gemma, dev, SERVE_REQUESTS, SERVE_LENS, SERVE_MAX_NEW, SERVE_MAX_BATCH,
-        gemma.n_layers, torch.cuda.synchronize)
+    with account.phase("5b", "YOLOv8n at 640x640"):
+        log(f"torch.backends.cudnn.allow_tf32 = {torch.backends.cudnn.allow_tf32}")
+        yolo_params, detail["yolov8n_card_vs_cpu"] = yolo_card_vs_cpu(
+            dev, YOLO_HW, YOLO_CHECK_FRAMES)
+        detail["yolov8n_serve"] = yolo_serve(yolo_params, dev, YOLO_HW,
+                                             YOLO_REQUESTS, YOLO_BATCH,
+                                             torch.cuda.synchronize)
+        from repro_torch.models.cnn import yolo
+        x_yolo = torch.randn((YOLO_BATCH, YOLO_HW, YOLO_HW, 3), device=dev,
+                             generator=torch.Generator(device=dev).manual_seed(3))
+        wall, busy, top = profile_kernels(lambda: yolo.forward(yolo_params, x_yolo))
+        detail["yolov8n_profile"] = {"wall_ms": wall, "device_busy_ms": busy,
+                                     "top": top}
+        yb = detail["yolov8n_serve"]
+        log(f"profile of one yolov8n request ({YOLO_BATCH} frames): wall "
+            f"{wall:.3f} ms (under the profiler), kernels {busy:.3f} ms "
+            f"({100 * busy / wall:.1f}% busy); bound {yb['bound_ms']:.4f} ms, "
+            f"measured request latency mean {yb['latency_ms_mean']:.3f} ms")
+        for row in top[:8]:
+            log(f"  {row['ms']:9.3f} ms  x{row['calls']:<4d} {row['name'][:70]}")
+        del yolo_params, x_yolo
+        torch.cuda.empty_cache()
 
-    # ---- 9. flash timings and the LM profile -------------------------------
-    detail["flash_attention"] = flash_timings(dev, gemma)
-    prof = profile_serving(gemma, server.params, dev, PATH_B, PATH_S)
-    detail["profile_prefill"], detail["profile_decode"] = prof["prefill"], \
-        prof["decode"]
+    with account.phase("6", "flash against its plain version"):
+        from repro_torch.kernels.flash_attention import flash_attention
+        from repro_torch.models.lm import transformer
+        log(f"torch.backends.cuda.matmul.allow_tf32 = "
+            f"{torch.backends.cuda.matmul.allow_tf32}")
+        gemma = get_config("gemma3-1b")
+        local_window = min(gemma.segments[0].window_pattern)
+        flash_errs = flash_checks(dev, gemma.hd, local_window)
+
+    with account.phase("7", "gemma3-1b cut depth, card against CPU"):
+        period = cut(gemma, len(gemma.segments[0].window_pattern))
+        detail["lm_card_vs_cpu"] = lm_card_vs_cpu(period, dev, LM_PROMPT,
+                                                  LM_DECODE_STEPS)
+        log(f"gemma3-1b {period.n_layers} layers, full width: card vs cpu within "
+            f"{detail['lm_card_vs_cpu']['worst_rel']:.3e} of max |logit| (limit "
+            f"{LM_LOGIT_TOL}), {detail['lm_card_vs_cpu']['tokens_compared']} "
+            f"tokens compared; cpu prefill "
+            f"{detail['lm_card_vs_cpu']['cpu_prefill_s']:.1f} s")
+
+    with account.phase("8", "gemma3-1b through Server"):
+        server, detail["serve"] = serve_counted(
+            gemma, dev, SERVE_REQUESTS, SERVE_LENS, SERVE_MAX_NEW, SERVE_MAX_BATCH,
+            gemma.n_layers, torch.cuda.synchronize)
+
+    with account.phase("9", "flash timings and the LM profile"):
+        detail["flash_attention"] = flash_timings(dev, gemma)
+        prof = profile_serving(gemma, server.params, dev, PATH_B, PATH_S)
+        detail["profile_prefill"], detail["profile_decode"] = prof["prefill"], \
+            prof["decode"]
 
     # ---- 10-12. LM training (T1-T3): no kernel on this path ---------------
     import dataclasses
@@ -2931,123 +3061,135 @@ def run_phases(dryruns, gloo) -> int:
     from repro_torch.optim import adamw
     del server
     torch.cuda.empty_cache()
-    two = dataclasses.replace(gemma, segments=(
-        Segment("attn", 2, window_pattern=(local_window, GLOBAL_WINDOW)),))
-    detail["train_t1"] = train_card_vs_cpu(two, dev, T1_SEQ)
-    log(f"train T1: card vs cpu within {detail['train_t1']['loss_rel']:.2e} "
-        f"(loss), {detail['train_t1']['grad_norm_rel']:.2e} (grad norm), "
-        f"{detail['train_t1']['worst_grad_rel']:.2e} (worst leaf gradient)")
+    with account.phase("10", "T1, a gemma3-1b step, card against CPU"):
+        two = dataclasses.replace(gemma, segments=(
+            Segment("attn", 2, window_pattern=(local_window, GLOBAL_WINDOW)),))
+        detail["train_t1"] = train_card_vs_cpu(two, dev, T1_SEQ)
+        log(f"train T1: card vs cpu within {detail['train_t1']['loss_rel']:.2e} "
+            f"(loss), {detail['train_t1']['grad_norm_rel']:.2e} (grad norm), "
+            f"{detail['train_t1']['worst_grad_rel']:.2e} (worst leaf gradient)")
 
-    t2_shape = ShapeSpec("train_4k_cut", SHAPES["train_4k"].seq_len, T2_BATCH,
-                         "train")
-    zero_counts()
-    torch.cuda.reset_peak_memory_stats(dev)
-    t2, t2_step = train_steps(gemma, dev, t2_shape, T2_MICROBATCH, T2_STEPS,
-                              adamw.AdamWConfig(warmup_steps=1),
-                              torch.cuda.synchronize)
-    if flash_attention.launches or imc_conv2d.launches or imc_mvm.launches:
-        raise AssertionError("train T2: the training path launched a kernel")
-    timed = t2["step_s"][1:]
-    n_params = transformer.param_count(gemma)
-    tokens = t2_shape.global_batch * t2_shape.seq_len
-    step_s = sum(timed) / len(timed)
-    t2.update(params=n_params, tokens=tokens, step_s_mean=step_s,
-              tok_per_s=tokens / step_s,
-              flop=6 * n_params * tokens,
-              bound_s=6 * n_params * tokens / BF16_FLOPS_PER_S,
-              peak_bytes=torch.cuda.max_memory_allocated(dev))
-    t2["mfu"] = t2["bound_s"] / step_s
-    detail["train_t2"] = t2
-    log(f"train T2 {gemma.name} {gemma.n_layers} layers ({n_params} params), "
-        f"batch {T2_BATCH} x {t2_shape.seq_len} in {T2_BATCH // T2_MICROBATCH} "
-        f"microbatches of {T2_MICROBATCH}: losses "
-        f"{', '.join(f'{x:.4f}' for x in t2['losses'])}; warm step "
-        f"{t2['step_s'][0]:.3f} s, timed {', '.join(f'{x:.3f}' for x in timed)} s"
-        f" (mean {step_s:.3f} s), {t2['tok_per_s']:.1f} tok/s; bound 6 N tokens "
-        f"= {t2['flop']:.3e} FLOP at {BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s = "
-        f"{t2['bound_s']:.4f} s, MFU {100 * t2['mfu']:.1f}%; peak memory "
-        f"{t2['peak_bytes'] / 2**30:.2f} GiB; 0 kernel launches")
-    wall, busy, rows = profile_kernels(t2_step, top=None)
-    classes = kernel_classes(rows)
-    detail["train_t2"]["profile"] = {"wall_ms": wall, "device_busy_ms": busy,
-                                     "classes_ms": classes, "top": rows[:16]}
-    log(f"profile one T2 step: wall {wall:.1f} ms (under the profiler), "
-        f"kernels {busy:.1f} ms ({100 * busy / wall:.1f}%); by class "
-        + ", ".join(f"{k} {v:.1f} ms" for k, v in classes.items()))
-    for row in rows[:12]:
-        log(f"  {row['ms']:9.3f} ms  x{row['calls']:<5d} {row['name'][:70]}")
-    del t2_step
-    torch.cuda.empty_cache()
+    with account.phase("11", "T2, gemma3-1b training at full depth"):
+        t2_shape = ShapeSpec("train_4k_cut", SHAPES["train_4k"].seq_len, T2_BATCH,
+                             "train")
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t2, t2_step = train_steps(gemma, dev, t2_shape, T2_MICROBATCH, T2_STEPS,
+                                  adamw.AdamWConfig(warmup_steps=1),
+                                  torch.cuda.synchronize)
+        if flash_attention.launches or imc_conv2d.launches or imc_mvm.launches:
+            raise AssertionError("train T2: the training path launched a kernel")
+        timed = t2["step_s"][1:]
+        n_params = transformer.param_count(gemma)
+        tokens = t2_shape.global_batch * t2_shape.seq_len
+        step_s = sum(timed) / len(timed)
+        t2.update(params=n_params, tokens=tokens, step_s_mean=step_s,
+                  tok_per_s=tokens / step_s,
+                  flop=6 * n_params * tokens,
+                  bound_s=6 * n_params * tokens / BF16_FLOPS_PER_S,
+                  peak_bytes=torch.cuda.max_memory_allocated(dev))
+        t2["mfu"] = t2["bound_s"] / step_s
+        detail["train_t2"] = t2
+        log(f"train T2 {gemma.name} {gemma.n_layers} layers ({n_params} params), "
+            f"batch {T2_BATCH} x {t2_shape.seq_len} in {T2_BATCH // T2_MICROBATCH} "
+            f"microbatches of {T2_MICROBATCH}: losses "
+            f"{', '.join(f'{x:.4f}' for x in t2['losses'])}; warm step "
+            f"{t2['step_s'][0]:.3f} s, timed {', '.join(f'{x:.3f}' for x in timed)} s"
+            f" (mean {step_s:.3f} s), {t2['tok_per_s']:.1f} tok/s; bound 6 N tokens "
+            f"= {t2['flop']:.3e} FLOP at {BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s = "
+            f"{t2['bound_s']:.4f} s, MFU {100 * t2['mfu']:.1f}%; peak memory "
+            f"{t2['peak_bytes'] / 2**30:.2f} GiB; 0 kernel launches")
+        wall, busy, rows = profile_kernels(t2_step, top=None)
+        classes = kernel_classes(rows)
+        detail["train_t2"]["profile"] = {"wall_ms": wall, "device_busy_ms": busy,
+                                         "classes_ms": classes, "top": rows[:16]}
+        log(f"profile one T2 step: wall {wall:.1f} ms (under the profiler), "
+            f"kernels {busy:.1f} ms ({100 * busy / wall:.1f}%); by class "
+            + ", ".join(f"{k} {v:.1f} ms" for k, v in classes.items()))
+        for row in rows[:12]:
+            log(f"  {row['ms']:9.3f} ms  x{row['calls']:<5d} {row['name'][:70]}")
+        del t2_step
+        torch.cuda.empty_cache()
 
-    zero_counts()
-    with tempfile.TemporaryDirectory() as tmp:
-        # the example's schedule: lr 3e-4, 30 warmup steps, cosine to the end
-        t3 = train_example(stablelm_100m(), dev, T3_STEPS, T3_BATCH, T3_SEQ,
-                           T3_CKPT_EVERY, adamw.AdamWConfig(
-                               lr=3e-4, warmup_steps=30, total_steps=T3_STEPS),
-                           Path(tmp), torch.cuda.synchronize)
-    if flash_attention.launches or imc_conv2d.launches or imc_mvm.launches:
-        raise AssertionError("train T3: the training path launched a kernel")
-    detail["train_t3"] = t3
-    # one step of the example's model under the profiler: where its time goes
-    t3_cfg = stablelm_100m()
-    _, t3_step = train_steps(t3_cfg, dev, ShapeSpec("example", T3_SEQ, T3_BATCH,
-                                                    "train"),
-                             t3_cfg.microbatch, 2, adamw.AdamWConfig(
-                                 lr=3e-4, warmup_steps=1), torch.cuda.synchronize)
-    wall, busy, rows = profile_kernels(t3_step, top=None)
-    t3["profile"] = {"wall_ms": wall, "device_busy_ms": busy,
-                     "launches": sum(r["calls"] for r in rows),
-                     "classes_ms": kernel_classes(rows), "top": rows[:8]}
-    del t3_step
-    log(f"train T3 stablelm-100m ({t3['params']} params), batch {T3_BATCH} x "
-        f"{T3_SEQ}, {t3['steps']} steps: loss first10 {t3['first10']:.4f} -> "
-        f"last10 {t3['last10']:.4f}; step {1e3 * t3['step_s_median']:.2f} ms "
-        f"median ({1e3 * t3['step_s_mean']:.2f} ms mean, checkpoints "
-        f"included), run {t3['wall_s']:.1f} s; resumed from "
-        f"{t3['resumed_from']}: loss {t3['loss_at_half']:.4f} -> "
-        f"{t3['loss_after']:.4f} ({100 * t3['resume_jump']:.2f}%, limit "
-        f"{100 * T3_RESUME_RTOL:.0f}%); retries {t3['retries']}, rollbacks "
-        f"{t3['rollbacks']}; checkpoint of step {t3['ckpt_step']}: restore "
-        f"{t3['restore_s']:.3f} s, save {t3['save_s']:.3f} s")
-    pr = t3["profile"]
-    log(f"profile one T3 step: wall {pr['wall_ms']:.1f} ms (under the profiler),"
-        f" kernels {pr['device_busy_ms']:.1f} ms "
-        f"({100 * pr['device_busy_ms'] / pr['wall_ms']:.1f}%) in "
-        f"{pr['launches']} launches; by class "
-        + ", ".join(f"{k} {v:.1f} ms" for k, v in pr["classes_ms"].items()))
+    with account.phase("12", "T3, the training example through train()"):
+        zero_counts()
+        with tempfile.TemporaryDirectory() as tmp:
+            # the example's schedule: lr 3e-4, 30 warmup steps, cosine to the end
+            t3 = train_example(stablelm_100m(), dev, T3_STEPS, T3_BATCH, T3_SEQ,
+                               T3_CKPT_EVERY, adamw.AdamWConfig(
+                                   lr=3e-4, warmup_steps=30, total_steps=T3_STEPS),
+                               Path(tmp), torch.cuda.synchronize)
+        if flash_attention.launches or imc_conv2d.launches or imc_mvm.launches:
+            raise AssertionError("train T3: the training path launched a kernel")
+        detail["train_t3"] = t3
+        # one step of the example's model under the profiler: where its time goes
+        t3_cfg = stablelm_100m()
+        _, t3_step = train_steps(t3_cfg, dev, ShapeSpec("example", T3_SEQ, T3_BATCH,
+                                                        "train"),
+                                 t3_cfg.microbatch, 2, adamw.AdamWConfig(
+                                     lr=3e-4, warmup_steps=1), torch.cuda.synchronize)
+        wall, busy, rows = profile_kernels(t3_step, top=None)
+        t3["profile"] = {"wall_ms": wall, "device_busy_ms": busy,
+                         "launches": sum(r["calls"] for r in rows),
+                         "classes_ms": kernel_classes(rows), "top": rows[:8]}
+        del t3_step
+        log(f"train T3 stablelm-100m ({t3['params']} params), batch {T3_BATCH} x "
+            f"{T3_SEQ}, {t3['steps']} steps: loss first10 {t3['first10']:.4f} -> "
+            f"last10 {t3['last10']:.4f}; step {1e3 * t3['step_s_median']:.2f} ms "
+            f"median ({1e3 * t3['step_s_mean']:.2f} ms mean, checkpoints "
+            f"included), run {t3['wall_s']:.1f} s; resumed from "
+            f"{t3['resumed_from']}: loss {t3['loss_at_half']:.4f} -> "
+            f"{t3['loss_after']:.4f} ({100 * t3['resume_jump']:.2f}%, limit "
+            f"{100 * T3_RESUME_RTOL:.0f}%); retries {t3['retries']}, rollbacks "
+            f"{t3['rollbacks']}; checkpoint of step {t3['ckpt_step']}: restore "
+            f"{t3['restore_s']:.3f} s, save {t3['save_s']:.3f} s")
+        pr = t3["profile"]
+        log(f"profile one T3 step: wall {pr['wall_ms']:.1f} ms (under the profiler),"
+            f" kernels {pr['device_busy_ms']:.1f} ms "
+            f"({100 * pr['device_busy_ms'] / pr['wall_ms']:.1f}%) in "
+            f"{pr['launches']} launches; by class "
+            + ", ".join(f"{k} {v:.1f} ms" for k, v in pr["classes_ms"].items()))
 
     # ---- 13-16. the other LM families --------------------------------------
     del t3
     torch.cuda.empty_cache()
-    main_launches, main_flash = other_families(dev, detail, torch.cuda.synchronize)
+    main_launches, main_flash = other_families(dev, detail,
+                                               torch.cuda.synchronize, account)
 
     # ---- 17-19. launch and sharding ----------------------------------------
-    torch.cuda.empty_cache()
-    detail["sharded_serving"] = sharded_serving(dev, torch.cuda.synchronize)
-    torch.cuda.empty_cache()
-    detail["dryrun"] = dryrun_cells(dryruns)
-    detail["examples"] = examples_on_card()
+    with account.phase("17", "sharded serving on a one-rank NCCL mesh"):
+        torch.cuda.empty_cache()
+        detail["sharded_serving"] = sharded_serving(dev, torch.cuda.synchronize)
+        torch.cuda.empty_cache()
+    with account.phase("18", "the dry runs"):
+        detail["dryrun"] = dryrun_cells(dryruns, account)
+    with account.phase("19", "the examples on the card"):
+        detail["examples"] = examples_on_card()
 
-    # ---- 20. the benchmark harness: paper suites, kernel bench on the card -
-    torch.cuda.empty_cache()
-    phase_sums = {
-        "resnet18_int8": (f"phase 5 ({cnn_total['path_launches']} launches "
-                          f"a request)", cnn_total),
-        "granite_prefill": (f"phase 14 ({main_flash['sum_us']['path_launches']}"
-                            f" launches a prefill)", main_flash["sum_us"]),
-    }
-    detail["bench"] = bench_on_card(card, phase_sums)
+    with account.phase("20", "the benchmark harness"):
+        # joined first: the gate's suites write the JSON that the
+        # harness's run below writes and reads
+        host = host_suites(host_job, baselines, account)
+        torch.cuda.empty_cache()
+        phase_sums = {
+            "resnet18_int8": (f"phase 5 ({cnn_total['path_launches']} launches "
+                              f"a request)", cnn_total),
+            "granite_prefill": (f"phase 14 ({main_flash['sum_us']['path_launches']}"
+                                f" launches a prefill)", main_flash["sum_us"]),
+        }
+        detail["bench"] = bench_on_card(card, phase_sums)
+        detail["bench"].update(host)
 
-    # ---- 21. the gloo ranks on this machine's PyTorch (started before 1) --
-    detail["gloo"] = gloo_ranks(gloo)
+    with account.phase("21", "the gloo ranks"):
+        detail["gloo"] = gloo_ranks(gloo, account)
 
-    # ---- 22. the run-to-run spread of the two served paths ----------------
-    torch.cuda.empty_cache()
-    detail["spread"] = spread_on_card()
+    with account.phase("22", "the run-to-run spread"):
+        torch.cuda.empty_cache()
+        detail["spread"] = spread_on_card()
 
     detail["card"] = card
     detail["device"] = torch.cuda.get_device_name(0)
+    detail["timing"] = account.record()
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(detail, indent=2))
 

@@ -575,3 +575,89 @@ def test_path_ms_is_a_path_sum_in_ms():
         "bound_ms": pytest.approx(0.1224), "bound_by": "bytes"}
     assert chip_smoke.path_ms(dict(total, library_us=4687.0))[
         "library_ms"] == pytest.approx(4.687)
+
+
+# ---------------------------------------------------------------------------
+# The time account and the background jobs
+# ---------------------------------------------------------------------------
+
+import inspect  # noqa: E402
+import re  # noqa: E402
+import time  # noqa: E402
+
+
+def test_every_phase_is_timed_exactly_once():
+    """Every phase of the run (1-22 and 5b) sits in exactly one
+    ``account.phase`` block of the script."""
+    ids = re.findall(r'account\.phase\("([^"]+)"',
+                     inspect.getsource(chip_smoke))
+    want = [str(i) for i in range(1, 23)] + ["5b"]
+    assert sorted(ids) == sorted(want)
+    assert len(set(ids)) == len(ids)
+
+
+def test_account_records_phases_and_joins(tmp_path):
+    """A phase's wall, a job's own wall and the wait on it land in the
+    record; the job's commands run in turn, each with no card visible, one
+    thread, at nice 19."""
+    account = chip_smoke.Account(time.perf_counter())
+    probe = [sys.executable, "-c",
+             "import os; print(os.environ['CUDA_VISIBLE_DEVICES'] or '-', "
+             "os.environ['OMP_NUM_THREADS'], os.nice(0))"]
+    job = chip_smoke.Job("stand-in", [probe, probe], tmp_path / "stand-in.log",
+                         60)
+    with account.phase("1", "a phase"):
+        time.sleep(0.05)
+        job.join(account)
+    rec = account.record()
+    assert (tmp_path / "stand-in.log").read_text().split() == \
+        ["-", "1", "19"] * 2
+    assert len(job.walls) == 2 and sum(job.walls) <= rec["background_s"][
+        "stand-in"]
+    assert rec["phase_s"]["1"] >= 0.05
+    assert 0 < rec["background_s"]["stand-in"] < 60
+    assert 0 <= rec["wait_s"]["stand-in"] <= rec["phase_s"]["1"]
+    assert rec["total_s"] >= rec["phase_s"]["1"]
+
+
+def test_background_job_exit_fails_at_its_join(tmp_path):
+    """A command that exits nonzero fails the job at its join, naming its
+    log, and no later command of the job runs."""
+    job = chip_smoke.Job("stand-in",
+                         [[sys.executable, "-c", "import sys; sys.exit(3)"],
+                          [sys.executable, "-c", "print('ran')"]],
+                         tmp_path / "stand-in.log", 60)
+    with pytest.raises(AssertionError,
+                       match=r"stand-in: exit 3 \(log in .*/stand-in\.log"):
+        job.join(chip_smoke.Account(time.perf_counter()))
+    assert len(job.walls) == 1
+    assert "ran" not in (tmp_path / "stand-in.log").read_text()
+
+
+def test_background_job_past_its_timeout_fails(tmp_path):
+    """A job still running at its timeout fails its join and is killed
+    with the processes it started; its later commands never run."""
+    import os
+    child = ("import subprocess, sys, time; p = subprocess.Popen([sys."
+             "executable, '-c', 'import time; time.sleep(120)']); "
+             "print(p.pid, flush=True); time.sleep(120)")
+    job = chip_smoke.Job("stand-in",
+                         [[sys.executable, "-c", child],
+                          [sys.executable, "-c", "print('ran')"]],
+                         tmp_path / "stand-in.log", 5.0)
+    t = time.perf_counter()
+    with pytest.raises(AssertionError, match="still running 5.0 s after its "
+                                             "start, killed"):
+        job.join(chip_smoke.Account(time.perf_counter()))
+    assert time.perf_counter() - t < 30
+    assert job.proc.returncode is not None and not job.waiter.is_alive()
+    log = (tmp_path / "stand-in.log").read_text()
+    assert "ran" not in log
+    grandchild = int(log.split()[0])
+    for _ in range(100):            # reaped by init once killed
+        if not os.path.exists(f"/proc/{grandchild}") or open(
+                f"/proc/{grandchild}/stat").read().split()[2] == "Z":
+            break
+        time.sleep(0.1)
+    else:
+        raise AssertionError("the job's child outlived its timeout")

@@ -86,6 +86,24 @@ def test_spread_on_the_host(tmp_path, monkeypatch):
         assert rec["cnn_frames_per_s"] > 0 and rec["decode_ms"] > 0
 
 
+def test_a_shorter_round_serves_the_tokens_prefix():
+    """The traced round serves fewer decode steps than the timed rounds:
+    its tokens are the first of theirs, and it runs that many steps."""
+    from benchmarks_torch import spread
+    sizes = spread.stand_in_sizes()
+    dev = torch.device("cpu")
+    request, xs = spread.build_cnn(sizes, dev)
+    server, prompts = spread.build_lm(sizes, dev)
+
+    def wrap(fn, samples):
+        return spread.timed(fn, samples, False)
+    _, full = spread.serve_round(sizes, request, xs, server, prompts, wrap)
+    short = sizes._replace(decode_steps=2)
+    raw, head = spread.serve_round(short, request, xs, server, prompts, wrap)
+    assert len(raw["decode"]) == 2 and len(raw["prefill"]) == 1
+    assert head == [t[:2] for t in full] and len(full[0]) == sizes.decode_steps
+
+
 def test_spread_needs_the_card(monkeypatch):
     from benchmarks_torch import spread
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
