@@ -95,7 +95,14 @@ under ``timing``.
    the card) serving 8 requests of 1024-2048 prompt tokens, 32 new tokens
    each, through the port's ``Server``; the flash launch counter must read
    26 per prefill, all on the tensor-core instance; prefill and decode
-   rates, time to first token and decode-step latency;
+   rates, time to first token and decode-step latency.  ``Server``'s
+   decode step is replayed from a CUDA graph (``GraphedDecode``, the
+   reference's ``jax.jit``), captured once per batch shape: the first
+   batch's prompts are served again through it and through the same
+   server with the plain step (``graph_against_plain``): greedy tokens
+   equal, logits ``torch.equal`` or within ``GRAPH_LOGIT_TOL``, 0
+   retries, no launch counted in any decode step, both paths' mean step
+   ms and each capture's seconds logged (also in phases 14 and 15);
 9. the flash kernel's time per prefill of (4, 2048) summed over the 26
    layers at their windows (``kernel_bench.time_case`` over
    ``kernel_bench.flash_cases``, as phase 5), beside its bound, its plain
@@ -139,7 +146,10 @@ under ``timing``.
    decode step under ``torch.profiler`` by kernel class (GEMMs, flash,
    the MoE dispatch's gather/scatter/sort/scan glue); the flash kernel's
    time per prefill against its bound, its plain version and SDPA (as
-   phase 9);
+   phase 9); the graphed step against the plain one (phase 8), then once
+   more with a fault hook that raises at decode step
+   ``GRAPH_FAULT_STEP``: equal tokens and one retry each (the retry's
+   prefill cache is copied into the graph's buffers);
 15. the other families at full width: falcon-mamba-7b (64 layers) and
    recurrentgemma-9b (38 layers; 4 requests of 2,048-3,072 tokens, so
    its 2,048 window masks) through ``Server`` with 0 and 12 flash
@@ -233,7 +243,9 @@ under ``timing``.
    ``torch.profiler`` (8 decode steps); it must exit 0 and its table (n, median,
    quartiles, IQR/median, the highest percentile with 10 samples beyond
    it, the round medians' min/max, rank correlations with the probes, and
-   each call's device time from the trace and host share) is logged.
+   each call's device time from the trace and host share) is logged; and
+   whether the traced round's decode step, now graph replays, sums within
+   5% of the eager step's device time (``EAGER_DECODE_DEVICE_MS``).
 
 Detail goes to ``chiprun_out/chip_smoke.json``.  The line before the last
 is ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
@@ -1688,6 +1700,8 @@ FAMILY_CARD_VS_CPU = (("granite-moe-3b-a800m", (2,), None, 640, 0),
                       ("whisper-small", (2,), (2,), 64, 1500),
                       ("paligemma-3b", (2,), None, 128, 0))
 MAIN_ARCH = "granite-moe-3b-a800m"
+#: phase 14's fault-hook run: the decode step at which the hook raises once
+GRAPH_FAULT_STEP = 5
 #: phase 15 through ``Server``: arch, requests, prompt lengths, new tokens,
 #: flash launches a prefill
 FAMILY_SERVE = (("falcon-mamba-7b", 4, (1024, 2048), 16, 0),
@@ -1773,7 +1787,10 @@ def serve_counted(cfg, dev, n_requests, lens, max_new, max_batch,
                   flash_per_prefill, sync):
     """``cfg`` through ``Server`` (``lm_serve``): the launch counts set to 0
     just before the requests and read just after, the device's peak memory
-    over them, each request's tokens checked; returns (server, record)."""
+    over them, each request's tokens checked; then the first batch's
+    prompts again, the graphed step held against the plain one
+    (``graph_against_plain``, under ``graph`` in the record).  Returns
+    (server, record, the first batch's prompts)."""
     import torch
     server, reqs, rec = lm_serve(cfg, dev, n_requests, lens, max_new,
                                  max_batch, sync)
@@ -1815,7 +1832,113 @@ def serve_counted(cfg, dev, n_requests, lens, max_new, max_batch,
         f"decode {out['decode_tok_per_s']:.1f} tok/s, step "
         f"{out['decode_step_ms_mean']:.3f} ms mean, "
         f"{out['decode_step_ms_max']:.3f} ms max")
-    return server, out
+    prompts = [r.prompt for r in reqs[:max_batch]]
+    out["graph"] = graph_against_plain(cfg, server, prompts, max_new, sync)
+    return server, out, prompts
+
+
+#: graphed against plain decode logits: max |d| <= GRAPH_LOGIT_TOL * max
+#: |logit| where they are not ``torch.equal`` (a replay runs the kernels the
+#: plain step launches, on the same inputs, in the same order; only a
+#: library that picked another algorithm under capture would move a bf16
+#: logit, by an ulp or two: 2^-7 of its magnitude)
+GRAPH_LOGIT_TOL = 1e-2
+
+
+def serve_recorded(server, prompts, max_new, sync, fault_at=None):
+    """``prompts`` through ``server`` as it stands, each decode call timed
+    on the host clock ending in ``sync`` and its logits kept (the graph's
+    are overwritten by its next replay); with ``fault_at``, the fault hook
+    raises once, at that decode step.  Every launch count must stay as it
+    is across each decode call: no hand-written kernel runs in a decode
+    step, and a replay would not count one.  Returns (tokens, logits,
+    seconds, stats)."""
+    from repro_torch.runtime.serve_loop import Request
+    logits, secs, dec, fired = [], [], server.decode, []
+
+    def call(params, tok, cache):
+        before = read_counts()
+        t = time.perf_counter()
+        out = dec(params, tok, cache)
+        sync()
+        secs.append(time.perf_counter() - t)
+        if read_counts() != before:
+            raise AssertionError(f"a kernel launch counted in a decode step: "
+                                 f"{before} -> {read_counts()}")
+        logits.append(out[0].clone())
+        return out
+
+    def hook(step):
+        if step == fault_at and not fired:
+            fired.append(step)
+            raise RuntimeError("injected decode fault")
+
+    server.decode = call
+    server.fault_hook = hook if fault_at is not None else None
+    try:
+        reqs = [Request(i, p, max_new=max_new) for i, p in enumerate(prompts)]
+        stats = server.serve(reqs)
+    finally:
+        server.decode, server.fault_hook = dec, None
+    return [r.out_tokens for r in reqs], logits, secs, stats
+
+
+def graph_against_plain(cfg, server, prompts, max_new, sync, fault_at=None):
+    """The graphed ``Server`` (its decode step replayed from a CUDA graph,
+    ``GraphedDecode``) against the same server with ``decode`` set back to
+    the plain ``model.make_decode_step(cfg)``, on the same prompts (one
+    batch): greedy tokens equal, each step's logits ``torch.equal`` or
+    within ``GRAPH_LOGIT_TOL``, 0 retries each (1 with ``fault_at``, the
+    hook raising once at that step), no new capture (the batch's graph is
+    the one the counted run captured); both paths' mean decode-step ms
+    logged.  On the CPU (the rehearsal) both sides are the plain step."""
+    import torch
+    from repro_torch.models.lm import model
+    graph = server.graph
+    if server.device.type == "cuda" and graph is None:
+        raise AssertionError(f"{cfg.name}: Server on the card has no graph")
+    captured = len(graph.graphs) if graph is not None else 0
+    g_tok, g_log, g_s, g_stats = serve_recorded(server, prompts, max_new,
+                                                sync, fault_at)
+    graphed = server.decode
+    server.decode = model.make_decode_step(cfg)
+    try:
+        p_tok, p_log, p_s, p_stats = serve_recorded(server, prompts, max_new,
+                                                    sync, fault_at)
+    finally:
+        server.decode = graphed
+    retries = 0 if fault_at is None else 1
+    equal = len(g_log) == len(p_log) and all(
+        torch.equal(a, b) for a, b in zip(g_log, p_log))
+    rel = max(((a.float() - b.float()).abs().max() / b.float().abs().max()
+               ).item() for a, b in zip(g_log, p_log))
+    rec = {"requests": len(prompts), "max_new": max_new, "fault_at": fault_at,
+           "tokens_equal": g_tok == p_tok, "logits_equal": equal,
+           "max_rel_logit_d": rel,
+           "retries": [g_stats.retries, p_stats.retries],
+           "graph_step_ms_mean": sum(g_s) / len(g_s) * 1e3,
+           "plain_step_ms_mean": sum(p_s) / len(p_s) * 1e3,
+           "graphs": captured,
+           "capture_s": list(graph.capture_seconds) if graph else []}
+    log(f"{cfg.name} graphed decode against the plain step"
+        f"{f' (a fault at step {fault_at})' if fault_at is not None else ''}: "
+        f"{len(prompts)} requests, {len(g_s)} decode steps; tokens equal "
+        f"{rec['tokens_equal']}, logits torch.equal {equal} (max |d| / max "
+        f"|logit| {rel:.3e}, limit {GRAPH_LOGIT_TOL}), retries "
+        f"{rec['retries']}; step {rec['graph_step_ms_mean']:.3f} ms graphed, "
+        f"{rec['plain_step_ms_mean']:.3f} ms plain (mean); {captured} graphs "
+        f"captured in " + ", ".join(f"{t:.3f}" for t in rec["capture_s"])
+        + " s")
+    if not rec["tokens_equal"] or (not equal and not rel <= GRAPH_LOGIT_TOL):
+        raise AssertionError(f"{cfg.name}: the graphed decode step differs "
+                             f"from the plain one")
+    if rec["retries"] != [retries, retries]:
+        raise AssertionError(f"{cfg.name}: retries {rec['retries']}, want "
+                             f"{retries} each")
+    if graph is not None and len(graph.graphs) != captured:
+        raise AssertionError(f"{cfg.name}: a batch of the captured shapes "
+                             f"was captured again")
+    return rec
 
 
 def profile_serving(cfg, params, dev, B, S, top=6):
@@ -1930,8 +2053,8 @@ def step_path(cfg, dev, batch, prompt, steps, frames, flash_per_prefill, sync):
     if not torch.isfinite(logits).all() or logits.shape != (batch, 1, cfg.vocab):
         raise AssertionError(f"{cfg.name}: bad logits {tuple(logits.shape)}")
     check_flash_counts(counts, flash_per_prefill, 1, cfg.name, cfg.hd)
-    if cache.cur_pos != prompt + cfg.num_prefix_tokens + steps:
-        raise AssertionError(f"{cfg.name}: cache at {cache.cur_pos}")
+    if int(cache.cur_pos) != prompt + cfg.num_prefix_tokens + steps:
+        raise AssertionError(f"{cfg.name}: cache at {int(cache.cur_pos)}")
     flash = replay_flash(calls[:counts["flash"]])
     out = {"batch": batch, "prompt": prompt, "frames": frames,
            "prefix": cfg.num_prefix_tokens, "layers": cfg.n_layers,
@@ -2020,10 +2143,13 @@ def other_families(dev, detail, sync, account):
 
     with account.phase("14", "granite-moe-3b-a800m through Server"):
         granite = get_config(MAIN_ARCH)
-        server, detail["granite_serve"] = serve_counted(
+        server, detail["granite_serve"], prompts = serve_counted(
             granite, dev, SERVE_REQUESTS, SERVE_LENS, SERVE_MAX_NEW,
             SERVE_MAX_BATCH, granite.n_layers, sync)
         main_launches = detail["granite_serve"]["flash_launches"]
+        detail["granite_graph_fault"] = graph_against_plain(
+            granite, server, prompts, SERVE_MAX_NEW, sync,
+            fault_at=GRAPH_FAULT_STEP)
         detail["granite_profile"] = profile_serving(granite, server.params,
                                                     dev, PATH_B, PATH_S)
         detail["granite_flash"] = flash_timings(dev, granite)
@@ -2033,8 +2159,8 @@ def other_families(dev, detail, sync, account):
     with account.phase("15", "the other families at full width"):
         for arch, n, lens, max_new, per_prefill in FAMILY_SERVE:
             cfg = get_config(arch)
-            server, rec = serve_counted(cfg, dev, n, lens, max_new,
-                                        SERVE_MAX_BATCH, per_prefill, sync)
+            server, rec, _ = serve_counted(cfg, dev, n, lens, max_new,
+                                           SERVE_MAX_BATCH, per_prefill, sync)
             detail[f"serve_{arch}"] = rec
             detail[f"profile_{arch}"] = profile_serving(cfg, server.params, dev,
                                                         PATH_B, lens[1])
@@ -2563,6 +2689,9 @@ def host_suites(job, before, account):
 #: probes, the card's state and each call's device time and host share
 SPREAD_METRICS = ("cnn_frames_per_s", "cnn_latency_ms", "ttft_ms", "decode_ms")
 SPREAD_TIMEOUT_S = 300
+#: the eager granite decode step's traced device ms, least and most of
+#: earlier spread runs on an H100 80GB HBM3 at 700 W (PERF.md, section 7)
+EAGER_DECODE_DEVICE_MS = (19.17, 19.27)
 
 
 def spread_on_card():
@@ -2593,6 +2722,17 @@ def spread_on_card():
         f"rounds: build of both paths and warm-up {rec['build_s']:.1f} s, "
         f"rounds {rec['rounds_s']:.1f} s, traced round {rec['traced_s']:.1f} "
         f"s, the rest (process start, imports, exit) {wall - inside:.1f} s")
+    dec = rec["traced"]["decode"]
+    got = dec["device_ms"]["median"]
+    lo, hi = EAGER_DECODE_DEVICE_MS
+    near = 0.95 * lo <= got <= 1.05 * hi
+    rec["decode_device_vs_eager"] = got / ((lo + hi) / 2)
+    log(f"spread: the traced round's granite decode step, replayed from its "
+        f"graph, sums {got:.4g} ms of device time against the eager step's "
+        f"{lo}-{hi} ms: {'within' if near else 'NOT within'} 5% (ratio "
+        f"{rec['decode_device_vs_eager']:.3f}); host {dec['host_ms']:.4g} ms, "
+        f"{100 * dec['host_share']:.1f}% of the wall median "
+        f"{dec['wall_ms_median']:.4g} ms")
     return rec
 
 
@@ -3044,7 +3184,7 @@ def run_phases(dryruns, gloo, host_job, baselines, account) -> int:
             f"{detail['lm_card_vs_cpu']['cpu_prefill_s']:.1f} s")
 
     with account.phase("8", "gemma3-1b through Server"):
-        server, detail["serve"] = serve_counted(
+        server, detail["serve"], _ = serve_counted(
             gemma, dev, SERVE_REQUESTS, SERVE_LENS, SERVE_MAX_NEW, SERVE_MAX_BATCH,
             gemma.n_layers, torch.cuda.synchronize)
 

@@ -52,7 +52,7 @@ import sys
 import time
 import traceback
 import weakref
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -120,6 +120,22 @@ _NO_FLOP_POINTWISE = frozenset({
     "erfinv", "pow", "atan2", "logit"})
 
 
+def _slot_bytes(func, args, outs) -> Optional[int]:
+    """Bytes of an op that writes one position of a tensor at a device
+    index (``index_copy_`` of one index) or reads it (``gather`` of one
+    position broadcast to the slot's shape): a KV cache slot's update and
+    read (``sharding.write_slot``).  Counted as XLA's cost analysis counts
+    a dynamic update or slice, and as a copy into the slot's view was:
+    the slot, not the tensor it indexes.  None for any other op."""
+    if func is torch.ops.aten.index_copy_.default and args[2].numel() == 1:
+        return 3 * _nbytes(args[3]) + _nbytes(args[2])
+    if func is torch.ops.aten.gather.default and all(
+            st == 0 or n == 1 for n, st in zip(args[2].shape,
+                                               args[2].stride())):
+        return 2 * _nbytes(outs[0]) + args[2].element_size()
+    return None
+
+
 def _elementwise_flops(func, args, kwargs, outs) -> float:
     """FLOPs of one op by the rule of XLA's ``HloCostAnalysis``, whose
     count the reference's dry run reports: one per output element of an
@@ -153,7 +169,8 @@ class CostMode(TorchDispatchMode):
       analysis (``_elementwise_flops``), so that ``flops + elementwise``
       counts what the reference's ``flops`` counts;
     * ``bytes``: operand plus result bytes of every local op that is not
-      a view, which is what XLA:CPU's pre-fusion "bytes accessed" counts;
+      a view, which is what XLA:CPU's pre-fusion "bytes accessed" counts
+      (a cache slot's read and write count the slot: ``_slot_bytes``);
     * ``collectives``: ``(kind, result bytes)`` of each functional
       collective;
     * ``live``/``peak``: bytes of live local storage, each new storage
@@ -221,8 +238,13 @@ class CostMode(TorchDispatchMode):
                 self.collectives.append((_COLLECTIVE_KINDS.get(
                     kind, kind), float(sum(_nbytes(t) for t in outs))))
         elif self.count and computes:
-            self.bytes += sum(_nbytes(t) for t in _tensors((args, kwargs)))
-            self.bytes += sum(_nbytes(t) for t in outs)
+            slot = _slot_bytes(func, args, outs)
+            if slot is not None:
+                self.bytes += slot
+            else:
+                self.bytes += sum(_nbytes(t)
+                                  for t in _tensors((args, kwargs)))
+                self.bytes += sum(_nbytes(t) for t in outs)
             packet = func._overloadpacket
             if packet in self.flop_registry:
                 self.flops += self.flop_registry[packet](*args, **kwargs,
@@ -302,17 +324,11 @@ def build_step(cfg: LMConfig, shape: ShapeSpec, mesh):
     if shape.mode == "prefill":
         return placed(model.make_prefill_step(cfg, s_max=shape.seq_len),
                       (rep, cs)), (params, batch)
-    cache = sharding.distribute(_fake(acache), cs)
-    cache = cache._replace(cur_pos=shape.seq_len - 1)
+    cache = _fake(acache)._replace(cur_pos=torch.tensor(shape.seq_len - 1,
+                                                        dtype=torch.int32))
+    cache = sharding.distribute(cache, cs)
     return placed(model.make_decode_step(cfg), (rep, cs)), (
         params, batch["token"], cache)
-
-
-def _position_bytes(tree) -> int:
-    """Bytes of the reference's int32 cache positions in ``tree``: a
-    ``ServeCache``'s ``cur_pos`` is a host int here and a device scalar
-    argument and result there."""
-    return sum(4 for x in tree_leaves(tree) if type(x) is int)
 
 
 def _measure(cfg: LMConfig, shape: ShapeSpec, mesh, count: bool = True):
@@ -332,12 +348,11 @@ def _measure(cfg: LMConfig, shape: ShapeSpec, mesh, count: bool = True):
         mode.lookups = dict(lookups)
         out_local = _local(outs)
         arg_ids = {id(t.untyped_storage()) for t in arg_local}
-        positions = _position_bytes(args)
         argument = sum(_nbytes(t) for t in arg_local
-                       if id(t.untyped_storage()) in mode.read) + positions
-        output = sum(_nbytes(t) for t in out_local) + _position_bytes(outs)
+                       if id(t.untyped_storage()) in mode.read)
+        output = sum(_nbytes(t) for t in out_local)
         alias = sum(_nbytes(t) for t in out_local
-                    if id(t.untyped_storage()) in arg_ids) + positions
+                    if id(t.untyped_storage()) in arg_ids)
         peak = mode.peak
         del outs, args
     return mode, {

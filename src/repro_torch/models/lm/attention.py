@@ -506,30 +506,32 @@ def cross_decode(p: AttnParams, x: torch.Tensor, cache: KVCache) -> torch.Tensor
     return _out_proj(out, p.wo)
 
 
-def decode_step(p: AttnParams, x: torch.Tensor, cache: KVCache, cur_pos: int,
-                *, window: Optional[int] = None,
+def decode_step(p: AttnParams, x: torch.Tensor, cache: KVCache,
+                cur_pos: torch.Tensor, *, window: Optional[int] = None,
                 softcap: Optional[float] = None, use_rope: bool = True,
                 ) -> Tuple[torch.Tensor, KVCache]:
-    """One-token decode: x (B, 1, D); ``cur_pos`` (host int) tokens so far.
+    """One-token decode: x (B, 1, D); ``cur_pos`` a () integer tensor on
+    x's device (tokens so far).
 
-    Writes the new K/V into the cache at ``cur_pos`` in place (the
-    reference returns an updated copy; the cache is the caller's state
-    either way) and attends over positions [0, cur_pos], optionally
-    windowed."""
+    Writes the new K/V into the cache in place (the reference returns an
+    updated copy; the cache is the caller's state either way) at slot
+    ``cur_pos`` clamped to the last, as the reference's
+    ``dynamic_update_slice`` clamps its start, and attends over positions
+    [0, cur_pos], optionally windowed.  RoPE and the mask take the
+    unclamped ``cur_pos``, as there: past the cache every slot is
+    attended to.  The position is never read on the host, so the step
+    can be captured into a CUDA graph."""
     hd = p.wq.shape[2]
     S_max = cache.k.shape[1]
-    if not 0 <= cur_pos < S_max:
-        raise ValueError(f"decode position {cur_pos} outside the cache "
-                         f"(s_max {S_max})")
     q, k_new, v_new = _project(x, p.wq, p.wk, p.wv)
-    # a fill kernel: a host-to-device copy here would wait for the stream
-    pos = torch.full((1,), cur_pos, device=x.device)
+    pos = cur_pos.reshape(1)
     if use_rope:
         cos, sin = _rope_tables(pos, hd, q)
         q = rope.apply_rope(q, cos, sin)
         k_new = rope.apply_rope(k_new, cos, sin)
-    sharding.write_slot(cache.k, k_new.to(cache.k.dtype), 1, cur_pos)
-    sharding.write_slot(cache.v, v_new.to(cache.v.dtype), 1, cur_pos)
+    slot = cur_pos.clamp(0, S_max - 1)
+    sharding.write_slot(cache.k, k_new.to(cache.k.dtype), 1, slot)
+    sharding.write_slot(cache.v, v_new.to(cache.v.dtype), 1, slot)
     k_pos = torch.arange(S_max, device=x.device)
     bias = _mask_bias(pos, k_pos, True, window)[None, None]
     out = _attend_cache(q, cache.k, cache.v, bias, softcap,

@@ -219,7 +219,8 @@ def make_decode_step(cfg: LMConfig):
 def init_cache_spec(cfg: LMConfig, shape: ShapeSpec) -> transformer.ServeCache:
     """The ``ServeCache`` a prefill of ``shape.seq_len`` tokens would
     produce, as ``TensorSpec``s (the reference's abstract cache, entry for
-    entry; ``cur_pos`` is a () int32 spec there as here)."""
+    entry; ``cur_pos`` a () int32 spec, as a prefill's cache holds a ()
+    int32 tensor)."""
     B, S = shape.global_batch, shape.seq_len
     bf16 = torch.bfloat16
 

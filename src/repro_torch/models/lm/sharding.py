@@ -346,7 +346,7 @@ def distribute(tree, shardings):
     """Place every tensor of ``tree`` by the matching ``NamedSharding`` of
     ``shardings`` (a tree of the same structure): a plain tensor with
     ``distribute_tensor``, a DTensor (a cache a sharded prefill returned)
-    by redistributing it; non-tensor leaves (a cache's host-int position)
+    by redistributing it; non-tensor leaves (a Python int position)
     pass through."""
     from torch.distributed.tensor import distribute_tensor
 
@@ -862,22 +862,29 @@ def _local_offset(t, dim: int) -> int:
 
 
 def write_slot(dst: torch.Tensor, src: torch.Tensor, dim: int,
-               index: int) -> None:
-    """``dst.narrow(dim, index, 1).copy_(src)``, in place, also when
-    ``dst`` is a DTensor sharded along ``dim`` (a KV cache whose sequence
-    is split over the model axis): each rank writes into its own shard if
-    it holds ``index``."""
+               index: torch.Tensor) -> None:
+    """``dst.narrow(dim, index, 1).copy_(src)``, in place, for ``index`` a
+    () integer tensor in range, never read on the host: an indexed copy.
+    Also when ``dst`` is a DTensor sharded along ``dim`` (a KV cache whose
+    sequence is split over the model axis): each rank writes its own
+    shard where ``index`` falls in it, and writes back the slot it holds
+    elsewhere, the choice made on the device."""
     if not _is_dtensor(dst):
-        dst.narrow(dim, index, 1).copy_(src)
+        dst.index_copy_(dim, index.reshape(1).long(), src)
         return
     from torch.distributed.tensor import Replicate, Shard
     src_pl = tuple(Replicate() if isinstance(pl, Shard) and pl.dim == dim
                    else pl for pl in dst.placements)
     local = dst.to_local()
     new = src.redistribute(dst.device_mesh, src_pl).to_local()
-    at = index - _local_offset(dst, dim)
-    if 0 <= at < local.shape[dim]:
-        local.narrow(dim, at, 1).copy_(new)
+    n = local.shape[dim]
+    at = index.long() - _local_offset(dst, dim)
+    held = (at >= 0) & (at < n)
+    at = at.clamp(0, n - 1)
+    # the slot's value: a gather of one position broadcast to its shape
+    old = torch.gather(local, dim,
+                       at.reshape((1,) * local.ndim).expand(new.shape))
+    local.index_copy_(dim, at.reshape(1), torch.where(held, new, old))
 
 
 def _last_dim_split(x):

@@ -388,7 +388,7 @@ def forward_train(cfg: LMConfig, params, tokens: torch.Tensor,
 class ServeCache(NamedTuple):
     """Per-segment stacked caches, one entry per config segment."""
     entries: Tuple[Any, ...]
-    cur_pos: int                   # tokens so far, prefix included (host int)
+    cur_pos: torch.Tensor          # () int32 - tokens so far, prefix included
 
 
 def _prefill_segment(cfg: LMConfig, seg: Segment, seg_params, x, positions,
@@ -440,7 +440,9 @@ def prefill(cfg: LMConfig, params, tokens: torch.Tensor, s_max: int,
         entries.append(caches)
     x = norm_apply(cfg, params["final_norm"], constrain_tokens(x))
     logits = logits_head(cfg, params, x[:, -1:, :])
-    return logits, ServeCache(tuple(entries), total)
+    # a fill kernel: a host-to-device copy here would wait for the stream
+    cur_pos = torch.full((), total, dtype=torch.int32, device=tokens.device)
+    return logits, ServeCache(tuple(entries), cur_pos)
 
 
 def _write(view, new) -> None:
@@ -469,12 +471,18 @@ def _rec_decode(cfg, p, x, st):
 def decode(cfg: LMConfig, params, token: torch.Tensor, cache: ServeCache
            ) -> Tuple[torch.Tensor, ServeCache]:
     """One decode step.  token (B, 1) -> (logits (B, 1, V), cache).  The
-    caches (KV and recurrent states) are updated in place; the returned
-    cache shares them."""
-    cur = cache.cur_pos
-    pos = None
-    if cfg.pos_embed == "sinusoid":
-        pos = torch.full((1,), cur, device=token.device)
+    caches (KV and recurrent states) and the position ``cur_pos`` are
+    updated in place (the position by ``add_(1)`` at the end); the
+    returned cache shares them.  The position is a () int32 tensor, never
+    read on the host, so that the step can be captured into a CUDA graph
+    (``runtime.serve_loop``); a Python int is taken as ``jax.jit`` takes
+    one for the reference's () int32 argument, and made a tensor."""
+    cur_pos = cache.cur_pos
+    if not isinstance(cur_pos, torch.Tensor):
+        cur_pos = torch.tensor(cur_pos, dtype=torch.int32, device=token.device)
+    # a replicated DTensor under a mesh: every rank holds the whole value
+    cur = cur_pos.to_local() if sharding._is_dtensor(cur_pos) else cur_pos
+    pos = cur.reshape(1) if cfg.pos_embed == "sinusoid" else None
     x = embed_tokens(cfg, params, token, pos)
     for seg, seg_params, entry in zip(cfg.segments, params["segments"],
                                       cache.entries):
@@ -508,4 +516,5 @@ def decode(cfg: LMConfig, params, token: torch.Tensor, cache: ServeCache
                 raise ValueError(seg.kind)
     x = norm_apply(cfg, params["final_norm"], constrain_tokens(x))
     logits = logits_head(cfg, params, x)
-    return logits, ServeCache(cache.entries, cur + 1)
+    cur_pos.add_(1)
+    return logits, ServeCache(cache.entries, cur_pos)

@@ -10,19 +10,27 @@ Fault tolerance: a decode-step failure (``RuntimeError``) re-runs prefill
 for the live slots with everything generated so far (caches are
 reconstructible state, never durable).  The server runs on the device of
 the parameters it is given.
+
+The reference compiles its decode step with ``jax.jit``.  The port's
+counterpart on the card is ``GraphedDecode``: the step captured into a
+CUDA graph once per input shapes and replayed.  On the CPU, and with
+parameters that are DTensors (under a mesh), the server runs the plain
+step.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from ..configs.base import LMConfig
-from ..models.lm import model
+from ..models.lm import model, sharding
+from ..models.lm.transformer import ServeCache
+from ..tree import tree_leaves, tree_map
 
 
 @dataclass
@@ -44,6 +52,86 @@ class ServeStats:
     wall_seconds: float = 0.0
 
 
+class GraphError(Exception):
+    """A CUDA graph's replay failed.  Not a ``RuntimeError``, so that
+    ``Server`` ends the run on it instead of re-prefilling (a capture runs
+    before the retry's ``try``)."""
+
+
+class _Captured(NamedTuple):
+    graph: "torch.cuda.CUDAGraph"
+    token: torch.Tensor          # the static inputs the graph reads
+    cache: ServeCache            # static; the graph updates it in place
+    logits: torch.Tensor         # the static output the graph writes
+
+
+class GraphedDecode:
+    """``model.make_decode_step(cfg)`` as one captured program: the port's
+    counterpart of the reference's ``jax.jit`` of the step, with its
+    signature ``(params, token, cache) -> (logits, cache)``.
+
+    One CUDA graph for each key of jit's cache, the shapes and dtypes of
+    the token and of every cache leaf (in ``Server``, the batch and
+    ``s_max``), captured from the plain step after a warm-up on a side
+    stream, over static copies of the token and the cache.  A call copies
+    the token, and the cache's entries and ``cur_pos`` unless the cache is
+    the static one a previous call returned, into the static buffers,
+    replays, and returns the static logits and cache: the logits are
+    overwritten by the next call.  The step never reads the position on
+    the host, so a replay advances it on the card.  The graph holds the
+    parameters it was captured with, and a call with others is refused."""
+
+    def __init__(self, cfg: LMConfig, params) -> None:
+        self.step = model.make_decode_step(cfg)
+        self.params = params
+        self.graphs: Dict[tuple, _Captured] = {}
+        self.capture_seconds: List[float] = []   # host clock, warm-up included
+
+    @staticmethod
+    def key(token: torch.Tensor, cache: ServeCache) -> tuple:
+        return tuple((tuple(t.shape), t.dtype)
+                     for t in (token, *tree_leaves(cache)))
+
+    def capture(self, params, token: torch.Tensor,
+                cache: ServeCache) -> _Captured:
+        """The graph of ``key(token, cache)``, captured if it is new."""
+        if params is not self.params:
+            raise ValueError("GraphedDecode: called with parameters other "
+                             "than those it captures with")
+        key = self.key(token, cache)
+        if key in self.graphs:
+            return self.graphs[key]
+        t0 = time.perf_counter()
+        static_token = token.clone()
+        static_cache = tree_map(torch.clone, cache)
+        stream = torch.cuda.Stream(device=token.device)
+        stream.wait_stream(torch.cuda.current_stream(token.device))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream):
+            # the warm-up updates the static copies, which every call
+            # overwrites before it replays
+            self.step(params, static_token, static_cache)
+        with torch.cuda.graph(graph, stream=stream):
+            logits, _ = self.step(params, static_token, static_cache)
+        torch.cuda.current_stream(token.device).wait_stream(stream)
+        self.graphs[key] = _Captured(graph, static_token, static_cache, logits)
+        self.capture_seconds.append(time.perf_counter() - t0)
+        return self.graphs[key]
+
+    def __call__(self, params, token: torch.Tensor, cache: ServeCache):
+        g = self.capture(params, token, cache)
+        g.token.copy_(token)
+        src, dst = tree_leaves(cache), tree_leaves(g.cache)
+        if any(a is not b for a, b in zip(src, dst, strict=True)):
+            for a, b in zip(src, dst):
+                b.copy_(a)              # a new prefill's cache
+        try:
+            g.graph.replay()
+        except RuntimeError as e:
+            raise GraphError(f"decode step replay failed: {e}") from e
+        return g.logits, g.cache
+
+
 class Server:
     def __init__(self, cfg: LMConfig, params, max_batch: int = 4,
                  s_max: int = 128, fault_hook=None) -> None:
@@ -53,7 +141,13 @@ class Server:
         self.max_batch = max_batch
         self.s_max = s_max
         self.prefill = model.make_prefill_step(cfg, s_max=s_max)
+        # the reference's jax.jit of the step: a CUDA graph on the card;
+        # DTensor parameters (a mesh) and the CPU take the plain step
+        self.graph: Optional[GraphedDecode] = None
         self.decode = model.make_decode_step(cfg)
+        if self.device.type == "cuda" and not sharding._is_dtensor(
+                params["embed"]):
+            self.graph = self.decode = GraphedDecode(cfg, params)
         self.fault_hook = fault_hook
 
     def _pad_prompts(self, reqs: List[Request]) -> torch.Tensor:
@@ -92,6 +186,9 @@ class Server:
                     r.done = True
             if all(r.done for r in live):
                 break
+            if self.graph is not None:
+                # outside the retry below: a capture error ends the run
+                self.graph.capture(self.params, cur, cache)
             try:
                 if self.fault_hook is not None:
                     self.fault_hook(stats.decode_steps)

@@ -476,6 +476,56 @@ def test_step_path_rehearsed_on_cpu(monkeypatch):
     assert rec["prefix"] == cfg.num_prefix_tokens
 
 
+def _smoke_server():
+    from repro_torch.runtime.serve_loop import Server
+    cfg = get_config("granite-moe-3b-a800m").smoke()
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                     device="cpu")
+    return cfg, Server(cfg, params, max_batch=2, s_max=32)
+
+
+@pytest.mark.parametrize("fault_at", [None, 2])
+def test_graph_against_plain_rehearsed_on_cpu(fault_at):
+    """Phases 8, 14 and 15's graphed-against-plain comparison at smoke width
+    on the CPU, where ``Server`` has no graph and both sides run the plain
+    step: equal tokens and logits, 0 retries (1 each with the fault
+    hook), the server's decode step and hook restored."""
+    cfg, server = _smoke_server()
+    decode = server.decode
+    prompts = [torch.arange(1, 9), torch.arange(3, 8)]
+    rec = chip_smoke.graph_against_plain(cfg, server, prompts, 5,
+                                         lambda: None, fault_at=fault_at)
+    retries = 0 if fault_at is None else 1
+    assert rec["tokens_equal"] and rec["logits_equal"]
+    assert rec["retries"] == [retries, retries] and rec["graphs"] == 0
+    assert server.decode is decode and server.fault_hook is None
+
+
+@pytest.mark.parametrize("fault", ["logits", "launch"])
+def test_graph_against_plain_fails_when_it_should(fault, monkeypatch):
+    """Plain logits off by more than ``GRAPH_LOGIT_TOL`` fail the
+    comparison, and so does a kernel launch counted in a decode step."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.lm import model
+    cfg, server = _smoke_server()
+    plain = model.make_decode_step(cfg)
+    if fault == "logits":
+        def shifted(params, tok, cache):
+            logits, cache = plain(params, tok, cache)
+            return logits + 1.0, cache
+        monkeypatch.setattr(model, "make_decode_step", lambda cfg: shifted)
+        match = "differs from the plain one"
+    else:
+        def launching(params, tok, cache):
+            flash_attention.launches += 1
+            return plain(params, tok, cache)
+        server.decode = launching
+        match = "a kernel launch counted"
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.graph_against_plain(cfg, server, [torch.arange(1, 9)], 4,
+                                       lambda: None)
+
+
 def test_dryrun_ratios_against_the_fixture():
     """Phase 18's ratios: a port cell equal to the reference's own figures
     reads 1 on every ratio, the held peak is the reference's less its f32

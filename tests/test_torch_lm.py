@@ -221,16 +221,19 @@ def test_attention_decode_steps(window):
     jcache = jattention.prefill(p, x, jnp.arange(S), s_max)
     tp, tcache = _t(p), _t(jcache)
     jw = None if window is None else jnp.int32(window)
-    for step in range(6):
+    # six steps in the cache, then two at s_max and s_max + 1, where the
+    # reference's dynamic_update_slice clamps the write to the last slot
+    # and the mask lets every position through
+    for step, cur in enumerate([*range(S, S + 6), s_max, s_max + 1]):
         xt = _bf16((2, 1, 64), 21 + step)
-        want, jcache = jattention.decode_step(p, xt, jcache, jnp.int32(S + step),
+        want, jcache = jattention.decode_step(p, xt, jcache, jnp.int32(cur),
                                               window=jw)
-        got, tcache = attention.decode_step(tp, _t(xt), tcache, S + step,
-                                            window=window)
+        got, tcache = attention.decode_step(
+            tp, _t(xt), tcache, torch.tensor(cur, dtype=torch.int32),
+            window=window)
         _rel_close(got, want, MODULE_TOL)
         _rel_close(tcache.k, jcache.k, MODULE_TOL)
-    with pytest.raises(ValueError, match="outside the cache"):
-        attention.decode_step(tp, _t(xt), tcache, s_max, window=window)
+        _rel_close(tcache.v, jcache.v, MODULE_TOL)
 
 
 # ---------------------------------------------------------------------------
@@ -266,7 +269,7 @@ def test_prefill_then_decode(arch, n_layers):
         jparams, jnp.asarray(toks))
     log, cache = transformer.prefill(tc, params, torch.from_numpy(toks).long(),
                                      s_max)
-    assert log.shape == (B, 1, jc.vocab) and cache.cur_pos == S
+    assert log.shape == (B, 1, jc.vocab) and int(cache.cur_pos) == S
     assert cache.entries[0].k.shape == jcache.entries[0].k.shape
     _rel_close(log, jlog, LOGIT_TOL)
     jdec = jax.jit(lambda p, t, c: jtransformer.decode(jc, p, t, c))
@@ -275,7 +278,7 @@ def test_prefill_then_decode(arch, n_layers):
         jlog, jcache = jdec(jparams, jnp.asarray(tok), jcache)
         log, cache = transformer.decode(tc, params, torch.from_numpy(tok).long(),
                                         cache)
-        assert cache.cur_pos == int(jcache.cur_pos) == S + step + 1
+        assert int(cache.cur_pos) == int(jcache.cur_pos) == S + step + 1
         _rel_close(log, jlog, LOGIT_TOL)
 
 

@@ -118,14 +118,14 @@ def _run(jc, tc, dtype, seed=0):
     s_max = S + jc.num_prefix_tokens + STEPS
     jlog, jcache = jax.jit(jmodel.make_prefill_step(jc, s_max))(jparams, jbatch)
     log, cache = model.make_prefill_step(tc, s_max)(params, tbatch)
-    assert cache.cur_pos == int(jcache.cur_pos) == S + jc.num_prefix_tokens
+    assert int(cache.cur_pos) == int(jcache.cur_pos) == S + jc.num_prefix_tokens
     jlogs, logs = [jlog], [log]
     jdec = jax.jit(jmodel.make_decode_step(jc))
     dec = model.make_decode_step(tc)
     for i, tok in enumerate(steps):
         jlog, jcache = jdec(jparams, jnp.asarray(tok), jcache)
         log, cache = dec(params, torch.from_numpy(tok).long(), cache)
-        assert cache.cur_pos == int(jcache.cur_pos) == S + jc.num_prefix_tokens + i + 1
+        assert int(cache.cur_pos) == int(jcache.cur_pos) == S + jc.num_prefix_tokens + i + 1
         jlogs.append(jlog)
         logs.append(log)
     return jlogs, logs, (jcache, cache)

@@ -229,7 +229,7 @@ def test_write_slot_plain_is_a_slice_assignment():
     a = torch.zeros(2, 5, 3)
     b = a.clone()
     new = torch.randn(2, 1, 3)
-    sharding.write_slot(a, new, 1, 3)
+    sharding.write_slot(a, new, 1, torch.tensor(3))
     b[:, 3:4] = new
     assert torch.equal(a, b)
 
