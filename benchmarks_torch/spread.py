@@ -9,8 +9,10 @@ full width and depth in bf16 through ``Server`` (parameters from a
 generator seeded 0 on the card, as phase 14 builds it), then serves one
 untimed round as a warm-up and runs R interleaved rounds.  Each round:
 
-* the CNN: ``requests`` requests of ``frames`` frames through
-  ``executor.execute(..., mode="int8")``;
+* the CNN: ``requests`` requests of ``frames`` frames as phase 4 serves
+  them: through ``executor.GraphedExecute`` on the card (the weights
+  programmed once, each request replayed from a CUDA graph), through
+  ``executor.execute(..., mode="int8")`` on the CPU;
 * granite: one prefill of ``batch`` prompts of ``prompt`` tokens (seeded
   0) and ``decode_steps`` greedy decode steps; the tokens must equal the
   first round's;
@@ -155,8 +157,10 @@ def spearman(x, y):
 
 def build_cnn(sizes: Sizes, dev):
     """Phase 4's CNN: parameters from seed 0, calibrated on a batch from a
-    generator seeded 1 on ``dev``, which then draws the requests; one warm
-    call.  Returns (request function, requests)."""
+    generator seeded 1 on ``dev``, which then draws the requests; the
+    request as served (``GraphedExecute`` on the card, ``execute`` on the
+    CPU) and one warm call, which captures the graph.  Returns (request
+    function, requests)."""
     from repro_torch.models import quant
     from repro_torch.models.cnn import executor, graphs, resnet
     cfg, graph = {"resnet18_cifar": (resnet.RESNET18_CIFAR,
@@ -170,8 +174,10 @@ def build_cnn(sizes: Sizes, dev):
     xs = torch.randn((sizes.requests, sizes.frames, 32, 32, 3), generator=data,
                      device=dev)
 
+    served = executor.int8_request(g, params, scales)
+
     def request(x):
-        return executor.execute(g, params, x, mode="int8", act_scales=scales)
+        return served(params, x)
     request(x_cal)
     return request, xs
 

@@ -53,11 +53,17 @@ under ``timing``.
    pipeline stages (boundaries and imbalance);
 4. the main path: ResNet-18-CIFAR at full width (random parameters from
    seed 0), calibrated, serving 8 requests of 256 frames of 32x32x3
-   through ``executor.execute(..., mode="int8")``; the launch counters
-   must read 20 conv and 1 mvm launches per request, by instance 19 on
-   the conv's cp.async staging and 1 (the stem) on its gather staging,
-   and the logits must match the same executor run on CPU copies (the
-   plain path); then ResNet-8 once the same way;
+   through ``executor.GraphedExecute`` (the weights quantized and packed
+   once, each request replayed from a CUDA graph captured on the
+   calibration batch); the launch counters must read 20 conv and 1 mvm
+   launches per request, by instance 19 on the conv's cp.async staging
+   and 1 (the stem) on its gather staging; each request's logits must be
+   ``torch.equal`` to the plain ``executor.execute(..., mode="int8")`` on
+   the card, and request 0's must match the plain path on CPU copies;
+   then ResNet-8 once the same way; a ``torch.profiler`` trace of one
+   replay must show 20 conv and 1 mvm kernel launches, and one plain
+   request is profiled beside it (the graphed and plain latency and
+   frames/s and the capture seconds are logged);
 5. timings with CUDA events at the path's shapes, by the kernel bench's
    own ``time_case`` over ``kernel_bench.cnn_cases`` (each case held to
    its plain version and its rule's instance; the raw launch back to back
@@ -1443,6 +1449,171 @@ def profile_kernels(fn, top=12):
     busy = sum(r[1] for r in rows) / 1e3
     return wall * 1e3, busy, [{"name": k[:80], "ms": v / 1e3, "calls": c}
                               for k, v, c in rows[:top]]
+
+
+# ---------------------------------------------------------------------------
+# the main path: INT8 ResNet requests, graphed and plain
+# ---------------------------------------------------------------------------
+
+#: the INT8 kernels' names in a profiler trace
+INT8_TRACE_NAMES = (("imc_conv2d", "imc_conv2d_kernel"),
+                    ("imc_mvm", "imc_mvm_kernel"))
+
+
+def check_cnn_launches(label, g, batch, n_requests, launches, by_instance):
+    """The wrappers' counts over ``n_requests`` requests: one conv launch a
+    CONV node and one mvm launch a MVM node each request, every conv on the
+    instance the rule names for its shape (x 16-byte aligned)."""
+    from repro_torch.core.graph import OpKind
+    from repro_torch.kernels import conv2d
+    want = (g.num_nodes(OpKind.CONV) * n_requests,
+            g.num_nodes(OpKind.MVM) * n_requests)
+    if tuple(launches) != want:
+        raise AssertionError(f"{label}: launches {tuple(launches)}, expected "
+                             f"{want}")
+    want_inst = dict.fromkeys(by_instance, 0)
+    for c in kb.conv_shapes(g, batch):
+        want_inst[conv2d.conv_instance(c[3], c[4], True)] += n_requests
+    if by_instance != want_inst:
+        raise AssertionError(f"{label}: conv launches by instance "
+                             f"{by_instance}, the rule names {want_inst}")
+
+
+def trace_launches(rows) -> dict:
+    """Launches of each INT8 kernel in a profile's rows (by kernel name)."""
+    return {name: sum(r["calls"] for r in rows if key in r["name"])
+            for name, key in INT8_TRACE_NAMES}
+
+
+def serve_cnn(cfg, g, n_requests, label, dev, batch, sync):
+    """Phase 4: ``n_requests`` INT8 requests of ``batch`` frames through
+    the request as served (``executor.int8_request``: ``GraphedExecute``
+    on the card, the plain ``execute`` on the CPU, the rehearsal;
+    parameters from seed 0,
+    calibrated on a batch from a generator on ``dev`` seeded 1, which then
+    draws the requests; captured on a calibration batch before the counts
+    are set to 0), then the same requests through the plain ``execute``
+    on ``dev``.  Gates: the counts (``check_cnn_launches``), finite logits
+    of the right shape, each request's logits ``torch.equal`` to the plain
+    ones, and request 0 against the plain path on CPU copies within
+    ``LOGIT_RTOL`` of max |logit| with the same top-1.  Returns (record,
+    (request, params, scales, x)) for ``profile_cnn``."""
+    import torch
+    from repro_torch.kernels.conv2d import imc_conv2d
+    from repro_torch.kernels.imc_mvm import imc_mvm
+    from repro_torch.models import quant
+    from repro_torch.models.cnn import executor, resnet
+    params = resnet.init(torch.Generator().manual_seed(0), cfg, device=dev)
+    data = torch.Generator(device=dev).manual_seed(1)
+    x_cal = torch.randn((batch, 32, 32, 3), generator=data, device=dev)
+    scales = quant.calibrate_resnet(params, x_cal, cfg)
+    xs = torch.randn((n_requests, batch, 32, 32, 3), generator=data,
+                     device=dev)
+    request = executor.int8_request(g, params, scales)
+    request(params, x_cal)
+    executor.execute(g, params, x_cal, mode="int8", act_scales=scales)
+    sync()
+    zero_counts()
+
+    def timed(fn):
+        outs, lat = [], []
+        t_all = time.perf_counter()
+        for x in xs:
+            t = time.perf_counter()
+            outs.append(fn(x))
+            sync()
+            lat.append(time.perf_counter() - t)
+        return outs, lat, time.perf_counter() - t_all
+    outs, lat, total = timed(lambda x: request(params, x))
+    launches = (imc_conv2d.launches, imc_mvm.launches)
+    by_inst = dict(imc_conv2d.launches_by_instance)
+    mvm_inst = dict(imc_mvm.launches_by_instance)
+    check_cnn_launches(label, g, batch, n_requests, launches, by_inst)
+    staging = [sum(v for k, v in by_inst.items() if k.startswith(st))
+               for st in ("cp_async", "gather")]
+    log(f"{label}: {n_requests} requests x {batch} frames; launches conv "
+        f"{launches[0]} mvm {launches[1]} ({launches[0] // n_requests} + "
+        f"{launches[1] // n_requests} per request); conv by instance {by_inst} "
+        f"(cp.async {staging[0]}, gather {staging[1]}); mvm by instance "
+        f"{mvm_inst}")
+    for y in outs:
+        if y.shape != (batch, cfg["num_classes"]) \
+                or not torch.isfinite(y).all():
+            raise AssertionError(f"{label}: bad logits {tuple(y.shape)}")
+    plain, plain_lat, plain_total = timed(lambda x: executor.execute(
+        g, params, x, mode="int8", act_scales=scales))
+    equal = [bool(torch.equal(a, b)) for a, b in zip(outs, plain)]
+    worst = max((a - b).abs().max().item() for a, b in zip(outs, plain))
+    log(f"{label}: served against the plain execute on {dev.type}: logits "
+        f"torch.equal in {sum(equal)} of {n_requests} requests (max |d| "
+        f"{worst:.3e})")
+    if not all(equal):
+        raise AssertionError(f"{label}: the served request differs from the "
+                             f"plain one")
+    # the plain path on CPU copies
+    y_cpu = executor.execute(g, to_device(params, "cpu"), xs[0].cpu(),
+                             mode="int8", act_scales=scales)
+    y_dev = outs[0].cpu()
+    dmax = (y_dev - y_cpu).abs().max().item()
+    lmax = y_cpu.abs().max().item()
+    top1 = bool(torch.equal(y_dev.argmax(-1), y_cpu.argmax(-1)))
+    log(f"{label}: served vs cpu plain path: max |d| {dmax:.3e}, "
+        f"max |logit| {lmax:.4f}, top-1 identical {top1}")
+    if not top1 or dmax > LOGIT_RTOL * lmax:
+        raise AssertionError(f"{label}: logits disagree with the plain path")
+    capture_s = list(getattr(request, "capture_seconds", []))
+    rec = {"frames_per_s": n_requests * batch / total,
+           "requests": n_requests, "batch": batch,
+           "latency_ms": [t * 1e3 for t in lat],
+           "plain_frames_per_s": n_requests * batch / plain_total,
+           "plain_latency_ms": [t * 1e3 for t in plain_lat],
+           "capture_s": capture_s, "launches": list(launches),
+           "conv_by_instance": by_inst, "conv_by_staging": staging,
+           "mvm_by_instance": mvm_inst, "logits_equal": equal,
+           "cpu_max_abs_d": dmax}
+    log(f"{label} int8 served ({'graphed' if capture_s else 'plain'}): "
+        f"{rec['frames_per_s']:.1f} frames/s, request latency mean "
+        f"{sum(lat) / len(lat) * 1e3:.3f} ms, max {max(lat) * 1e3:.3f} ms; "
+        f"plain execute: {rec['plain_frames_per_s']:.1f} frames/s, mean "
+        f"{sum(plain_lat) / len(plain_lat) * 1e3:.3f} ms, max "
+        f"{max(plain_lat) * 1e3:.3f} ms; capture "
+        + (", ".join(f"{t:.3f}" for t in capture_s) + " s" if capture_s
+           else "none"))
+    return rec, (request, params, scales, xs[0])
+
+
+def check_trace_launches(label, got, n_conv, n_mvm):
+    """The card's own count of one request: ``got`` (``trace_launches``)
+    must be ``n_conv`` conv and ``n_mvm`` mvm launches."""
+    want = {"imc_conv2d": n_conv, "imc_mvm": n_mvm}
+    if got != want:
+        raise AssertionError(f"{label}: the trace of one request shows "
+                             f"{got} INT8 launches, want {want}")
+
+
+def profile_cnn(g, request, params, scales, x):
+    """One served (graphed) request and one plain ``execute`` request under
+    ``torch.profiler``: wall, device busy time, INT8 launches by the trace
+    (the graphed one must show one launch a CONV and MVM node), top rows."""
+    from repro_torch.core.graph import OpKind
+    from repro_torch.models.cnn import executor
+    out = {}
+    for name, fn in (("graphed", lambda: request(params, x)),
+                     ("plain", lambda: executor.execute(
+                         g, params, x, mode="int8", act_scales=scales))):
+        wall, busy, rows = profile_kernels(fn, top=None)
+        launches = trace_launches(rows)
+        out[name] = {"wall_ms": wall, "device_busy_ms": busy,
+                     "launches": sum(r["calls"] for r in rows),
+                     "int8_launches": launches, "top": rows[:8]}
+        log(f"profile of one {name} request: wall {wall:.3f} ms (under the "
+            f"profiler), kernels {busy:.3f} ms in {out[name]['launches']} "
+            f"launches; INT8 launches by the trace {launches}")
+        for row in rows[:8]:
+            log(f"  {row['ms']:9.3f} ms  x{row['calls']:<4d} {row['name'][:70]}")
+    check_trace_launches("resnet18_cifar graphed", out["graphed"]["int8_launches"],
+                         g.num_nodes(OpKind.CONV), g.num_nodes(OpKind.MVM))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2862,12 +3033,10 @@ def main() -> int:
 
 def run_phases(dryruns, gloo, host_job, baselines, account) -> int:
     import torch
-    from repro_torch.core.graph import OpKind
     from repro_torch.kernels import _build, conv2d, imc_mvm as mvm_mod, ref
     from repro_torch.kernels.conv2d import imc_conv2d
     from repro_torch.kernels.imc_mvm import imc_mvm
-    from repro_torch.models import quant
-    from repro_torch.models.cnn import executor, graphs, layers, resnet
+    from repro_torch.models.cnn import graphs, layers, resnet
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3039,88 +3208,24 @@ def run_phases(dryruns, gloo, host_job, baselines, account) -> int:
         detail["partition"] = stage_partition()
 
     with account.phase("4", "the main path, ResNet-18 INT8"):
-        def serve(cfg, g, n_requests, label):
-            params = resnet.init(torch.Generator().manual_seed(0), cfg, device=dev)
-            data = torch.Generator(device=dev).manual_seed(1)
-            x_cal = torch.randn((BATCH, 32, 32, 3), generator=data, device=dev)
-            scales = quant.calibrate_resnet(params, x_cal, cfg)
-            xs = torch.randn((n_requests, BATCH, 32, 32, 3), generator=data,
-                             device=dev)
-            executor.execute(g, params, x_cal, mode="int8", act_scales=scales)
-            torch.cuda.synchronize()
-            zero_counts()
-            outs, lat = [], []
-            t_all = time.perf_counter()
-            for r in range(n_requests):
-                t = time.perf_counter()
-                outs.append(executor.execute(g, params, xs[r], mode="int8",
-                                             act_scales=scales))
-                torch.cuda.synchronize()
-                lat.append(time.perf_counter() - t)
-            total = time.perf_counter() - t_all
-            counts = (imc_conv2d.launches, imc_mvm.launches)
-            n_conv, n_mvm = g.num_nodes(OpKind.CONV), g.num_nodes(OpKind.MVM)
-            if counts != (n_conv * n_requests, n_mvm * n_requests):
-                raise AssertionError(f"{label}: launches {counts}, expected "
-                                     f"{(n_conv * n_requests, n_mvm * n_requests)}")
-            by_inst = dict(imc_conv2d.launches_by_instance)
-            want_inst = dict.fromkeys(by_inst, 0)
-            for c in kb.conv_shapes(g, BATCH):
-                want_inst[conv2d.conv_instance(c[3], c[4], True)] += n_requests
-            if by_inst != want_inst:
-                raise AssertionError(f"{label}: conv launches by instance {by_inst}"
-                                     f", the rule names {want_inst}")
-            staging = {st: sum(v for k, v in by_inst.items() if k.startswith(st))
-                       for st in ("cp_async", "gather")}
-            log(f"{label}: {n_requests} requests x {BATCH} frames; launches "
-                f"conv {counts[0]} mvm {counts[1]} ({n_conv} + {n_mvm} per request)"
-                f"; conv by instance {by_inst} (cp.async {staging['cp_async']}, "
-                f"gather {staging['gather']}); mvm by instance "
-                f"{imc_mvm.launches_by_instance}")
-            for y in outs:
-                if y.shape != (BATCH, cfg["num_classes"]) \
-                        or not torch.isfinite(y).all():
-                    raise AssertionError(f"{label}: bad logits {tuple(y.shape)}")
-            # the plain path: the same executor on CPU copies
-            y_cpu = executor.execute(g, to_device(params, "cpu"), xs[0].cpu(),
-                                     mode="int8", act_scales=scales)
-            y_dev = outs[0].cpu()
-            dmax = (y_dev - y_cpu).abs().max().item()
-            lmax = y_cpu.abs().max().item()
-            top1 = bool(torch.equal(y_dev.argmax(-1), y_cpu.argmax(-1)))
-            log(f"{label}: card vs cpu plain path: max |d| {dmax:.3e}, "
-                f"max |logit| {lmax:.4f}, top-1 identical {top1}")
-            if not top1 or dmax > LOGIT_RTOL * lmax:
-                raise AssertionError(f"{label}: logits disagree with the plain path")
-            return params, scales, xs, lat, total, counts
-
         zero_counts()
         log(f"resnet18_cifar: executing the graph LBLP placed ({len(g18)} nodes on "
             f"{len(set(lblp.mapping.values()))} PUs of the IMCE model)")
-        params, scales, xs, lat, total, counts18 = serve(
-            resnet.RESNET18_CIFAR, g18, REQUESTS, "resnet18_cifar")
-        cp_async = sum(v for k, v in imc_conv2d.launches_by_instance.items()
-                       if k.startswith("cp_async"))
-        if (cp_async, counts18[0] - cp_async) != (19 * REQUESTS, REQUESTS):
-            raise AssertionError(f"resnet18_cifar: {cp_async} cp.async conv "
-                                 f"launches of {counts18[0]}; want 19 and 1 a "
-                                 f"request")
-        fps = REQUESTS * BATCH / total
-        detail["e2e"] = {"frames_per_s": fps, "requests": REQUESTS, "batch": BATCH,
-                         "latency_ms": [t * 1e3 for t in lat]}
-        log(f"resnet18_cifar int8: {fps:.1f} frames/s, request latency mean "
-            f"{sum(lat) / len(lat) * 1e3:.3f} ms, max {max(lat) * 1e3:.3f} ms")
+        rec18, served18 = serve_cnn(resnet.RESNET18_CIFAR, g18, REQUESTS,
+                                    "resnet18_cifar", dev, BATCH,
+                                    torch.cuda.synchronize)
+        counts18 = tuple(rec18["launches"])
+        if tuple(rec18["conv_by_staging"]) != (19 * REQUESTS, REQUESTS):
+            raise AssertionError(f"resnet18_cifar: conv launches by staging "
+                                 f"{rec18['conv_by_staging']}; want 19 cp.async "
+                                 f"and 1 gather a request")
+        detail["e2e"] = rec18
         zero_counts()
-        serve(resnet.RESNET8, graphs.resnet8_graph(), 1, "resnet8")
-
-        # device busy share over one request
-        wall, busy, top = profile_kernels(lambda: executor.execute(
-            g18, params, xs[0], mode="int8", act_scales=scales))
-        detail["profile"] = {"wall_ms": wall, "device_busy_ms": busy, "top": top}
-        log(f"profile of one request: wall {wall:.3f} ms (under the profiler), "
-            f"kernels {busy:.3f} ms")
-        for row in top[:8]:
-            log(f"  {row['ms']:9.3f} ms  x{row['calls']:<4d} {row['name'][:70]}")
+        detail["e2e_resnet8"], _ = serve_cnn(
+            resnet.RESNET8, graphs.resnet8_graph(), 1, "resnet8", dev, BATCH,
+            torch.cuda.synchronize)
+        # the card's own count of one replay, and where a request's time goes
+        detail["profile"] = profile_cnn(g18, *served18)
 
     with account.phase("5", "kernel timings at the path's shapes"):
         # the kernel bench's own cases (``kernel_bench.cnn_cases``), run here

@@ -1,7 +1,10 @@
 """End-to-end CNN deployment on the port: schedule ResNet18 with LBLP,
 execute the *scheduled graph* numerically (float + INT8, the INT8 nodes
 through the port's kernels on the card), and show that numerics are
-placement-invariant while timing follows the schedule.
+placement-invariant while timing follows the schedule.  On the card the
+INT8 graph is deployed weight-stationary (``executor.GraphedExecute``:
+weights quantized and packed once, the request replayed from a CUDA
+graph); on the CPU it runs through ``executor.execute``.
 
     PYTHONPATH=src python examples/torch/schedule_and_run_cnn.py [--device cpu]
 """
@@ -41,8 +44,10 @@ def main() -> None:
 
     ref = resnet.forward(params, x, cfg)
     y_float = executor.execute(graph, params, x, mode="float")
+    int8 = executor.int8_request(graph, params)
+    int8(params, x)                 # on the card: the graph's capture
     launches = (imc_conv2d.launches, imc_mvm.launches)
-    y_int8 = executor.execute(graph, params, x, mode="int8")
+    y_int8 = int8(params, x)
     launches = (imc_conv2d.launches - launches[0],
                 imc_mvm.launches - launches[1])
     torch.testing.assert_close(y_float, ref, rtol=1e-5, atol=1e-5)
@@ -53,7 +58,8 @@ def main() -> None:
     print("  float graph == reference model: exact")
     print(f"  INT8 top-1 agreement vs float : {agree*100:.0f}%")
     print(f"  INT8 kernel launches          : conv {launches[0]}, "
-          f"mvm {launches[1]}")
+          f"mvm {launches[1]} (a request"
+          f"{', replayed from a CUDA graph' if dev.type == 'cuda' else ''})")
 
 
 if __name__ == "__main__":

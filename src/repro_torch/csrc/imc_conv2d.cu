@@ -19,9 +19,10 @@
 // keeps the measurements.
 //
 // Design: GEMM with M = B*Ho*Wo output pixels, N = Cout, K = KH*KW*Cin in
-// HWIO order, padded with zeros to Kpad, a multiple of 32.  The wrapper
-// packs the weights on every call to (Cout, Kpad) int8 (`pack_weight`):
-// K-contiguous rows, already the "col" B operand.  Output tiles are BM pixels x BN
+// HWIO order, padded with zeros to Kpad, a multiple of 32.  The weights
+// come packed to (Cout, Kpad) int8 (`pack_weight`): K-contiguous rows,
+// already the "col" B operand; a deployment packs them once
+// (`executor.program_int8`), a bare wrapper call on every call.  Output tiles are BM pixels x BN
 // channels; warps own 32 x 32 sub-tiles (2 x 4 mma tiles, 32 int32
 // accumulators a thread) and run imc::warp_mma_k32 (imc_mma.cuh).  K is
 // staged kBKS bytes a stage (kBKS / 32 m16n8k32 steps; a last stage may be

@@ -15,6 +15,10 @@ and x is 16-byte aligned, byte gather otherwise).  The rule is the C
 entry ``imc_conv2d_instance``; ``conv_instance`` mirrors it
 (``chip_smoke.py`` holds the two together on the card).
 
+The kernel reads the weights packed K-contiguous (``pack_weight``).  A
+deployment packs them once (``executor.program_int8``) and passes them as
+``packed``; without it the launcher packs them on every call.
+
 ``imc_conv2d`` takes CUDA tensors only.  ``ops.quantized_conv2d`` sends CPU
 tensors to the plain version.  ``imc_conv2d.launches`` counts the kernel's
 launches and ``imc_conv2d.launches_by_instance`` counts them per instance.
@@ -66,13 +70,28 @@ def pack_weight(qw: torch.Tensor) -> torch.Tensor:
     return packed.view(torch.int32)
 
 
+def check_packed(packed: torch.Tensor, qw: torch.Tensor, device) -> None:
+    """Raise unless ``packed`` is ``pack_weight(qw)``'s layout: a
+    contiguous int32 (Cout, Kpad / 4) tensor on ``device``."""
+    KH, KW, Cin, Cout = qw.shape
+    words = -(-KH * KW * Cin // K_STEP) * K_STEP // 4
+    if packed.dtype != torch.int32 or tuple(packed.shape) != (Cout, words) \
+            or packed.device != device or not packed.is_contiguous():
+        raise ValueError(f"packed weight: want a contiguous int32 "
+                         f"({Cout}, {words}) tensor on {device}, got "
+                         f"{packed.dtype} {tuple(packed.shape)} on "
+                         f"{packed.device}")
+
+
 def conv_launcher(qx: torch.Tensor, qw: torch.Tensor, sx, sw: torch.Tensor,
                   bias: Optional[torch.Tensor] = None, *, stride: int = 1,
-                  pads: Tuple[int, int, int, int] = (0, 0, 0, 0)):
-    """One conv, checked and with its weights packed: (``launch``, out,
-    instance).  ``launch(stream)`` runs the kernel into ``out`` on the CUDA
-    stream handle it is given, uncounted; ``instance`` is the one the rule
-    names for these inputs.  Both are None where ``out`` is empty.
+                  pads: Tuple[int, int, int, int] = (0, 0, 0, 0),
+                  packed: Optional[torch.Tensor] = None):
+    """One conv, checked and with its weights packed (``packed``, where
+    given, is ``pack_weight(qw)``, checked and used as it is): (``launch``,
+    out, instance).  ``launch(stream)`` runs the kernel into ``out`` on the
+    CUDA stream handle it is given, uncounted; ``instance`` is the one the
+    rule names for these inputs.  Both are None where ``out`` is empty.
     ``imc_conv2d`` launches it once and counts; a caller that times the
     kernel alone launches it again."""
     check_int8(qx, "qx", 4)
@@ -88,13 +107,15 @@ def conv_launcher(qx: torch.Tensor, qw: torch.Tensor, sx, sw: torch.Tensor,
     Ho = (H + top + bottom - KH) // stride + 1
     Wo = (W + left + right - KW) // stride + 1
     dev = qx.device
+    if packed is not None:
+        check_packed(packed, qw, dev)
     out = torch.empty((B, max(Ho, 0), max(Wo, 0), Cout), dtype=torch.float32,
                       device=dev)
     if out.numel() == 0:
         return None, out, None
     aligned = qx.data_ptr() % 16 == 0
     instance = conv_instance(Cin, Cout, aligned)
-    wp = pack_weight(qw)
+    wp = pack_weight(qw) if packed is None else packed
     K = KH * KW * Cin
     sx_t = device_scalar(sx, dev)
     sw_t = channel_vector(sw, Cout, dev)
@@ -112,12 +133,14 @@ def conv_launcher(qx: torch.Tensor, qw: torch.Tensor, sx, sw: torch.Tensor,
 
 def imc_conv2d(qx: torch.Tensor, qw: torch.Tensor, sx, sw: torch.Tensor,
                bias: Optional[torch.Tensor] = None, *, stride: int = 1,
-               pads: Tuple[int, int, int, int] = (0, 0, 0, 0)) -> torch.Tensor:
+               pads: Tuple[int, int, int, int] = (0, 0, 0, 0),
+               packed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """INT8 conv on the card with zero padding ``pads`` = (top, bottom,
     left, right).  ``sx`` scalar, ``sw`` (Cout,), ``bias`` (Cout,) or
-    None."""
+    None; ``packed`` ``pack_weight(qw)``, packed once by the caller, or
+    None to pack it here."""
     launch, out, instance = conv_launcher(qx, qw, sx, sw, bias, stride=stride,
-                                          pads=pads)
+                                          pads=pads, packed=packed)
     if launch is None:
         return out
     with torch.cuda.device(out.device):

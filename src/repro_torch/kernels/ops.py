@@ -46,13 +46,17 @@ def quantized_matmul(qx: torch.Tensor, qw: torch.Tensor, sx, sw: torch.Tensor,
 
 def quantized_conv2d(qx: torch.Tensor, qw: torch.Tensor, sx, sw: torch.Tensor,
                      bias: Optional[torch.Tensor] = None, *, stride: int = 1,
-                     padding: str = "SAME") -> torch.Tensor:
-    """INT8 NHWC conv with SAME or VALID padding, fused requant."""
+                     padding: str = "SAME",
+                     packed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """INT8 NHWC conv with SAME or VALID padding, fused requant.
+    ``packed``: ``qw`` in the kernel's layout (``conv2d.pack_weight``),
+    packed once by a deployment; the plain version reads ``qw``."""
     pads = conv_pads(qx.shape[1], qx.shape[2], qw.shape[0], stride, padding)
     if qx.device.type == "cpu":
         return ref.conv2d_ref(qx, qw, sx, sw, bias, stride=stride, pads=pads)
     refuse_grad("quantized_conv2d", qx, qw, sx, sw, bias)
-    return imc_conv2d(qx, qw, sx, sw, bias, stride=stride, pads=pads)
+    return imc_conv2d(qx, qw, sx, sw, bias, stride=stride, pads=pads,
+                      packed=packed)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

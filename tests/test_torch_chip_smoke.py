@@ -1,4 +1,6 @@
 """The card-free phases of ``chip_smoke.py`` rehearsed on the CPU: the
+main path's INT8 requests (phase 4, with the INT8 ops counting launches
+as the card's wrappers do, and its trace gate), the
 LM card-against-CPU gate, the YOLOv8n phase and the training phases
 T1-T3 (smoke widths, T3 at a few steps) with the CPU on both sides, and
 the placement phase (schedule and simulate the ResNet-18
@@ -43,6 +45,112 @@ def test_lm_gate_fails_when_no_token_is_compared(monkeypatch):
     monkeypatch.setattr(transformer, "decode", flat)
     with pytest.raises(AssertionError, match="no greedy token compared"):
         chip_smoke.lm_card_vs_cpu(cfg, torch.device("cpu"), 8, 2)
+
+
+def _counting_kernels(monkeypatch):
+    """The INT8 ops on the CPU counting a launch as the card's wrappers do
+    (on the instance the rule names), so the phase's count gates can be
+    rehearsed; the counters are restored after the test."""
+    from repro_torch.kernels import conv2d, ops
+    from repro_torch.kernels.conv2d import imc_conv2d
+    from repro_torch.kernels.imc_mvm import imc_mvm, mvm_instance
+    for fn in (imc_conv2d, imc_mvm):
+        monkeypatch.setattr(fn, "launches", 0)
+        monkeypatch.setattr(fn, "launches_by_instance",
+                            dict(fn.launches_by_instance))
+    conv, mvm = ops.quantized_conv2d, ops.quantized_matmul
+
+    def counted_conv(qx, qw, *args, **kwargs):
+        imc_conv2d.launches += 1
+        imc_conv2d.launches_by_instance[conv2d.conv_instance(
+            qx.shape[3], qw.shape[3], qx.data_ptr() % 16 == 0)] += 1
+        return conv(qx, qw, *args, **kwargs)
+
+    def counted_mvm(qx, qw, *args, **kwargs):
+        imc_mvm.launches += 1
+        imc_mvm.launches_by_instance[mvm_instance(
+            qx.shape[1], qx.data_ptr() % 16 == 0)] += 1
+        return mvm(qx, qw, *args, **kwargs)
+    monkeypatch.setattr(ops, "quantized_conv2d", counted_conv)
+    monkeypatch.setattr(ops, "quantized_matmul", counted_mvm)
+
+
+def _serve_resnet8(n_requests=2):
+    from repro_torch.models.cnn import resnet
+    return chip_smoke.serve_cnn(resnet.RESNET8, graphs.resnet8_graph(),
+                                n_requests, "resnet8", torch.device("cpu"), 4,
+                                lambda: None)
+
+
+def test_cnn_phase_rehearsed_on_cpu(monkeypatch):
+    """Phase 4 at ResNet-8, 2 requests of 4 frames, on the CPU: the served
+    request is the plain ``execute`` there (``GraphedExecute`` needs the
+    card), with the INT8 ops counting launches as the wrappers do."""
+    _counting_kernels(monkeypatch)
+    rec, (request, params, scales, x) = _serve_resnet8()
+    assert rec["launches"] == [2 * 9, 2 * 1] and rec["logits_equal"] == [True] * 2
+    assert rec["conv_by_staging"] == [2 * 8, 2 * 1] and rec["capture_s"] == []
+    assert rec["cpu_max_abs_d"] == 0.0 and len(rec["latency_ms"]) == 2
+    assert rec["requests"] == 2 and rec["batch"] == 4 and x.shape == (4, 32, 32, 3)
+
+
+@pytest.mark.parametrize("fault", ["launches", "logits", "cpu"])
+def test_cnn_phase_fails_when_it_should(fault, monkeypatch):
+    """No launch counted, served logits off the plain ones by one ulp's
+    worth, and a card whose logits drift from the CPU's each fail phase 4."""
+    from repro_torch.models.cnn import executor
+    if fault != "launches":
+        _counting_kernels(monkeypatch)
+    if fault == "logits":
+        serve = executor.int8_request
+
+        def shifted(*args):
+            request = serve(*args)
+            return lambda p, x: torch.nextafter(request(p, x),
+                                                torch.tensor(float("inf")))
+        monkeypatch.setattr(executor, "int8_request", shifted)
+        match = "differs from the plain one"
+    elif fault == "cpu":
+        plain = executor.execute
+
+        def drifted(g, params, x, **kw):
+            y = plain(g, params, x, **kw)
+            return y + 1e-3 * y.abs().max() if drifted.on else y
+        drifted.on = False
+        monkeypatch.setattr(executor, "execute", drifted)
+        copy = chip_smoke.to_device
+
+        def to_cpu(tree, dev):
+            drifted.on = True     # the run on CPU copies: the plain path
+            return copy(tree, dev)
+        monkeypatch.setattr(chip_smoke, "to_device", to_cpu)
+        match = "disagree with the plain path"
+    else:
+        match = "launches"
+    with pytest.raises(AssertionError, match=match):
+        _serve_resnet8()
+
+
+def test_trace_launches_gate():
+    """One replay's trace must show one conv launch a CONV node and one mvm
+    launch a MVM node, summed over the kernels' instances by name."""
+    rows = [{"name": "void (anonymous namespace)::imc_conv2d_kernel<32, true>(",
+             "ms": 0.1, "calls": 12},
+            {"name": "void (anonymous namespace)::imc_conv2d_kernel<32, false>(",
+             "ms": 0.1, "calls": 1},
+            {"name": "void (anonymous namespace)::imc_conv2d_kernel<128, true>(",
+             "ms": 0.1, "calls": 7},
+            {"name": "void (anonymous namespace)::imc_mvm_kernel<true>(",
+             "ms": 0.01, "calls": 1},
+            {"name": "void at::native::vectorized_elementwise_kernel<4>",
+             "ms": 0.2, "calls": 80}]
+    got = chip_smoke.trace_launches(rows)
+    assert got == {"imc_conv2d": 20, "imc_mvm": 1}
+    chip_smoke.check_trace_launches("resnet18", got, 20, 1)
+    for bad in ({"imc_conv2d": 19, "imc_mvm": 1}, {"imc_conv2d": 40, "imc_mvm": 2},
+                {"imc_conv2d": 20, "imc_mvm": 0}):
+        with pytest.raises(AssertionError, match="trace of one request"):
+            chip_smoke.check_trace_launches("resnet18", bad, 20, 1)
 
 
 def test_placement_phase_equals_reference():

@@ -8,6 +8,9 @@
   granite-moe's 2-layer smoke config) returns and writes every host field
   of both paths and no card field or traced round, with the tokens equal
   across rounds;
+* the CNN request it builds is phase 4's served request, which on the
+  CPU is the plain ``execute(..., mode="int8")`` (on the card it is
+  ``executor.GraphedExecute``);
 * a call's host time is the timed rounds' median wall less the traced
   round's median device time;
 * asked for the card where there is none, it raises.
@@ -102,6 +105,23 @@ def test_a_shorter_round_serves_the_tokens_prefix():
     raw, head = spread.serve_round(short, request, xs, server, prompts, wrap)
     assert len(raw["decode"]) == 2 and len(raw["prefill"]) == 1
     assert head == [t[:2] for t in full] and len(full[0]) == sizes.decode_steps
+
+
+def test_cnn_request_on_the_host_is_the_plain_execute():
+    from benchmarks_torch import spread
+    from repro_torch.models import quant
+    from repro_torch.models.cnn import executor, graphs, resnet
+    sizes = spread.stand_in_sizes()
+    dev = torch.device("cpu")
+    request, xs = spread.build_cnn(sizes, dev)
+    params = resnet.init(torch.Generator().manual_seed(0), resnet.RESNET8,
+                         device=dev)
+    data = torch.Generator(device=dev).manual_seed(1)
+    x_cal = torch.randn((sizes.frames, 32, 32, 3), generator=data, device=dev)
+    scales = quant.calibrate_resnet(params, x_cal, resnet.RESNET8)
+    assert xs.shape == (sizes.requests, sizes.frames, 32, 32, 3)
+    assert torch.equal(request(xs[0]), executor.execute(
+        graphs.resnet8_graph(), params, xs[0], mode="int8", act_scales=scales))
 
 
 def test_spread_needs_the_card(monkeypatch):
