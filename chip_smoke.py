@@ -133,7 +133,18 @@ under ``timing``.
    into a temporary directory (loss must fall), restore and save timed;
    then an interrupted pair (60 steps, then 120), which must resume from
    60 with its next loss within 10%; 0 retries and 0 rollbacks in every
-   run; then one step of that model under ``torch.profiler``.
+   run.  On the card ``train()`` replays its step from one CUDA graph
+   (``train_loop.GraphedTrainStep``), so these runs drive the graph.
+   Then the graph's own gates: a run whose fault hook raises once (1
+   retry, losses equal to the full run's), a run whose graph reads a NaN
+   embedding table at one step (1 rollback; the next step's static state
+   ``torch.equal`` to the checkpoint it restored), and one state and
+   batch through two plain steps and one graphed step (``torch.equal`` to
+   the plain one where the two plain steps are, else no farther from it
+   than the two plain ones are apart); the graphed step's median against
+   the plain step's through the same loop, the capture's seconds, one
+   replay under ``torch.profiler`` (device time, launches, host share);
+   then one plain step of that model under ``torch.profiler``.
 
 13. the other LM families at full width and cut depth, card against the
    CPU with phase 7's gate (5% of max |logit|, tokens compared where the
@@ -1641,6 +1652,11 @@ T2_STEPS = 4           # one warm step, then 3 timed
 # 60) its checks hold as at 300, in 240 steps of ~200 ms instead of 600
 T3_STEPS, T3_BATCH, T3_SEQ, T3_CKPT_EVERY = 120, 8, 256, 20
 T3_RESUME_RTOL = 0.10  # loss at the first resumed step against the last one
+# the graphed step's fault runs: past the checkpoint at step 20, the hook
+# raises once (or the graph reads a NaN table) at step 25
+T3_FAULT_STEPS, T3_FAULT_AT = 30, 25
+T3_PLAIN_STEPS = 12    # the plain step through the same loop: 11 gaps
+T3_GRAPH_TIMED = 10    # graphed calls timed on one state and batch
 
 
 def stablelm_100m():
@@ -1791,7 +1807,9 @@ def train_example(cfg, dev, steps, batch, seq, ckpt_every, opt, root, sync):
     loss lie within ``T3_RESUME_RTOL`` of the first run's last.  Every run
     must report 0 retries and 0 rollbacks (the loop's retry and its NaN
     breaker could hide a failing device step).  Each directory is removed
-    once read, so at most one run's checkpoints are on disk."""
+    once read, so at most one run's checkpoints are on disk.  The record
+    holds the full run's losses and capture seconds (one graph on the
+    card, none on the CPU)."""
     import math
     import shutil
     import statistics
@@ -1849,13 +1867,243 @@ def train_example(cfg, dev, steps, batch, seq, ckpt_every, opt, root, sync):
     return {"params": transformer.param_count(cfg), "steps": full.steps_run,
             "first10": head, "last10": tail, "wall_s": full.wall_seconds,
             "step_s_median": statistics.median(gaps),
-            "step_s_mean": statistics.fmean(gaps),
+            "step_s_mean": statistics.fmean(gaps), "losses": full.losses,
+            "capture_s": full.capture_seconds,
             "resumed_from": second.resumed_from,
             "loss_at_half": first.losses[-1], "loss_after": second.losses[0],
             "resume_jump": jump, "restore_s": restore_s, "save_s": save_s,
             "ckpt_step": last,
             "retries": [r.retries for r in (full, first, second)],
             "rollbacks": [r.rollbacks for r in (full, first, second)]}
+
+
+@contextmanager
+def loop_step(make):
+    """``train()`` with its step made by ``make(cfg, tcfg, device)`` in
+    place of ``train_loop.step_for_device``."""
+    from repro_torch.runtime import train_loop
+    orig = train_loop.step_for_device
+    train_loop.step_for_device = make
+    try:
+        yield
+    finally:
+        train_loop.step_for_device = orig
+
+
+def nan_graph(nan_call):
+    """A ``GraphedTrainStep`` maker whose step, at its ``nan_call``-th
+    call, fills the static embedding table with NaN after the copy-in, so
+    that the replay computes a non-finite loss; after every copy-in of
+    tensors that are not its static ones it keeps (call, a clone of the
+    static parameters and state)."""
+    import torch
+    from repro_torch.runtime.train_loop import GraphedTrainStep
+    from repro_torch.tree import tree_leaves, tree_map
+
+    class NaNAt(GraphedTrainStep):
+        made = []
+
+        def __init__(self, cfg, tcfg):
+            super().__init__(cfg, tcfg)
+            self.calls, self.loaded = 0, []
+            NaNAt.made.append(self)
+
+        def load(self, g, params, opt_state, batch):
+            fresh = any(a is not b for a, b in zip(
+                tree_leaves((params, opt_state)), tree_leaves((g.params, g.opt))))
+            super().load(g, params, opt_state, batch)
+            if fresh:
+                self.loaded.append((self.calls,
+                                    tree_map(torch.clone, (g.params, g.opt))))
+            if self.calls == nan_call:
+                g.params["embed"].fill_(float("nan"))
+            self.calls += 1
+    return NaNAt
+
+
+def t3_loop(total, ckpt_every, opt, root, sub):
+    """T3's loop config: ``total`` steps, checkpoints every ``ckpt_every``
+    into ``root/sub``, no logging."""
+    from repro_torch.runtime.train_loop import TrainLoopConfig
+    return TrainLoopConfig(total_steps=total, ckpt_every=ckpt_every,
+                           ckpt_dir=str(root / sub), log_every=0, opt=opt)
+
+
+def train_fault_runs(cfg, dev, shape, ckpt_every, opt, root, full_losses,
+                     n=T3_FAULT_STEPS, at=T3_FAULT_AT):
+    """The graphed loop's fault handling, on the loop of ``full_losses``
+    (its model, shape, schedule and checkpoints): ``n`` steps whose hook
+    raises once at step ``at`` (1 retry, 0 rollbacks, losses equal to the
+    first ``n`` of ``full_losses``), then ``n`` steps whose graph reads a
+    NaN table at step ``at`` (1 rollback, 0 retries, the losses before it
+    equal to ``full_losses``', a NaN there, finite after; the step after
+    it copies the restored checkpoint into the static buffers, and that
+    state must be ``torch.equal`` to the checkpoint on disk).  ``at``
+    must lie past a checkpoint."""
+    import math
+    import shutil
+    import torch
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.models.lm import transformer
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.train_loop import train
+    from repro_torch.tree import tree_leaves
+    raised = []
+
+    def raise_once(step):
+        if step == at and not raised:
+            raised.append(step)
+            raise RuntimeError("injected fault before the replay")
+
+    rep = train(cfg, shape, t3_loop(n, ckpt_every, opt, root, "retry"),
+                fault_hook=raise_once, device=dev)
+    shutil.rmtree(root / "retry")
+    same = rep.losses == full_losses[:n]
+    log(f"train T3 retry run: {rep.retries} retry, {rep.rollbacks} rollbacks, "
+        f"{n} losses equal to the full run's: {same}")
+    if rep.retries != 1 or rep.rollbacks or not same:
+        raise AssertionError(f"train T3 retry run: {rep.retries} retries, "
+                             f"{rep.rollbacks} rollbacks, losses "
+                             f"{rep.losses} against {full_losses[:n]}")
+    make = nan_graph(at)
+    with loop_step(lambda c, t, d: make(c, t)):
+        nan = train(cfg, shape, t3_loop(n, ckpt_every, opt, root, "nan"),
+                    device=dev)
+    graph = make.made[-1]
+    ck_step = (at // ckpt_every) * ckpt_every
+    meta = transformer.init_params(cfg, torch.Generator(), device="meta")
+    disk, _ = ckpt.restore(str(root / "nan"), ck_step,
+                           {"params": meta, "opt": adamw.init(meta)}, dev)
+    shutil.rmtree(root / "nan")
+    call, state = graph.loaded[-1]
+    restored_equal = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(state), tree_leaves((disk["params"], disk["opt"])),
+        strict=True))
+    before = nan.losses[:at] == full_losses[:at]
+    after = all(math.isfinite(x) for x in nan.losses[at + 1:])
+    log(f"train T3 NaN run: {nan.rollbacks} rollback, {nan.retries} retries; "
+        f"loss at step {at} {nan.losses[at]}, the {at} before it equal to the "
+        f"full run's: {before}, the {n - at - 1} after finite: {after}; the "
+        f"state copied in at call {call} torch.equal to checkpoint "
+        f"{ck_step}: {restored_equal}")
+    if (nan.rollbacks != 1 or nan.retries or not math.isnan(nan.losses[at])
+            or not before or not after or call != at + 1
+            or len(graph.loaded) != 2 or not restored_equal):
+        raise AssertionError(f"train T3 NaN run: {nan.rollbacks} rollbacks, "
+                             f"{nan.retries} retries, copy-ins at "
+                             f"{[c for c, _ in graph.loaded]}, restored "
+                             f"state equal {restored_equal}, losses "
+                             f"{nan.losses}")
+    return {"retry": {"retries": rep.retries, "losses_equal": same},
+            "nan": {"rollbacks": nan.rollbacks, "nan_step": at,
+                    "restored_step": ck_step, "copied_in_at_call": call,
+                    "restored_equal": restored_equal,
+                    "losses_before_equal": before}}
+
+
+def train_plain_loop(cfg, dev, shape, ckpt_every, opt, root,
+                     n=T3_PLAIN_STEPS):
+    """The plain step on ``dev`` through the same ``train()`` loop for
+    ``n`` steps: the median and mean gap between steps."""
+    import shutil
+    import statistics
+    from repro_torch.models.lm import model
+    from repro_torch.runtime.train_loop import train
+    stamps = []
+    with loop_step(lambda c, t, d: model.make_train_step(c, t)):
+        rep = train(cfg, shape, t3_loop(n, ckpt_every, opt, root, "plain"),
+                    fault_hook=lambda step: stamps.append(time.perf_counter()),
+                    device=dev)
+    shutil.rmtree(root / "plain")
+    if rep.capture_seconds:
+        raise AssertionError("train T3 plain run: the loop captured a graph")
+    gaps = [b - a for a, b in zip(stamps, stamps[1:])]
+    return {"step_s_median": statistics.median(gaps),
+            "step_s_mean": statistics.fmean(gaps), "steps": rep.steps_run}
+
+
+def max_diffs(x, y) -> dict:
+    """Per part of a step's result (loss, params, m, v, step): whether
+    every leaf is ``torch.equal``, and the largest |d| over the leaves."""
+    import torch
+    from repro_torch.tree import tree_leaves
+    out = {}
+    for name, a, b in (("loss", x[2]["loss"], y[2]["loss"]),
+                       ("params", x[0], y[0]), ("m", x[1].m, y[1].m),
+                       ("v", x[1].v, y[1].v), ("step", x[1].step, y[1].step)):
+        pairs = list(zip(tree_leaves(a), tree_leaves(b), strict=True))
+        out[name] = {
+            "equal": all(torch.equal(p, q) for p, q in pairs),
+            "max_d": max((p.double() - q.double()).abs().max().item()
+                         for p, q in pairs)}
+    return out
+
+
+def train_graph_gate(cfg, dev, shape, opt, sync):
+    """One state and batch of ``cfg`` through two plain steps and one
+    graphed step: where the plain two are ``torch.equal`` in every part,
+    the graphed one must be too; else each part's max |graphed - plain|
+    must be at most its max |plain - plain|.  Then ``T3_GRAPH_TIMED``
+    graphed calls (each reading the loss) timed on the host clock, and one
+    under ``torch.profiler``: its device time, launches and host share
+    against the timed median."""
+    import statistics
+    import torch
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models.lm import model, transformer
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.train_loop import GraphedTrainStep
+    tcfg = model.TrainStepConfig(opt=opt)
+    params = transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    state = adamw.init(params)
+    batch = make_batch(cfg, shape, 0, device=dev)
+    plain = model.make_train_step(cfg, tcfg)
+    a = plain(params, state, batch)
+    b = plain(params, state, batch)
+    graphed = GraphedTrainStep(cfg, tcfg)
+    g = graphed(params, state, batch)
+    sync()
+    pp, gp = max_diffs(a, b), max_diffs(g, a)
+    deterministic = all(r["equal"] for r in pp.values())
+    log(f"train T3 graph gate: plain against plain "
+        + ", ".join(f"{k} {'equal' if r['equal'] else r['max_d']}"
+                    for k, r in pp.items())
+        + "; graphed against plain "
+        + ", ".join(f"{k} {'equal' if r['equal'] else r['max_d']}"
+                    for k, r in gp.items()))
+    if deterministic:
+        bad = [k for k, r in gp.items() if not r["equal"]]
+    else:
+        bad = [k for k, r in gp.items() if r["max_d"] > pp[k]["max_d"]]
+    if bad:
+        raise AssertionError(f"train T3 graph gate: the graphed step differs "
+                             f"from the plain one in {bad}: {gp} (plain "
+                             f"against plain {pp})")
+    del a, b, g, params, state
+    # the loop's way: each call takes the static state the last returned
+    captured = next(iter(graphed.graphs.values()))
+    p, o = captured.params, captured.opt
+    secs = []
+    for _ in range(T3_GRAPH_TIMED):
+        sync()
+        t = time.perf_counter()
+        p, o, metrics = graphed(p, o, batch)
+        float(metrics["loss"])
+        secs.append(time.perf_counter() - t)
+    median = statistics.median(secs)
+    wall, busy, rows = profile_kernels(
+        lambda: float(graphed(p, o, batch)[2]["loss"]), top=None)
+    rec = {"plain_vs_plain": pp, "graphed_vs_plain": gp,
+           "deterministic": deterministic,
+           "capture_s": graphed.capture_seconds[0],
+           "step_ms_median": 1e3 * median, "step_ms": [1e3 * x for x in secs],
+           "replay_wall_ms": wall, "replay_device_ms": busy,
+           "replay_launches": sum(r["calls"] for r in rows),
+           "host_share": (1e3 * median - busy) / (1e3 * median),
+           "top": rows[:8]}
+    graphed.graphs.clear()
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -3358,21 +3606,33 @@ def run_phases(dryruns, gloo, host_job, baselines, account) -> int:
 
     with account.phase("12", "T3, the training example through train()"):
         zero_counts()
+        t3_cfg = stablelm_100m()
+        t3_shape = ShapeSpec("example", T3_SEQ, T3_BATCH, "train")
+        # the example's schedule: lr 3e-4, 30 warmup steps, cosine to the end
+        t3_opt = adamw.AdamWConfig(lr=3e-4, warmup_steps=30,
+                                   total_steps=T3_STEPS)
         with tempfile.TemporaryDirectory() as tmp:
-            # the example's schedule: lr 3e-4, 30 warmup steps, cosine to the end
-            t3 = train_example(stablelm_100m(), dev, T3_STEPS, T3_BATCH, T3_SEQ,
-                               T3_CKPT_EVERY, adamw.AdamWConfig(
-                                   lr=3e-4, warmup_steps=30, total_steps=T3_STEPS),
-                               Path(tmp), torch.cuda.synchronize)
+            t3 = train_example(t3_cfg, dev, T3_STEPS, T3_BATCH, T3_SEQ,
+                               T3_CKPT_EVERY, t3_opt, Path(tmp),
+                               torch.cuda.synchronize)
+            if len(t3["capture_s"]) != 1:
+                raise AssertionError(f"train T3: the 120-step run captured "
+                                     f"{len(t3['capture_s'])} graphs, not 1")
+            t3["faults"] = train_fault_runs(t3_cfg, dev, t3_shape,
+                                            T3_CKPT_EVERY, t3_opt, Path(tmp),
+                                            t3["losses"])
+            t3["plain_loop"] = train_plain_loop(t3_cfg, dev, t3_shape,
+                                                T3_CKPT_EVERY, t3_opt, Path(tmp))
         if flash_attention.launches or imc_conv2d.launches or imc_mvm.launches:
             raise AssertionError("train T3: the training path launched a kernel")
         detail["train_t3"] = t3
-        # one step of the example's model under the profiler: where its time goes
-        t3_cfg = stablelm_100m()
-        _, t3_step = train_steps(t3_cfg, dev, ShapeSpec("example", T3_SEQ, T3_BATCH,
-                                                        "train"),
-                                 t3_cfg.microbatch, 2, adamw.AdamWConfig(
-                                     lr=3e-4, warmup_steps=1), torch.cuda.synchronize)
+        t3["graph"] = gate = train_graph_gate(t3_cfg, dev, t3_shape, t3_opt,
+                                              torch.cuda.synchronize)
+        torch.cuda.empty_cache()
+        # one plain step of the example's model under the profiler
+        _, t3_step = train_steps(t3_cfg, dev, t3_shape, t3_cfg.microbatch, 2,
+                                 adamw.AdamWConfig(lr=3e-4, warmup_steps=1),
+                                 torch.cuda.synchronize)
         wall, busy, rows = profile_kernels(t3_step, top=None)
         t3["profile"] = {"wall_ms": wall, "device_busy_ms": busy,
                          "launches": sum(r["calls"] for r in rows),
@@ -3394,6 +3654,19 @@ def run_phases(dryruns, gloo, host_job, baselines, account) -> int:
             f"({100 * pr['device_busy_ms'] / pr['wall_ms']:.1f}%) in "
             f"{pr['launches']} launches; by class "
             + ", ".join(f"{k} {v:.1f} ms" for k, v in pr["classes_ms"].items()))
+        pl = t3["plain_loop"]
+        log(f"train T3 graphed step (card: {card}): {1e3 * t3['step_s_median']:.2f}"
+            f" ms median, {1e3 * t3['step_s_mean']:.2f} ms mean through train() "
+            f"(checkpoints included); plain step through the same loop "
+            f"{1e3 * pl['step_s_median']:.2f} ms median, "
+            f"{1e3 * pl['step_s_mean']:.2f} ms mean over {pl['steps']} steps; "
+            f"capture {t3['capture_s'][0]:.3f} s (the gate's {gate['capture_s']:.3f} s)")
+        log(f"train T3 one replay: {gate['replay_device_ms']:.2f} ms of device "
+            f"time in {gate['replay_launches']} launches, {gate['replay_wall_ms']:.2f}"
+            f" ms wall under the profiler; {T3_GRAPH_TIMED} graphed calls "
+            f"median {gate['step_ms_median']:.2f} ms, host share "
+            f"{100 * gate['host_share']:.1f}%; graphed against plain "
+            f"{'torch.equal' if gate['deterministic'] else 'within plain-to-plain'}")
 
     # ---- 13-16. the other LM families --------------------------------------
     del t3

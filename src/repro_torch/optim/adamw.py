@@ -6,8 +6,12 @@ in f32, then ``mhat / (sqrt(vhat) + eps) + wd * p``, then one cast back to
 the parameter's dtype.  m and v are f32 whatever the parameter dtype
 (bf16 parameters, f32 moments); ``step`` is a 0-d int32 tensor.  The
 update is functional, as in the reference: ``apply`` returns new
-parameters and state and leaves its inputs as they were, so a caller can
-roll back to them.
+parameters and state and leaves its inputs as they were.  The step count,
+the schedule and the clip scale stay on the device, so a CUDA graph can
+capture the update.  On the card the training loop captures it with a
+commit of the new values over the old (``runtime.train_loop``
+``GraphedTrainStep``): that step is not functional, and the loop rolls
+back from its checkpoints, never to a half-updated state.
 
 Every division by a Python number divides by a tensor (``true_div``):
 PyTorch's CUDA division by a Python number multiplies by its float32

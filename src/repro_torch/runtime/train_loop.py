@@ -15,8 +15,18 @@ contract:
 
 The loop runs on ``device`` (the card unless the caller asks for the
 CPU); initial parameters are drawn from ``torch.Generator(device)``
-seeded 0.  The train step is functional, so a retried or rolled-back
-step never sees half-updated state.
+seeded 0.
+
+The reference compiles its train step with ``jax.jit``.  The port's
+counterpart on the card is ``GraphedTrainStep``: the step captured into
+one CUDA graph for the run's fixed shapes and replayed every step.  The
+graph writes the new parameters and optimizer state over its static
+buffers as its last work, so the step on the card is not functional; the
+loop still never sees half-updated state.  A fault before the replay
+leaves the state as it was (retry; a persistent fault saves it), a
+replay failure (``serve_loop.GraphError``) ends the run with no save, and
+a non-finite loss restores the newest checkpoint, which the next call
+copies into the static buffers.  On the CPU the loop runs the plain step.
 """
 
 from __future__ import annotations
@@ -26,7 +36,7 @@ import os
 import tempfile
 import time
 from dataclasses import dataclass, field
-from typing import Callable, List, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import torch
 
@@ -35,6 +45,8 @@ from ..configs.base import LMConfig, ShapeSpec
 from ..data.pipeline import DataConfig, DataIterator
 from ..models.lm import model, transformer
 from ..optim import adamw
+from ..tree import tree_flatten_with_names, tree_leaves, tree_map
+from .serve_loop import GraphError
 
 
 def _default_ckpt_dir() -> str:
@@ -61,6 +73,137 @@ class TrainReport:
     retries: int
     rollbacks: int
     wall_seconds: float
+    capture_seconds: List[float] = field(default_factory=list)
+
+
+def step_and_commit(step: Callable, params, opt_state: adamw.AdamWState,
+                    batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The program a ``GraphedTrainStep`` captures: ``step(params,
+    opt_state, batch)``, then the new parameters and optimizer state
+    written over ``params`` and ``opt_state``; returns the step's metrics.
+    Every new leaf is computed before the first write, so no part of the
+    update reads a leaf already overwritten."""
+    new_params, new_opt, metrics = step(params, opt_state, batch)
+    for dst, src in zip(tree_leaves((params, opt_state)),
+                        tree_leaves((new_params, new_opt)), strict=True):
+        dst.copy_(src)
+    return metrics
+
+
+def _signature(tree) -> tuple:
+    return tuple((name, tuple(t.shape), t.dtype)
+                 for name, t in tree_flatten_with_names(tree))
+
+
+class _Captured(NamedTuple):
+    graph: "torch.cuda.CUDAGraph"
+    params: Any                          # static; the graph commits into them
+    opt: adamw.AdamWState                # static, likewise
+    batch: Dict[str, torch.Tensor]       # the static input the graph reads
+    metrics: Dict[str, torch.Tensor]     # the static outputs the graph writes
+
+
+class GraphedTrainStep:
+    """``model.make_train_step(cfg, tcfg)`` as one captured program: the
+    port's counterpart of the reference's ``jax.jit`` of the step, with its
+    signature ``(params, opt_state, batch) -> (params, opt_state,
+    metrics)``.
+
+    One CUDA graph for each key of jit's cache, the shapes and dtypes of
+    the batch's, the parameters' and the state's leaves (in ``train``, one
+    for the run), captured from :func:`step_and_commit` after a warm-up on
+    a side stream, over static copies of the parameters, the state and the
+    batch.  A call copies the batch in, and the parameters and state
+    unless they are the static ones a previous call returned (a fresh
+    start, a resume, a rollback's restore); replays; and returns the
+    static parameters, state and metrics (loss, grad norm, lr as device
+    tensors), which the next call overwrites.  The step reads no value on
+    the host.  Parameters or state of other shapes than ``cfg``'s model
+    are refused, and so are parameters off the card.  A capture error
+    raises as PyTorch raises it, a replay error as ``GraphError``; nothing
+    falls back to the eager step."""
+
+    def __init__(self, cfg: LMConfig,
+                 tcfg: Optional[model.TrainStepConfig] = None) -> None:
+        self.step = model.make_train_step(cfg, tcfg)
+        meta = transformer.init_params(cfg, torch.Generator(), device="meta")
+        self.signature = _signature((meta, adamw.init(meta)))
+        self.graphs: Dict[tuple, _Captured] = {}
+        self.capture_seconds: List[float] = []   # host clock, warm-up included
+
+    @staticmethod
+    def key(params, opt_state, batch) -> tuple:
+        return tuple((tuple(t.shape), t.dtype)
+                     for t in tree_leaves((batch, params, opt_state)))
+
+    def capture(self, params, opt_state: adamw.AdamWState,
+                batch: Dict[str, torch.Tensor]) -> _Captured:
+        """The graph of ``key(params, opt_state, batch)``, captured if it
+        is new."""
+        if _signature((params, opt_state)) != self.signature:
+            raise ValueError("GraphedTrainStep: parameters or optimizer "
+                             "state of other shapes than the model's")
+        key = self.key(params, opt_state, batch)
+        if key in self.graphs:
+            return self.graphs[key]
+        t0 = time.perf_counter()
+        static = tuple(tree_map(torch.clone, x)
+                       for x in (params, opt_state, batch))
+        graph, metrics = self._record(*static)
+        self.graphs[key] = _Captured(graph, *static, metrics)
+        self.capture_seconds.append(time.perf_counter() - t0)
+        return self.graphs[key]
+
+    def _record(self, params, opt_state, batch):
+        """Warm up on a side stream, then capture ``step_and_commit`` over
+        the static buffers; returns the graph and its static metrics."""
+        dev = tree_leaves(params)[0].device
+        if dev.type != "cuda":
+            raise ValueError(f"GraphedTrainStep: parameters on {dev}; a "
+                             f"CUDA graph needs them on the card (the CPU "
+                             f"runs the plain step)")
+        stream = torch.cuda.Stream(device=dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            # the warm-up commits into the static copies, which the first
+            # call overwrites before it replays
+            step_and_commit(self.step, params, opt_state, batch)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            metrics = step_and_commit(self.step, params, opt_state, batch)
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        return graph, metrics
+
+    def load(self, g: _Captured, params, opt_state: adamw.AdamWState,
+             batch: Dict[str, torch.Tensor]) -> None:
+        """Copy a call's inputs into ``g``'s static buffers: the batch
+        always, the parameters and state unless they are the static ones."""
+        for dst, src in zip(tree_leaves(g.batch), tree_leaves(batch),
+                            strict=True):
+            dst.copy_(src)
+        src = tree_leaves((params, opt_state))
+        dst = tree_leaves((g.params, g.opt))
+        if any(a is not b for a, b in zip(src, dst, strict=True)):
+            for a, b in zip(src, dst):
+                b.copy_(a)
+
+    def __call__(self, params, opt_state: adamw.AdamWState,
+                 batch: Dict[str, torch.Tensor]):
+        g = self.capture(params, opt_state, batch)
+        self.load(g, params, opt_state, batch)
+        try:
+            g.graph.replay()
+        except RuntimeError as e:
+            raise GraphError(f"train step replay failed: {e}") from e
+        return g.params, g.opt, g.metrics
+
+
+def step_for_device(cfg: LMConfig, tcfg: model.TrainStepConfig, device):
+    """The train step as ``train`` runs it on ``device``: a
+    :class:`GraphedTrainStep` on the card, the plain step elsewhere."""
+    if torch.device(device).type == "cuda":
+        return GraphedTrainStep(cfg, tcfg)
+    return model.make_train_step(cfg, tcfg)
 
 
 def train(cfg: LMConfig, shape: ShapeSpec, loop: TrainLoopConfig,
@@ -82,7 +225,9 @@ def train(cfg: LMConfig, shape: ShapeSpec, loop: TrainLoopConfig,
         params, opt_state = state["params"], state["opt"]
         resumed_from = start_step
 
-    step_fn = model.make_train_step(cfg, model.TrainStepConfig(opt=loop.opt))
+    step_fn = step_for_device(cfg, model.TrainStepConfig(opt=loop.opt),
+                              device)
+    graph = step_fn if isinstance(step_fn, GraphedTrainStep) else None
 
     data = DataIterator(cfg, shape, start_step=start_step, dcfg=data_cfg,
                         device=device)
@@ -98,43 +243,57 @@ def train(cfg: LMConfig, shape: ShapeSpec, loop: TrainLoopConfig,
     if restored is None:
         save(0, params, opt_state)
 
-    while step < loop.total_steps:
-        batch = next(data)
-        attempt = 0
-        while True:
-            try:
-                if fault_hook is not None:
-                    fault_hook(step)
-                new_params, new_opt, metrics = step_fn(params, opt_state,
-                                                       batch)
-                loss = float(metrics["loss"])
-                if not math.isfinite(loss):
-                    raise FloatingPointError(f"non-finite loss at {step}")
-                params, opt_state = new_params, new_opt
-                break
-            except FloatingPointError:
-                # NaN circuit breaker: rollback + skip the data step
-                rollbacks += 1
-                restored = ckpt.restore_latest(loop.ckpt_dir, state_like,
-                                               device)
-                if restored is not None:
-                    _, state, _ = restored
-                    params, opt_state = state["params"], state["opt"]
-                loss = float("nan")
-                break
-            except Exception:
-                attempt += 1
-                retries += 1
-                if attempt > loop.max_retries:
-                    # persistent failure: leave a consistent checkpoint
-                    save(step, params, opt_state)
+    try:
+        while step < loop.total_steps:
+            batch = next(data)
+            if graph is not None:
+                # outside the retry below: a capture error ends the run
+                graph.capture(params, opt_state, batch)
+            attempt = 0
+            while True:
+                try:
+                    if fault_hook is not None:
+                        fault_hook(step)
+                    new_params, new_opt, metrics = step_fn(params, opt_state,
+                                                           batch)
+                    loss = float(metrics["loss"])
+                    if not math.isfinite(loss):
+                        raise FloatingPointError(f"non-finite loss at {step}")
+                    params, opt_state = new_params, new_opt
+                    break
+                except FloatingPointError:
+                    # NaN circuit breaker: rollback + skip the data step
+                    rollbacks += 1
+                    restored = ckpt.restore_latest(loop.ckpt_dir, state_like,
+                                                   device)
+                    if restored is not None:
+                        _, state, _ = restored
+                        params, opt_state = state["params"], state["opt"]
+                    elif graph is not None:
+                        # the replay committed the step over the state
+                        raise
+                    loss = float("nan")
+                    break
+                except GraphError:
+                    # a replay that failed may have committed part of the
+                    # step: no retry, and no checkpoint of that state
                     raise
-        losses.append(loss)
-        step += 1
-        if step % loop.ckpt_every == 0 or step == loop.total_steps:
-            save(step, params, opt_state)
-        if loop.log_every and step % loop.log_every == 0:
-            print(f"[train] step={step} loss={loss:.4f}")
+                except Exception:
+                    attempt += 1
+                    retries += 1
+                    if attempt > loop.max_retries:
+                        # persistent failure: leave a consistent checkpoint
+                        save(step, params, opt_state)
+                        raise
+            losses.append(loss)
+            step += 1
+            if step % loop.ckpt_every == 0 or step == loop.total_steps:
+                save(step, params, opt_state)
+            if loop.log_every and step % loop.log_every == 0:
+                print(f"[train] step={step} loss={loss:.4f}")
+    finally:
+        if graph is not None:
+            graph.graphs.clear()        # the graphs' memory pools
 
     return TrainReport(
         steps_run=step - start_step,
@@ -144,4 +303,5 @@ def train(cfg: LMConfig, shape: ShapeSpec, loop: TrainLoopConfig,
         retries=retries,
         rollbacks=rollbacks,
         wall_seconds=time.time() - t0,
+        capture_seconds=[] if graph is None else list(graph.capture_seconds),
     )
