@@ -74,10 +74,23 @@ under ``timing``.
 5b. YOLOv8n at full width and 640x640 in float (parameters from a CPU
    generator seeded 0, TF32 off): 2 frames on the card against CPU copies
    (the plain path), raw and decoded, max |d| <= 1e-3 of max |raw| on the
-   raw outputs; then 8 requests of 16 frames (frames/s, request latency
-   on the host clock ending in a synchronise), one request under
-   ``torch.profiler`` (busy share, top rows) and the request's bound (its
-   conv FLOPs at the f32 peak);
+   raw outputs; then 8 requests of 16 frames through ``yolo.forward``
+   (frames/s, request latency on the host clock ending in a synchronise)
+   and the request's bound (its conv FLOPs at the f32 peak); then the
+   request as served, ``yolo.request``: the weights laid out and the
+   decode's constants built once (``yolo.program``), each request shape
+   captured once into a CUDA graph and replayed (``GraphedForward``).
+   Every served output, decoded and one raw, must be ``torch.equal`` to
+   ``yolo.forward``'s; the 16-frame shape must capture one graph, its
+   repeats none, an 8-frame request exactly one more; a foreign tree and
+   CPU parameters must be refused (capture seconds and the capture's
+   peak memory logged).  Then 12 interleaved rounds of the 8 requests,
+   eager and graphed, timed by ``benchmarks_torch.spread``'s ``timed``
+   (wall: n, median, IQR/median; round medians' max/min; enqueue), one
+   traced request of each (device ms by ``spread.traced``; host share
+   1 - traced / median wall; frames/s), and one request of each under
+   ``torch.profiler`` (the share of its profiled wall, launches by the
+   trace, top rows);
 6. the flash-attention kernel against its plain version: gemma3-1b's
    prefill shapes (B=4, H=4, MQA, S=2048, hd=288) in bf16 and f32, with
    the 512 window and global, and ragged shapes (S = 1000, 300, 100, 1;
@@ -1006,6 +1019,184 @@ def yolo_serve(params, dev, hw, n_requests, batch, sync):
         f"{rec['flops'] / 1e9:.3f} GFLOP at {F32_FLOPS_PER_S / 1e12:.0f} "
         f"TFLOP/s f32)")
     return rec
+
+
+YOLO_SECOND_BATCH = 8          # a second request shape: one more capture
+YOLO_SPREAD_ROUNDS = 12
+
+
+def yolo_graphed(params, dev, hw, n_requests, batch, second_batch, sync):
+    """Phase 5b: the request as served (``yolo.request``: ``GraphedForward``
+    on the card, ``forward_programmed`` on the CPU, the rehearsal) on the
+    requests ``yolo_serve`` draws, against ``yolo.forward`` on ``dev``.
+    Gates: each decoded output, and request 0's raw outputs,
+    ``torch.equal`` to the plain forward's; on the card one capture for the
+    request shape, none for its repeats, exactly one more for
+    ``second_batch`` frames; a foreign tree refused, and parameters off the
+    card refused by ``GraphedForward``.  On the card the capture's seconds
+    and its peak memory above what was allocated before it
+    (``max_memory_allocated``).  Returns (record, request, requests)."""
+    import torch
+    from repro_torch.models.cnn import yolo
+    from repro_torch.tree import tree_map
+    dev = torch.device(dev)
+    cuda = dev.type == "cuda"
+    xs = torch.randn((n_requests, batch, hw, hw, 3), device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(2))
+    request = yolo.request(params, (hw, hw))
+    graphed = isinstance(request, yolo.GraphedForward)
+    sync()
+    if cuda:
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    served = [request(params, xs[0])]            # the capture, on the card
+    sync()
+    rec = {"hw": hw, "requests": n_requests, "batch": batch,
+           "graphed": graphed}
+    if cuda:
+        rec["capture_peak_mib"] = (torch.cuda.max_memory_allocated(dev)
+                                   - held) / 2 ** 20
+        rec["capture_held_mib"] = (torch.cuda.memory_allocated(dev)
+                                   - held) / 2 ** 20
+    captures = [len(request.graphs)] if graphed else []
+    served += [request(params, x) for x in xs[1:]]
+    raw = request(params, xs[0], decode=False)
+    if graphed:
+        captures.append(len(request.graphs))
+    x2 = xs[1, :second_batch]
+    served2 = request(params, x2)
+    if graphed:
+        captures.append(len(request.graphs))
+    eager = [yolo.forward(params, x) for x in xs]
+    raw_eager = yolo.forward(params, xs[0], decode=False)
+    eager2 = yolo.forward(params, x2)
+    equal = [bool(torch.equal(a, b)) for a, b in zip(served, eager)]
+    raw_equal = len(raw) == len(raw_eager) and all(
+        torch.equal(a, b) for a, b in zip(raw, raw_eager))
+    equal2 = bool(torch.equal(served2, eager2))
+    worst = max((a - b).abs().max().item()
+                for a, b in zip(served + [served2], eager + [eager2]))
+    for y in served + [served2]:
+        if y.device.type != dev.type or not torch.isfinite(y).all():
+            raise AssertionError("yolov8n graphed: output off the device or "
+                                 "not finite")
+    other = tree_map(torch.clone, params)
+    try:
+        request(other, xs[0])
+    except ValueError:
+        foreign_refused = True
+    else:
+        foreign_refused = False
+    try:
+        yolo.GraphedForward(to_device(params, "cpu"), (hw, hw))
+    except ValueError as e:
+        cpu_refused = "forward_programmed" in str(e)
+    else:
+        cpu_refused = False
+    del other
+    rec.update({"decoded_equal": equal, "raw_equal": bool(raw_equal),
+                "second_batch": second_batch,
+                "second_batch_equal": equal2, "max_abs_d": worst,
+                "captures": captures,
+                "capture_s": list(getattr(request, "capture_seconds", [])),
+                "foreign_tree_refused": foreign_refused,
+                "cpu_params_refused": cpu_refused})
+    log(f"yolov8n {hw}x{hw} served ({'graphed' if graphed else 'plain'}) "
+        f"against yolo.forward on {dev.type}: decoded torch.equal in "
+        f"{sum(equal)} of {n_requests} requests, raw {raw_equal}, "
+        f"{second_batch} frames {equal2} (max |d| {worst:.3e}); graphs after "
+        f"the first request, the rest and the {second_batch}-frame one: "
+        f"{captures}; capture "
+        + (", ".join(f"{t:.3f}" for t in rec["capture_s"]) + " s"
+           if rec["capture_s"] else "none")
+        + (f", peak {rec['capture_peak_mib']:.1f} MiB above the "
+           f"{held / 2 ** 20:.1f} allocated before it, "
+           f"{rec['capture_held_mib']:.1f} held" if cuda else "")
+        + f"; foreign tree refused {foreign_refused}, CPU parameters refused "
+        f"{cpu_refused}")
+    if not (all(equal) and raw_equal and equal2):
+        raise AssertionError("yolov8n graphed: the served request differs "
+                             "from yolo.forward")
+    if graphed and captures != [1, 1, 2]:
+        raise AssertionError(f"yolov8n graphed: graphs {captures} after the "
+                             f"first request, its repeats and a "
+                             f"{second_batch}-frame request, want [1, 1, 2]")
+    if not (foreign_refused and cpu_refused):
+        raise AssertionError("yolov8n graphed: a foreign tree or CPU "
+                             "parameters were not refused")
+    return rec, request, xs
+
+
+def yolo_spread(params, request, xs, rounds, cuda):
+    """Phase 5b's host share: ``rounds`` interleaved rounds (the order
+    alternating) of the requests ``xs`` through ``yolo.forward`` (eager)
+    and the served request (graphed), each call timed by
+    ``benchmarks_torch.spread.timed`` (wall and enqueue); then, on the
+    card, one traced request of each (``spread.traced``: the device time
+    of its kernels and copies), whose host share is 1 - traced / median
+    wall.  Returns the record by path."""
+    import numpy as np
+    from benchmarks_torch.spread import summary, timed, traced
+    from repro_torch.models.cnn import yolo
+    calls = {"eager": lambda x: yolo.forward(params, x),
+             "graphed": lambda x: request(params, x)}
+    samples = {name: [] for name in calls}
+    round_medians = {name: [] for name in calls}
+    for r in range(rounds):
+        for name in (calls if r % 2 == 0 else reversed(calls)):
+            got = []
+            call = timed(calls[name], got, cuda)
+            for x in xs:
+                call(x)
+            samples[name] += got
+            round_medians[name].append(float(np.median(got, axis=0)[0]) * 1e3)
+    batch = xs.shape[1]
+    out = {}
+    for name, fn in calls.items():
+        wall = summary([w * 1e3 for w, _ in samples[name]])
+        meds = round_medians[name]
+        rec = {"wall_ms": wall,
+               "enqueue_ms": summary([e * 1e3 for _, e in samples[name]]),
+               "round_medians_ms": meds,
+               "round_max_over_min": max(meds) / min(meds),
+               "frames_per_s": batch / wall["median"] * 1e3}
+        if cuda:
+            device_ms = []
+            traced(fn, device_ms)(xs[0])
+            rec["traced_device_ms"] = device_ms[0]
+            rec["host_share"] = 1 - device_ms[0] / wall["median"]
+        out[name] = rec
+        log(f"yolov8n {name}: wall n {wall['n']} median {wall['median']:.3f} "
+            f"ms, IQR/median {wall['iqr_over_median']:.4f}; round medians "
+            f"max/min {rec['round_max_over_min']:.4f}; enqueue median "
+            f"{rec['enqueue_ms']['median']:.3f} ms; "
+            + (f"traced device {rec['traced_device_ms']:.3f} ms, host share "
+               f"{100 * rec['host_share']:.1f}%; " if cuda else "")
+            + f"{rec['frames_per_s']:.1f} frames/s")
+    return out
+
+
+def yolo_profiles(params, request, x):
+    """One eager (``yolo.forward``) and one graphed request under
+    ``torch.profiler``: the wall under the profiler, the kernels' and
+    copies' device ms, their share of that profiled wall (not the host
+    share: the profiler's own cost is in the wall), the launches by the
+    trace and the top rows."""
+    from repro_torch.models.cnn import yolo
+    out = {}
+    for name, fn in (("eager", lambda: yolo.forward(params, x)),
+                     ("graphed", lambda: request(params, x))):
+        wall, busy, rows = profile_kernels(fn, top=None)
+        out[name] = {"wall_ms": wall, "device_busy_ms": busy,
+                     "launches": sum(r["calls"] for r in rows),
+                     "top": rows[:8]}
+        log(f"profile of one {name} yolov8n request ({x.shape[0]} frames): "
+            f"wall {wall:.3f} ms under the profiler, kernels and copies "
+            f"{busy:.3f} ms ({100 * busy / wall:.1f}% of the profiled wall) in "
+            f"{out[name]['launches']} launches")
+        for row in rows[:8]:
+            log(f"  {row['ms']:9.3f} ms  x{row['calls']:<4d} {row['name'][:70]}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3498,23 +3689,27 @@ def run_phases(dryruns, gloo, host_job, baselines, account) -> int:
         log(f"torch.backends.cudnn.allow_tf32 = {torch.backends.cudnn.allow_tf32}")
         yolo_params, detail["yolov8n_card_vs_cpu"] = yolo_card_vs_cpu(
             dev, YOLO_HW, YOLO_CHECK_FRAMES)
-        detail["yolov8n_serve"] = yolo_serve(yolo_params, dev, YOLO_HW,
-                                             YOLO_REQUESTS, YOLO_BATCH,
-                                             torch.cuda.synchronize)
-        from repro_torch.models.cnn import yolo
-        x_yolo = torch.randn((YOLO_BATCH, YOLO_HW, YOLO_HW, 3), device=dev,
-                             generator=torch.Generator(device=dev).manual_seed(3))
-        wall, busy, top = profile_kernels(lambda: yolo.forward(yolo_params, x_yolo))
-        detail["yolov8n_profile"] = {"wall_ms": wall, "device_busy_ms": busy,
-                                     "top": top}
-        yb = detail["yolov8n_serve"]
-        log(f"profile of one yolov8n request ({YOLO_BATCH} frames): wall "
-            f"{wall:.3f} ms (under the profiler), kernels {busy:.3f} ms "
-            f"({100 * busy / wall:.1f}% busy); bound {yb['bound_ms']:.4f} ms, "
-            f"measured request latency mean {yb['latency_ms_mean']:.3f} ms")
-        for row in top[:8]:
-            log(f"  {row['ms']:9.3f} ms  x{row['calls']:<4d} {row['name'][:70]}")
-        del yolo_params, x_yolo
+        yb = yolo_serve(yolo_params, dev, YOLO_HW, YOLO_REQUESTS, YOLO_BATCH,
+                        torch.cuda.synchronize)
+        yb["served"], yolo_request, yolo_xs = yolo_graphed(
+            yolo_params, dev, YOLO_HW, YOLO_REQUESTS, YOLO_BATCH,
+            YOLO_SECOND_BATCH, torch.cuda.synchronize)
+        yb["spread"] = yolo_spread(yolo_params, yolo_request, yolo_xs,
+                                   YOLO_SPREAD_ROUNDS, True)
+        yb["profile"] = yolo_profiles(yolo_params, yolo_request, yolo_xs[0])
+        yb["card"] = card
+        detail["yolov8n_serve"] = yb
+        log(f"yolov8n request ({YOLO_BATCH} frames) on {card}: bound "
+            f"{yb['bound_ms']:.4f} ms; eager then graphed: median wall "
+            + ", ".join(f"{yb['spread'][k]['wall_ms']['median']:.3f}"
+                        for k in ("eager", "graphed"))
+            + " ms, traced device "
+            + ", ".join(f"{yb['spread'][k]['traced_device_ms']:.3f}"
+                        for k in ("eager", "graphed"))
+            + " ms, launches by trace "
+            + ", ".join(str(yb["profile"][k]["launches"])
+                        for k in ("eager", "graphed")))
+        del yolo_params, yolo_request, yolo_xs
         torch.cuda.empty_cache()
 
     with account.phase("6", "flash against its plain version"):

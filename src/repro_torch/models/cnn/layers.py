@@ -54,12 +54,26 @@ def dense_init(generator: torch.Generator, cin: int, cout: int,
 def conv2d(params, x: torch.Tensor, stride: int = 1, padding: str = "SAME",
            act: Optional[str] = None) -> torch.Tensor:
     """Float conv, NHWC x HWIO -> NHWC."""
-    w = params["w"]
-    top, bottom, left, right = conv_pads(x.shape[1], x.shape[2], w.shape[0],
+    return conv2d_oihw(params["w"].permute(3, 2, 0, 1), params["b"], x,
+                       stride, padding, act)
+
+
+def oihw_weight(w: torch.Tensor) -> torch.Tensor:
+    """An HWIO weight laid out once as ``F.conv2d`` reads it beside an
+    NHWC activation: OIHW in channels-last memory, the copy the conv
+    makes of a permuted HWIO view on every call."""
+    return w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+
+
+def conv2d_oihw(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
+                stride: int = 1, padding: str = "SAME",
+                act: Optional[str] = None) -> torch.Tensor:
+    """``conv2d`` with the weight already OIHW (a view or ``oihw_weight``)."""
+    top, bottom, left, right = conv_pads(x.shape[1], x.shape[2], w.shape[2],
                                          stride, padding)
     xn = F.pad(x.permute(0, 3, 1, 2), (left, right, top, bottom))
-    y = F.conv2d(xn, w.permute(3, 2, 0, 1), stride=stride)
-    y = y.permute(0, 2, 3, 1) + params["b"]
+    y = F.conv2d(xn, w, stride=stride)
+    y = y.permute(0, 2, 3, 1) + b
     return activate(y, act)
 
 

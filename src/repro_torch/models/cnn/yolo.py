@@ -11,14 +11,23 @@ runs in float; its convs go through ``layers.conv2d`` (``F.conv2d``), as
 the reference's go through ``lax.conv``.  The deployment graph
 (``graphs.build_yolov8n_graph``) mirrors the model at ONNX-node
 granularity: 233 nodes, 63 of them convolutional.
+
+Served on the card (``request``), the model is a weight-stationary
+deployment, as ``executor.GraphedExecute`` serves the INT8 CNN:
+``program`` lays out each conv's weight and the decode's constants once,
+and ``GraphedForward`` replays each request from a CUDA graph captured
+from ``forward_programmed``.  The CPU runs ``forward_programmed`` as it
+is.  The reference does not jit ``forward``; the graph adds no feature.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import time
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
+from ...tree import tree_leaves
 from . import layers as L
 
 # width-scaled channel plan for v8n
@@ -113,96 +122,265 @@ def _conv(p, x, stride=1, act="silu"):
     return L.conv2d(p, x, stride=stride, act=act)
 
 
-def _c2f(p, x, shortcut: bool):
-    y = _conv(p["cv1"], x)
+def _programmed_conv(p, x, stride=1, act="silu"):
+    return L.conv2d_oihw(p["w"], p["b"], x, stride=stride, act=act)
+
+
+def _c2f(p, x, conv, shortcut: bool):
+    y = conv(p["cv1"], x)
     a, b = torch.split(y, y.shape[-1] // 2, dim=-1)
     chunks = [a, b]
     h = b
     for bn in p["m"]:
-        out = _conv(bn["cv2"], _conv(bn["cv1"], h))
+        out = conv(bn["cv2"], conv(bn["cv1"], h))
         h = h + out if shortcut else out
         chunks.append(h)
-    return _conv(p["cv2"], torch.cat(chunks, dim=-1))
+    return conv(p["cv2"], torch.cat(chunks, dim=-1))
 
 
-def _sppf(p, x):
-    y = _conv(p["cv1"], x)
+def _sppf(p, x, conv):
+    y = conv(p["cv1"], x)
     p1 = L.max_pool(y, 5, stride=1, padding="SAME")
     p2 = L.max_pool(p1, 5, stride=1, padding="SAME")
     p3 = L.max_pool(p2, 5, stride=1, padding="SAME")
-    return _conv(p["cv2"], torch.cat([y, p1, p2, p3], dim=-1))
+    return conv(p["cv2"], torch.cat([y, p1, p2, p3], dim=-1))
 
 
-def backbone_neck(params, x):
-    """Returns the three scale features (P3, P4, P5)."""
-    x = _conv(params["b0"], x, stride=2)
-    x = _conv(params["b1"], x, stride=2)
-    x = _c2f(params["b2"], x, shortcut=True)
-    x = _conv(params["b3"], x, stride=2)
-    p3 = _c2f(params["b4"], x, shortcut=True)
-    x = _conv(params["b5"], p3, stride=2)
-    p4 = _c2f(params["b6"], x, shortcut=True)
-    x = _conv(params["b7"], p4, stride=2)
-    x = _c2f(params["b8"], x, shortcut=True)
-    p5 = _sppf(params["b9"], x)
+def backbone_neck(params, x, conv=_conv):
+    """Returns the three scale features (P3, P4, P5).  ``conv`` runs a
+    conv leaf of ``params`` (``_conv`` on the parameter tree,
+    ``_programmed_conv`` on :func:`program`'s)."""
+    x = conv(params["b0"], x, stride=2)
+    x = conv(params["b1"], x, stride=2)
+    x = _c2f(params["b2"], x, conv, shortcut=True)
+    x = conv(params["b3"], x, stride=2)
+    p3 = _c2f(params["b4"], x, conv, shortcut=True)
+    x = conv(params["b5"], p3, stride=2)
+    p4 = _c2f(params["b6"], x, conv, shortcut=True)
+    x = conv(params["b7"], p4, stride=2)
+    x = _c2f(params["b8"], x, conv, shortcut=True)
+    p5 = _sppf(params["b9"], x, conv)
     # PAN neck
     u1 = L.upsample_nearest(p5)
-    n12 = _c2f(params["n12"], torch.cat([u1, p4], dim=-1), shortcut=False)
+    n12 = _c2f(params["n12"], torch.cat([u1, p4], dim=-1), conv, shortcut=False)
     u2 = L.upsample_nearest(n12)
-    n15 = _c2f(params["n15"], torch.cat([u2, p3], dim=-1), shortcut=False)
-    d1 = _conv(params["n16"], n15, stride=2)
-    n18 = _c2f(params["n18"], torch.cat([d1, n12], dim=-1), shortcut=False)
-    d2 = _conv(params["n19"], n18, stride=2)
-    n21 = _c2f(params["n21"], torch.cat([d2, p5], dim=-1), shortcut=False)
+    n15 = _c2f(params["n15"], torch.cat([u2, p3], dim=-1), conv, shortcut=False)
+    d1 = conv(params["n16"], n15, stride=2)
+    n18 = _c2f(params["n18"], torch.cat([d1, n12], dim=-1), conv, shortcut=False)
+    d2 = conv(params["n19"], n18, stride=2)
+    n21 = _c2f(params["n21"], torch.cat([d2, p5], dim=-1), conv, shortcut=False)
     return n15, n18, n21
 
 
-def _head_branch(branch, x):
-    y = _conv(branch["0"], x)
-    y = _conv(branch["1"], y)
-    return L.conv2d(branch["2"], y, act=None)   # plain conv, no act
+def _head_branch(branch, x, conv):
+    y = conv(branch["0"], x)
+    y = conv(branch["1"], y)
+    return conv(branch["2"], y, act=None)   # plain conv, no act
+
+
+def _raw(params, x, conv):
+    feats = backbone_neck(params, x, conv)
+    raw = []
+    for i, f in enumerate(feats):
+        box = _head_branch(params["head"]["cv2"][i], f, conv)
+        cls = _head_branch(params["head"]["cv3"][i], f, conv)
+        raw.append(torch.cat([box, cls], dim=-1))
+    return raw
+
+
+class DecodeConstants(NamedTuple):
+    """What the DFL decode reads besides the raw outputs: each anchor's
+    centre (A, 2) and stride (A, 1), and the bins' values [0..15]."""
+    anchor: torch.Tensor
+    stride: torch.Tensor
+    bins: torch.Tensor
+
+
+def decode_constants(scale_hw, device) -> DecodeConstants:
+    """The decode's constants for the raw outputs' (height, width) at each
+    of ``STRIDES``."""
+    anchors, strides = [], []
+    for (h, w), s in zip(scale_hw, STRIDES):
+        ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=device),
+                                torch.arange(w, dtype=torch.float32, device=device),
+                                indexing="ij")
+        anchors.append(torch.stack([xs.reshape(-1) + 0.5,
+                                    ys.reshape(-1) + 0.5], -1))
+        strides.append(torch.full((h * w, 1), float(s), device=device))
+    return DecodeConstants(torch.cat(anchors, dim=0), torch.cat(strides, dim=0),
+                           torch.arange(REG_MAX, dtype=torch.float32,
+                                        device=device))
+
+
+def scale_hw(image_hw) -> list:
+    """The raw outputs' (height, width) for an image of ``image_hw``: five
+    stride-2 SAME convs, the last three scales."""
+    h, w = image_hw
+    out = []
+    for i in range(5):
+        h, w = L.conv_out_hw(h, w, 3, 2, "SAME")
+        if i >= 2:
+            out.append((h, w))
+    return out
+
+
+def _decode(raw, c: DecodeConstants):
+    """DFL decode + dist2bbox (the 24 post-processing ONNX nodes)."""
+    b = raw[0].shape[0]
+    z = torch.cat([f.reshape(b, -1, f.shape[-1]) for f in raw], dim=1)
+    box, cls = z[..., : 4 * REG_MAX], z[..., 4 * REG_MAX:]
+    # DFL: softmax over bins, expectation via fixed conv [0..15]
+    box = box.reshape(b, -1, 4, REG_MAX)
+    box = L.softmax(box, axis=-1) @ c.bins
+    lt, rb = box[..., :2], box[..., 2:]
+    x1y1 = c.anchor - lt
+    x2y2 = c.anchor + rb
+    cxy = (x1y1 + x2y2) / 2.0
+    wh = x2y2 - x1y1
+    bbox = torch.cat([cxy, wh], dim=-1) * c.stride
+    return torch.cat([bbox, torch.sigmoid(cls)], dim=-1)
 
 
 def forward(params, x: torch.Tensor, cfg: dict = YOLOV8N, decode: bool = True):
     """NHWC image -> (B, anchors, 4+NC) decoded predictions (or the raw
     per-scale outputs, a list of (B, H/s, W/s, 4*REG_MAX+NC), with
     ``decode=False``)."""
-    feats = backbone_neck(params, x)
-    raw = []
-    for i, f in enumerate(feats):
-        box = _head_branch(params["head"]["cv2"][i], f)
-        cls = _head_branch(params["head"]["cv3"][i], f)
-        raw.append(torch.cat([box, cls], dim=-1))
+    raw = _raw(params, x, _conv)
     if not decode:
         return raw
+    return _decode(raw, decode_constants([f.shape[1:3] for f in raw], x.device))
 
-    # DFL decode + dist2bbox (the 24 post-processing ONNX nodes)
-    b, dev = x.shape[0], x.device
-    flat, anchors, strides = [], [], []
-    for f, s in zip(raw, STRIDES):
-        _, h, w, c = f.shape
-        flat.append(f.reshape(b, h * w, c))
-        ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
-                                torch.arange(w, dtype=torch.float32, device=dev),
-                                indexing="ij")
-        anchors.append(torch.stack([xs.reshape(-1) + 0.5,
-                                    ys.reshape(-1) + 0.5], -1))
-        strides.append(torch.full((h * w, 1), float(s), device=dev))
-    z = torch.cat(flat, dim=1)
-    anchor = torch.cat(anchors, dim=0)
-    stride = torch.cat(strides, dim=0)
-    box, cls = z[..., : 4 * REG_MAX], z[..., 4 * REG_MAX:]
-    # DFL: softmax over bins, expectation via fixed conv [0..15]
-    box = box.reshape(b, -1, 4, REG_MAX)
-    box = L.softmax(box, axis=-1) @ torch.arange(REG_MAX, dtype=torch.float32,
-                                                 device=dev)
-    lt, rb = box[..., :2], box[..., 2:]
-    x1y1 = anchor - lt
-    x2y2 = anchor + rb
-    cxy = (x1y1 + x2y2) / 2.0
-    wh = x2y2 - x1y1
-    bbox = torch.cat([cxy, wh], dim=-1) * stride
-    return torch.cat([bbox, torch.sigmoid(cls)], dim=-1)
+
+# ---------------------------------------------------------------------------
+# the request as a weight-stationary deployment
+# ---------------------------------------------------------------------------
+
+class Programmed(NamedTuple):
+    """What one deployment of YOLOv8n holds fixed: the parameter tree's
+    structure with each conv's weight laid out once (``L.oihw_weight``)
+    beside its bias, and the decode's constants for ``image_hw``."""
+    convs: Dict
+    decode: DecodeConstants
+    image_hw: Tuple[int, int]
+
+
+def _program_convs(tree):
+    if isinstance(tree, list):
+        return [_program_convs(v) for v in tree]
+    if "w" in tree:
+        return {"w": L.oihw_weight(tree["w"]), "b": tree["b"]}
+    return {k: _program_convs(v) for k, v in tree.items()}
+
+
+def program(params, image_hw) -> Programmed:
+    """Lay out, once, what depends only on the weights and the image size
+    (height, width).  ``params`` is left as it is."""
+    image_hw = tuple(image_hw)
+    device = tree_leaves(params)[0].device
+    return Programmed(_program_convs(params),
+                      decode_constants(scale_hw(image_hw), device), image_hw)
+
+
+def forward_programmed(state: Programmed, x: torch.Tensor, decode: bool = True):
+    """``forward(params, x, decode=decode)`` over ``program(params,
+    image_hw)``'s state: the same ops in the same order on the same
+    values, less the per-call weight layouts and decode constants."""
+    if tuple(x.shape[1:3]) != state.image_hw:
+        raise ValueError(f"yolo: images of {tuple(x.shape[1:3])}, programmed "
+                         f"for {state.image_hw}")
+    raw = _raw(state.convs, x, _programmed_conv)
+    return _decode(raw, state.decode) if decode else raw
+
+
+def _card_of(params) -> torch.device:
+    """The CUDA device the parameters lie on; ``ValueError`` off the card."""
+    device = tree_leaves(params)[0].device
+    if device.type != "cuda":
+        raise ValueError(f"GraphedForward: parameters on {device}; a CUDA "
+                         f"graph needs them on the card (the CPU's path is "
+                         f"forward_programmed)")
+    return device
+
+
+class _Captured(NamedTuple):
+    graph: "torch.cuda.CUDAGraph"
+    x: torch.Tensor          # the static input the graph reads
+    raw: list                # the static raw outputs the graph writes
+    out: torch.Tensor        # the static decoded output
+
+
+class GraphedForward:
+    """``forward(params, x, decode)`` on the card as a weight-stationary
+    deployment: :func:`program` once, each request replayed from a CUDA
+    graph.
+
+    One graph for each (shape, dtype) of the input, captured from
+    :func:`forward_programmed` (the raw outputs, then their decode) after
+    a warm-up on a side stream, over a static copy of the input.  A call
+    copies ``x`` into the static input, replays, and returns a copy of
+    the static decoded (or raw) output, so a caller may keep the outputs
+    of several requests.  The graph holds the parameters it was
+    programmed with, and a call with others is refused; parameters off
+    the card are refused too.  A capture or replay error raises.
+    ``capture_seconds`` holds each capture's host seconds, warm-up
+    included."""
+
+    def __init__(self, params, image_hw) -> None:
+        self.device = _card_of(params)
+        self.params = params
+        self.state = program(params, image_hw)
+        self.graphs: Dict[tuple, _Captured] = {}
+        self.capture_seconds = []
+
+    def _run(self, x):
+        raw = forward_programmed(self.state, x, decode=False)
+        return raw, _decode(raw, self.state.decode)
+
+    def capture(self, params, x: torch.Tensor) -> _Captured:
+        """The graph of ``x``'s (shape, dtype), captured if it is new."""
+        if params is not self.params:
+            raise ValueError("GraphedForward: called with parameters other "
+                             "than those it was programmed with")
+        key = (tuple(x.shape), x.dtype)
+        if key in self.graphs:
+            return self.graphs[key]
+        t0 = time.perf_counter()
+        dev = self.device
+        static_x = x.to(dev, copy=True)
+        stream = torch.cuda.Stream(device=dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            self._run(static_x)                  # warm-up: it runs
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            raw, out = self._run(static_x)
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        self.graphs[key] = _Captured(graph, static_x, raw, out)
+        self.capture_seconds.append(time.perf_counter() - t0)
+        return self.graphs[key]
+
+    def __call__(self, params, x: torch.Tensor, decode: bool = True):
+        c = self.capture(params, x)
+        c.x.copy_(x)
+        c.graph.replay()
+        return c.out.clone() if decode else [r.clone() for r in c.raw]
+
+
+def request(params, image_hw):
+    """The request as it is served, a function of (params, x, decode=True):
+    a :class:`GraphedForward` where the parameters lie on the card,
+    :func:`forward_programmed` over :func:`program`'s state where they do
+    not."""
+    if tree_leaves(params)[0].device.type == "cuda":
+        return GraphedForward(params, image_hw)
+    state = program(params, image_hw)
+
+    def plain(p, x, decode=True):
+        if p is not params:
+            raise ValueError("yolo.request: called with parameters other "
+                             "than those it was programmed with")
+        return forward_programmed(state, x, decode)
+    return plain
 
 
 def num_params(cfg: dict = YOLOV8N) -> int:

@@ -1,13 +1,17 @@
 """The card-free phases of ``chip_smoke.py`` rehearsed on the CPU: the
 main path's INT8 requests (phase 4, with the INT8 ops counting launches
 as the card's wrappers do, and its trace gate), the
-LM card-against-CPU gate, the YOLOv8n phase and the training phases
+LM card-against-CPU gate, the YOLOv8n phase (its served request too,
+plain on the CPU and as ``GraphedForward`` under stand-ins for the CUDA
+graph machinery, with its faults) and the training phases
 T1-T3 (smoke widths, T3 at a few steps) with the CPU on both sides, and
 the placement phase (schedule and simulate the ResNet-18
 graph the main path executes and the YOLOv8n graph; elastic sessions;
 the serving control plane; the stage partitioner) against the
 reference."""
 
+import contextlib
+import math
 import sys
 from pathlib import Path
 
@@ -310,6 +314,118 @@ def test_yolo_bound_at_full_size():
     assert b["bound_by"] == "operations"
     assert b["bound_ms"] == pytest.approx(16 * 8.742912e9 / 67e12 * 1e3)
     assert 2.0 < b["bound_ms"] < 2.2
+
+
+def _yolo_params():
+    from repro_torch.models.cnn import yolo
+    return yolo.init(torch.Generator().manual_seed(0), device="cpu")
+
+
+def test_yolo_served_phase_rehearsed_on_cpu():
+    """Phase 5b's served request and its spread at 64x64 on the CPU, where
+    the request is the programmed forward: every gate passes, nothing is
+    captured, and the spread has no traced round."""
+    dev = torch.device("cpu")
+    params = _yolo_params()
+    rec, request, xs = chip_smoke.yolo_graphed(params, dev, 64, 2, 2, 1,
+                                               lambda: None)
+    assert rec["decoded_equal"] == [True, True] and rec["max_abs_d"] == 0.0
+    assert rec["raw_equal"] and rec["second_batch_equal"]
+    assert not rec["graphed"] and rec["captures"] == [] == rec["capture_s"]
+    assert rec["foreign_tree_refused"] and rec["cpu_params_refused"]
+    out = chip_smoke.yolo_spread(params, request, xs, 2, False)
+    for name in ("eager", "graphed"):
+        r = out[name]
+        assert r["wall_ms"]["n"] == r["enqueue_ms"]["n"] == 4
+        assert len(r["round_medians_ms"]) == 2 and r["round_max_over_min"] >= 1
+        assert r["frames_per_s"] > 0 and "traced_device_ms" not in r
+
+
+def _graphed_stand_ins(monkeypatch, params, cls=None):
+    """The served request as ``GraphedForward`` on the CPU: the CUDA graph
+    machinery stood in for (a replay recomputes the static outputs), the
+    card check passing ``params`` only."""
+    from test_torch_yolo_deploy import _recompute, _StandInGraph, _StandInStream
+
+    from repro_torch.models.cnn import yolo
+
+    class Rerun(yolo.GraphedForward):
+        def capture(self, params, x):
+            c = super().capture(params, x)
+            c.graph.rerun = _recompute(self, c)
+            return c
+    cls = cls(Rerun) if cls else Rerun
+    for name, fn in (("CUDAGraph", _StandInGraph),
+                     ("graph", lambda graph, stream=None: contextlib.nullcontext()),
+                     ("Stream", lambda device=None: _StandInStream()),
+                     ("current_stream", lambda device=None: _StandInStream()),
+                     ("stream", lambda stream: contextlib.nullcontext())):
+        monkeypatch.setattr(torch.cuda, name, fn)
+    real = yolo._card_of
+    monkeypatch.setattr(yolo, "_card_of", lambda p: torch.device("cpu")
+                        if p is params else real(p))
+    monkeypatch.setattr(yolo, "request", lambda p, hw: cls(p, hw))
+
+
+def test_yolo_served_phase_with_stand_in_graphs(monkeypatch):
+    """The phase's graph gates on the CPU: one capture for the request
+    shape, none for its repeats, one more for the second batch size."""
+    params = _yolo_params()
+    _graphed_stand_ins(monkeypatch, params)
+    rec, _, _ = chip_smoke.yolo_graphed(params, torch.device("cpu"), 64, 2,
+                                        2, 1, lambda: None)
+    assert rec["graphed"] and rec["captures"] == [1, 1, 2]
+    assert len(rec["capture_s"]) == 2 and all(rec["decoded_equal"])
+
+
+def _skewed(base):
+    """A graphed request whose second decoded output is one ulp off in one
+    element."""
+    class Skewed(base):
+        calls = 0
+
+        def __call__(self, params, x, decode=True):
+            out = super().__call__(params, x, decode)
+            Skewed.calls += 1
+            if decode and Skewed.calls == 2:
+                out.view(-1)[7] = torch.nextafter(out.view(-1)[7],
+                                                  torch.tensor(math.inf))
+            return out
+    return Skewed
+
+
+def _recapturing(base):
+    class Recapturing(base):
+        def capture(self, params, x):
+            c = super().capture(params, x)
+            self.graphs[object()] = c        # a new graph on every call
+            return c
+    return Recapturing
+
+
+def _unrefusing(base):
+    class Unrefusing(base):
+        def __call__(self, params, x, decode=True):
+            return super().__call__(self.params, x, decode)
+    return Unrefusing
+
+
+@pytest.mark.parametrize("fault", ["skewed", "captures", "foreign", "cpu"])
+def test_yolo_served_phase_fails_when_it_should(fault, monkeypatch):
+    """A graphed output one ulp off, a capture on every call, a foreign
+    tree served and CPU parameters taken each fail the phase."""
+    from repro_torch.models.cnn import yolo
+    params = _yolo_params()
+    cls = {"skewed": _skewed, "captures": _recapturing,
+           "foreign": _unrefusing}.get(fault)
+    _graphed_stand_ins(monkeypatch, params, cls)
+    if fault == "cpu":
+        monkeypatch.setattr(yolo, "_card_of", lambda p: torch.device("cpu"))
+    match = {"skewed": "differs from yolo.forward", "captures": "graphs",
+             "foreign": "not refused", "cpu": "not refused"}[fault]
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.yolo_graphed(params, torch.device("cpu"), 64, 2, 2, 1,
+                                lambda: None)
 
 
 # ---------------------------------------------------------------------------
