@@ -121,7 +121,32 @@ under ``timing``.
    server with the plain step (``graph_against_plain``): greedy tokens
    equal, logits ``torch.equal`` or within ``GRAPH_LOGIT_TOL``, 0
    retries, no launch counted in any decode step, both paths' mean step
-   ms and each capture's seconds logged (also in phases 14 and 15);
+   ms and each capture's seconds logged (also in phases 14 and 15).
+   ``Server``'s prefill is replayed from a CUDA graph a prompt shape
+   (``GraphedPrefill``, the reference's ``jax.jit``; every capture in one
+   memory pool, every width's outputs copied into one set of static
+   outputs a batch size), captured by the first call of a width, whose
+   time to first token includes it and which returns the capture's
+   warm-up, so the counted run's flash launches are 26 a prefill; the
+   same prompts are served again through it and through the same server
+   with the plain prefill (``prefill_graph_against_plain``, also in
+   phases 14 and 15): greedy tokens equal, each prefill's logits and
+   cache leaves ``torch.equal`` (or within ``GRAPH_LOGIT_TOL`` only where
+   the plain prefill is not bit-reproducible run to run), 26 flash
+   launches a prefill by the counts and by a trace of one replay, no new
+   capture; each capture's seconds and memory (``probe_prefill_captures``:
+   held against its static inputs' and outputs' bytes), the pool's
+   reserved bytes and one replay's launches by trace against one eager
+   prefill's logged.  Then ``prefill_spread`` at (4, 2,048), also in
+   phase 14: 8 interleaved rounds of 3 eager and 3 graphed prefills timed
+   by ``benchmarks_torch.spread``'s ``timed`` (wall: n, median,
+   IQR/median; round medians' max/min; enqueue), one traced prefill of
+   each (device ms by ``spread.traced``; host share 1 - traced / median
+   wall), the two paths' logits ``torch.equal``; then
+   ``prefill_widths_memory``, also in phase 14: 8 more prompt widths at
+   batch 4, each captured by its call, must hold no more device memory
+   than their static tokens (plus ``PREFILL_WIDTHS_SLACK``) and make no
+   new static outputs;
 9. the flash kernel's time per prefill of (4, 2048) summed over the 26
    layers at their windows (``kernel_bench.time_case`` over
    ``kernel_bench.flash_cases``, as phase 5), beside its bound, its plain
@@ -179,11 +204,15 @@ under ``timing``.
    phase 9); the graphed step against the plain one (phase 8), then once
    more with a fault hook that raises at decode step
    ``GRAPH_FAULT_STEP``: equal tokens and one retry each (the retry's
-   prefill cache is copied into the graph's buffers);
+   prefill cache is copied into the graph's buffers, and its new prompt
+   width is captured before it runs); the graphed prefill against the
+   plain one and the eager-against-graphed prefill rounds (phase 8);
 15. the other families at full width: falcon-mamba-7b (64 layers) and
    recurrentgemma-9b (38 layers; 4 requests of 2,048-3,072 tokens, so
    its 2,048 window masks) through ``Server`` with 0 and 12 flash
-   launches a prefill; whisper-small (4 x 1,500 frames, 64 tokens, 12
+   launches a prefill, each graphed prefill held against the plain one
+   (phase 8), each server dropped before its eager profile (its prefill
+   pool is not released while it lives); whisper-small (4 x 1,500 frames, 64 tokens, 12
    non-causal and 12 causal launches), paligemma-3b (4 x (256 + 256),
    18 launches) and qwen3-moe-235b-a22b cut to 1 layer (~470 GB in bf16
    at full depth) through the step functions, 32 decode steps (4 for
@@ -275,7 +304,9 @@ under ``timing``.
    it, the round medians' min/max, rank correlations with the probes, and
    each call's device time from the trace and host share) is logged; and
    whether the traced round's decode step, now graph replays, sums within
-   5% of the eager step's device time (``EAGER_DECODE_DEVICE_MS``).
+   5% of the eager step's device time (``EAGER_DECODE_DEVICE_MS``); the
+   traced round's prefill, a graph replay too, is logged beside the eager
+   prefill's device time (``EAGER_PREFILL_DEVICE_MS``).
 
 Detail goes to ``chiprun_out/chip_smoke.json``.  The line before the last
 is ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
@@ -1535,8 +1566,11 @@ def lm_serve(cfg, dev, n_requests, lens, max_new, max_batch, sync):
     """Phase 8: the main path.  ``cfg`` through the port's ``Server``, bf16
     weights from a generator on ``dev`` seeded 0, prompts of seeded
     lengths in ``lens``; returns the server (warmed up, steps timed by
-    ``timed_steps``), the requests and the timing record.  Serving them is
-    left to the caller, which resets the launch counts just before."""
+    ``timed_steps``, its prefill graph's captures, the warm-up's
+    included, recorded under ``captures`` by ``probe_prefill_captures``),
+    the requests and
+    the timing record.  Serving them is left to the caller, which resets
+    the launch counts just before."""
     import numpy as np
     import torch
     from repro_torch.models.lm import transformer
@@ -1546,6 +1580,7 @@ def lm_serve(cfg, dev, n_requests, lens, max_new, max_batch, sync):
     rng = np.random.default_rng(0)
     s_max = lens[1] + max_new
     server = Server(cfg, params, max_batch=max_batch, s_max=s_max)
+    captures = probe_prefill_captures(server)
     # warm-up (library handles, allocator) before the counted run
     server.serve([Request(-1, torch.arange(64), max_new=2)])
     sync()
@@ -1553,6 +1588,7 @@ def lm_serve(cfg, dev, n_requests, lens, max_new, max_batch, sync):
                     max_new=max_new)
             for i, n in enumerate(rng.integers(lens[0], lens[1] + 1, n_requests))]
     rec = timed_steps(server, sync)
+    rec["captures"] = captures
     return server, reqs, rec
 
 
@@ -2396,19 +2432,29 @@ def check_flash_counts(counts, per_prefill, prefills, label, hd):
 def serve_counted(cfg, dev, n_requests, lens, max_new, max_batch,
                   flash_per_prefill, sync):
     """``cfg`` through ``Server`` (``lm_serve``): the launch counts set to 0
-    just before the requests and read just after, the device's peak memory
-    over them, each request's tokens checked; then the first batch's
-    prompts again, the graphed step held against the plain one
-    (``graph_against_plain``, under ``graph`` in the record).  Returns
+    just before the requests and read just after (a prefill step a
+    prefill: a new width's call runs the step once, as the capture's
+    warm-up, and a repeated width's replays it), the device's peak memory
+    over them, each request's tokens checked; then
+    the first batch's prompts again, the graphed decode step held against
+    the plain one (``graph_against_plain``, under ``graph`` in the record)
+    and the graphed prefill against the plain one
+    (``prefill_graph_against_plain``, under ``prefill_graph``; its plain
+    side runs before the requests, ``plain_prefills``).  The time to first
+    token is the prefill call's, a new width's capture included.  Returns
     (server, record, the first batch's prompts)."""
     import torch
     server, reqs, rec = lm_serve(cfg, dev, n_requests, lens, max_new,
                                  max_batch, sync)
+    prompts = [r.prompt for r in reqs[:max_batch]]
+    plain = plain_prefills(cfg, server, prompts, max_new, sync)
+    probed = len(rec["captures"])
     torch.cuda.reset_peak_memory_stats(dev)
     zero_counts()
     stats = server.serve(reqs)
     sync()
     counts = read_counts()
+    new_widths = rec["captures"][probed:]
     check_flash_counts(counts, flash_per_prefill, stats.prefills, cfg.name,
                        cfg.hd)
     for r in reqs:
@@ -2423,6 +2469,8 @@ def serve_counted(cfg, dev, n_requests, lens, max_new, max_batch,
     out = {
         "requests": len(reqs), "prompt_lens": [int(r.prompt.numel()) for r in reqs],
         "prefills": stats.prefills, "decode_steps": stats.decode_steps,
+        "prefill_captures": len(new_widths),
+        "prefill_capture_s": [c["seconds"] for c in new_widths],
         "flash_launches": counts["flash"],
         "flash_instances": counts["flash_instances"],
         "wall_s": stats.wall_seconds, "peak_bytes": torch.cuda.max_memory_allocated(dev),
@@ -2432,27 +2480,42 @@ def serve_counted(cfg, dev, n_requests, lens, max_new, max_batch,
         "decode_step_ms_mean": sum(dec) / len(dec) * 1e3,
         "decode_step_ms_max": max(dec) * 1e3}
     log(f"{cfg.name} serve ({cfg.n_layers} layers): {out['requests']} requests "
-        f"(prompts {out['prompt_lens']}), {stats.prefills} prefills, "
-        f"{stats.decode_steps} decode steps, flash launches {counts['flash']} "
-        f"({flash_per_prefill} per prefill; by instance "
+        f"(prompts {out['prompt_lens']}), {stats.prefills} prefills "
+        f"({len(new_widths)} of a new width, captured by the call), "
+        f"{stats.decode_steps} decode steps, flash launches "
+        f"{counts['flash']} ({flash_per_prefill} per prefill step; by instance "
         f"{counts['flash_instances']}), wall {stats.wall_seconds:.3f} s, peak "
         f"memory {out['peak_bytes'] / 2**30:.2f} GiB")
     log(f"  prefill {out['prefill_tok_per_s']:.1f} tok/s (padded tokens), time "
-        f"to first token {', '.join(f'{t:.1f}' for t in out['ttft_ms'])} ms; "
+        f"to first token {', '.join(f'{t:.1f}' for t in out['ttft_ms'])} ms "
+        f"(captures included: "
+        f"{', '.join(f'{t:.3f}' for t in out['prefill_capture_s'])} s); "
         f"decode {out['decode_tok_per_s']:.1f} tok/s, step "
         f"{out['decode_step_ms_mean']:.3f} ms mean, "
         f"{out['decode_step_ms_max']:.3f} ms max")
-    prompts = [r.prompt for r in reqs[:max_batch]]
     out["graph"] = graph_against_plain(cfg, server, prompts, max_new, sync)
+    out["prefill_graph"] = prefill_graph_against_plain(
+        cfg, server, prompts, max_new, sync, flash_per_prefill, plain,
+        rec["captures"])
     return server, out, prompts
 
 
-#: graphed against plain decode logits: max |d| <= GRAPH_LOGIT_TOL * max
-#: |logit| where they are not ``torch.equal`` (a replay runs the kernels the
+#: graphed against plain decode logits (and prefill outputs, where the plain
+#: prefill is not bit-reproducible run to run): max |d| <= GRAPH_LOGIT_TOL *
+#: max |x| where they are not ``torch.equal`` (a replay runs the kernels the
 #: plain step launches, on the same inputs, in the same order; only a
 #: library that picked another algorithm under capture would move a bf16
 #: logit, by an ulp or two: 2^-7 of its magnitude)
 GRAPH_LOGIT_TOL = 1e-2
+#: phases 8 and 14's further prompt widths at PATH_B, each captured by a
+#: call: together they may hold no more than their static tokens (each
+#: allocation rounded to the allocator's 512 bytes) and this slack
+PREFILL_MORE_WIDTHS = (96, 224, 352, 480, 608, 736, 864, 992)
+PREFILL_WIDTHS_SLACK = 1 << 20
+#: phases 8 and 14's eager-against-graphed prefill rounds at (PATH_B,
+#: PATH_S): rounds, and calls of each path a round
+PREFILL_SPREAD_ROUNDS = 8
+PREFILL_SPREAD_CALLS = 3
 
 
 def serve_recorded(server, prompts, max_new, sync, fault_at=None):
@@ -2549,6 +2612,400 @@ def graph_against_plain(cfg, server, prompts, max_new, sync, fault_at=None):
         raise AssertionError(f"{cfg.name}: a batch of the captured shapes "
                              f"was captured again")
     return rec
+
+
+def prefill_graphs(server) -> int:
+    """The prompt shapes ``server``'s prefill graph has captured (0 where
+    it has none: the CPU, a mesh)."""
+    g = server.prefill_graph
+    return len(g.graphs) if g is not None else 0
+
+
+def pool_reserved(pool) -> int:
+    """The bytes the caching allocator holds in ``pool``'s segments."""
+    import torch
+    return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+               if tuple(s["segment_pool_id"]) == tuple(pool))
+
+
+def probe_prefill_captures(server) -> list:
+    """Wraps the ``capture`` of ``server``'s prefill graph (where it has
+    one: the card without a mesh) to record each new prompt shape's
+    capture: its shape and host seconds; the allocator's bytes allocated
+    just before and just after (``held``: what the width keeps, its static
+    inputs and, where its batch size is new, the static outputs) and the
+    driver's bytes in use (``torch.cuda.mem_get_info``), which also sees
+    the graph's own memory; its static inputs' and outputs' bytes and
+    whether the outputs were new.  No call synchronises, so the time to
+    first token around it stays the call's.  Returns the list the records
+    go to."""
+    import torch
+    from repro_torch.tree import tree_leaves
+    recs, g = [], server.prefill_graph
+    if g is None:
+        return recs
+    capture = g.capture
+
+    def used(dev):
+        free, total = torch.cuda.mem_get_info(dev)
+        return total - free
+
+    def probed(params, batch):
+        if g.key(batch) in g.graphs:
+            return capture(params, batch)
+        dev = batch["tokens"].device
+        outputs = len(g.outputs)
+        before = torch.cuda.memory_allocated(dev), used(dev)
+        c = capture(params, batch)
+        after = torch.cuda.memory_allocated(dev), used(dev)
+        recs.append({
+            "shape": list(batch["tokens"].shape),
+            "seconds": g.capture_seconds[-1],
+            "allocated_before": before[0], "allocated_after": after[0],
+            "held": after[0] - before[0],
+            "driver_used_delta": after[1] - before[1],
+            "static_input_bytes": sum(t.nbytes for t in c.batch.values()),
+            "static_output_bytes": sum(t.nbytes for t in tree_leaves(c.out)),
+            "new_outputs": len(g.outputs) > outputs})
+        return c
+
+    g.capture = probed
+    return recs
+
+
+def prefill_record(server, prefill, prompts, max_new, sync):
+    """``prompts`` through ``server`` with ``prefill`` as its prefill step
+    (and as its prefill graph where ``prefill`` is that graph, else no
+    graph), the launch counts set to 0 just before and read just after;
+    each prefill's tokens and outputs (the logits, then the cache's
+    leaves) kept, cloned: a graph's are overwritten by its next replay.
+    Returns (tokens, prefills, stats, counts)."""
+    from repro_torch.runtime.serve_loop import Request
+    from repro_torch.tree import tree_leaves
+    outs, saved = [], (server.prefill, server.prefill_graph)
+
+    def call(params, batch):
+        logits, cache = prefill(params, batch)
+        outs.append((batch["tokens"].clone(),
+                     [t.clone() for t in [logits, *tree_leaves(cache)]]))
+        return logits, cache
+
+    server.prefill = call
+    if prefill is not saved[1]:
+        server.prefill_graph = None
+    try:
+        reqs = [Request(i, p, max_new=max_new) for i, p in enumerate(prompts)]
+        zero_counts()
+        stats = server.serve(reqs)
+        sync()
+        counts = read_counts()
+    finally:
+        server.prefill, server.prefill_graph = saved
+    return [r.out_tokens for r in reqs], outs, stats, counts
+
+
+def unequal_outputs(got, want) -> list:
+    """(name, max |d|, max |d| / max |want|) of each output of one prefill
+    (``prefill_record``'s: the logits, then the cache's leaves) that is
+    not ``torch.equal`` to ``want``'s."""
+    import torch
+    rows = []
+    for i, (a, b) in enumerate(zip(got, want, strict=True)):
+        if a.shape != b.shape or not torch.equal(a, b):
+            d = (a.float() - b.float()).abs().max().item()
+            top = b.float().abs().max().item()
+            rows.append(("logits" if i == 0 else f"cache leaf {i - 1}", d,
+                         d / top if top else float("inf")))
+    return rows
+
+
+def prefill_trace(fn) -> dict:
+    """One prefill ``fn()`` under ``torch.profiler``: its launches and flash
+    launches by the trace, device ms and the profiled wall."""
+    wall, busy, rows = profile_kernels(fn, top=None)
+    return {"wall_ms": wall, "device_ms": busy,
+            "launches": sum(r["calls"] for r in rows),
+            "flash": sum(r["calls"] for r in rows if "flash_" in r["name"])}
+
+
+def plain_prefills(cfg, server, prompts, max_new, sync):
+    """The plain side of ``prefill_graph_against_plain``, run before the
+    server's graph captures the prompts' width, so that a plain prefill
+    and the graph's pool never hold their memory at once (falcon-mamba's
+    pool alone takes ~36 GiB): ``prompts`` through ``server`` with its
+    prefill set to the plain ``model.make_prefill_step``
+    (``prefill_record``), one more plain prefill of the first batch (the
+    outputs that differ from the first one's: the plain prefill is
+    bit-reproducible run to run where there are none) and, on the card,
+    one under ``torch.profiler``.  Returns the record."""
+    from repro_torch.models.lm import model
+    from repro_torch.tree import tree_leaves
+    plain = model.make_prefill_step(cfg, s_max=server.s_max)
+    tokens, outs, stats, counts = prefill_record(server, plain, prompts,
+                                                 max_new, sync)
+    batch = {"tokens": outs[0][0]}
+    logits, cache = plain(server.params, batch)
+    rec = {"tokens": tokens, "outs": outs, "stats": stats, "counts": counts,
+           "run_to_run": unequal_outputs([logits, *tree_leaves(cache)],
+                                         outs[0][1])}
+    del logits, cache
+    if server.device.type == "cuda":
+        rec["trace"] = prefill_trace(lambda: plain(server.params, batch))
+    return rec
+
+
+def prefill_graph_against_plain(cfg, server, prompts, max_new, sync,
+                                flash_per_prefill, plain, captures=()):
+    """The graphed ``Server`` (its prefill replayed from a CUDA graph a
+    prompt shape, ``GraphedPrefill``) against the same server with its
+    prefill set back to the plain ``model.make_prefill_step`` (``plain``:
+    ``plain_prefills``' record of the same prompts, one batch, whose width
+    the counted run captured).  Gates: greedy tokens equal and 0 retries
+    each; each prefill's logits and every cache leaf ``torch.equal`` to
+    the plain ones, or, only where the plain prefill is not
+    bit-reproducible run to run, within ``GRAPH_LOGIT_TOL`` of the
+    output's max |x| (which outputs and their max |d| logged); on the card
+    ``flash_per_prefill`` flash launches a prefill by the counts over each
+    run and by a trace of one replay and of one plain prefill; no new
+    capture.  Logged: each capture's seconds and memory (``captures``,
+    ``probe_prefill_captures``' records: what it held against its static
+    inputs' and outputs' bytes), the shared pool's reserved bytes and the
+    launches of one replay by trace against one plain prefill's.  On the
+    CPU (the rehearsal) both sides are the plain step and nothing is
+    traced."""
+    import torch
+    from repro_torch.tree import tree_leaves
+    graph = server.prefill_graph
+    cuda = server.device.type == "cuda"
+    if cuda and graph is None:
+        raise AssertionError(f"{cfg.name}: Server on the card has no prefill "
+                             f"graph")
+    captured = prefill_graphs(server)
+    g_tok, g_out, g_stats, g_counts = prefill_record(
+        server, graph if graph is not None else server.prefill, prompts,
+        max_new, sync)
+    p_out, p_stats = plain["outs"], plain["stats"]
+    if len(g_out) != len(p_out) or not all(
+            torch.equal(a[0], b[0]) for a, b in zip(g_out, p_out)):
+        raise AssertionError(f"{cfg.name}: the graphed and plain runs "
+                             f"prefilled other tokens")
+    unequal = [(i, *row) for i, (a, b) in enumerate(zip(g_out, p_out))
+               for row in unequal_outputs(a[1], b[1])]
+    rec = {"requests": len(prompts), "max_new": max_new,
+           "prefills": [g_stats.prefills, p_stats.prefills],
+           "retries": [g_stats.retries, p_stats.retries],
+           "tokens_equal": g_tok == plain["tokens"],
+           "outputs_equal": not unequal,
+           "unequal": [list(u) for u in unequal],
+           "plain_reproducible": not plain["run_to_run"],
+           "plain_run_to_run": [list(u) for u in plain["run_to_run"]],
+           "flash_launches": [g_counts["flash"], plain["counts"]["flash"]],
+           "graphs": captured, "captures": list(captures),
+           "capture_s": [c["seconds"] for c in captures]}
+    if cuda:
+        rec["pool_reserved"] = pool_reserved(graph.pool)
+    if cuda:
+        batch = {"tokens": g_out[0][0]}
+        rec["trace_graphed"] = prefill_trace(
+            lambda: graph(server.params, batch))
+        rec["trace_eager"] = plain["trace"]
+    log(f"{cfg.name} graphed prefill against the plain step: "
+        f"{len(prompts)} requests, prefills {rec['prefills']}, tokens equal "
+        f"{rec['tokens_equal']}, logits and every cache leaf torch.equal "
+        f"{not unequal}"
+        + ("" if not unequal else " (" + ", ".join(
+            f"prefill {i} {name}: max |d| {d:.3e}, / max {r:.3e}"
+            for i, name, d, r in unequal[:6]) + ")")
+        + f"; the plain prefill run to run "
+        + ("bit-reproducible" if rec["plain_reproducible"] else
+           "not bit-reproducible (" + ", ".join(
+               f"{name}: max |d| {d:.3e}"
+               for name, d, _ in plain["run_to_run"][:6]) + ")")
+        + f"; flash launches {rec['flash_launches']} (graphed, plain; "
+        f"{flash_per_prefill} a prefill); {prefill_graphs(server)} graphs"
+        + (" captured in " + ", ".join(f"{t:.3f}" for t in rec["capture_s"])
+           + " s" if rec["capture_s"] else ""))
+    for c in rec["captures"]:
+        log_capture(c)
+    if "pool_reserved" in rec:
+        log(f"  the shared pool holds {rec['pool_reserved'] / 2**20:.1f} MiB")
+    for name in ("graphed", "eager"):
+        if f"trace_{name}" in rec:
+            t = rec[f"trace_{name}"]
+            log(f"  one {name} prefill of {list(g_out[0][0].shape)} under the "
+                f"profiler: {t['launches']} launches ({t['flash']} flash), "
+                f"{t['device_ms']:.3f} ms of device time in a "
+                f"{t['wall_ms']:.3f} ms profiled wall")
+    if not rec["tokens_equal"]:
+        raise AssertionError(f"{cfg.name}: the graphed prefill's tokens differ "
+                             f"from the plain one's")
+    if unequal and (rec["plain_reproducible"] or not all(
+            r <= GRAPH_LOGIT_TOL for _, _, _, r in unequal)):
+        raise AssertionError(f"{cfg.name}: the graphed prefill's outputs "
+                             f"differ from the plain one's: {unequal[:6]}")
+    if rec["retries"] != [0, 0] or g_stats.prefills != p_stats.prefills:
+        raise AssertionError(f"{cfg.name}: retries {rec['retries']}, "
+                             f"prefills {rec['prefills']}")
+    if prefill_graphs(server) != captured:
+        raise AssertionError(f"{cfg.name}: a prompt width already captured "
+                             f"was captured again")
+    if cuda:
+        want = flash_per_prefill * g_stats.prefills
+        traced = [rec[f"trace_{n}"]["flash"] for n in ("graphed", "eager")]
+        if rec["flash_launches"] != [want, want] or traced != [
+                flash_per_prefill] * 2:
+            raise AssertionError(f"{cfg.name}: flash launches "
+                                 f"{rec['flash_launches']} by count, "
+                                 f"{traced} a prefill by trace (graphed, "
+                                 f"eager); want {flash_per_prefill} a "
+                                 f"prefill")
+    return rec
+
+
+def log_capture(c) -> None:
+    log(f"  capture of {c['shape']} in {c['seconds']:.3f} s: allocated "
+        f"{c['allocated_before'] / 2**20:.1f} -> "
+        f"{c['allocated_after'] / 2**20:.1f} MiB, held "
+        f"{c['held'] / 2**20:.3f} MiB against static inputs of "
+        f"{c['static_input_bytes'] / 2**20:.3f} MiB and static outputs of "
+        f"{c['static_output_bytes'] / 2**20:.1f} MiB ("
+        f"{'new' if c['new_outputs'] else 'shared'}); the driver's bytes in "
+        f"use {c['driver_used_delta'] / 2**20:+.1f} MiB")
+
+
+def prefill_widths_memory(cfg, server, batch, widths, sync):
+    """Prompts of ``widths`` at ``batch`` (random tokens), each a new width
+    that the server's prefill graph captures in the call: the device bytes
+    they hold together (allocated after less before, with the tokens
+    dropped) must stay within their static tokens' bytes, each rounded up
+    to the allocator's 512, plus ``PREFILL_WIDTHS_SLACK``, and no new
+    static outputs may be made.  Logged too: the shared pool's reserved
+    bytes and the driver's bytes in use before and after, and each
+    capture's seconds.  Returns the record."""
+    import torch
+    from repro_torch.tree import tree_leaves
+    g = server.prefill_graph
+    if g is None:
+        raise AssertionError(f"{cfg.name}: Server on the card has no prefill "
+                             f"graph")
+    dev = server.device
+    gen = torch.Generator(device=dev).manual_seed(5)
+    sync()
+    n, outputs = len(g.graphs), len(g.outputs)
+    free, total = torch.cuda.mem_get_info(dev)
+    before = (torch.cuda.memory_allocated(dev), pool_reserved(g.pool),
+              total - free)
+    for w in widths:
+        toks = torch.randint(0, cfg.vocab, (batch, w), device=dev,
+                             generator=gen)
+        out = server.prefill_graph(server.params, {"tokens": toks})
+        if not all(torch.isfinite(t).all() for t in tree_leaves(out)
+                   if t.is_floating_point()):
+            raise AssertionError(f"{cfg.name}: non-finite prefill outputs at "
+                                 f"width {w}")
+        del toks, out
+    sync()
+    free, total = torch.cuda.mem_get_info(dev)
+    after = (torch.cuda.memory_allocated(dev), pool_reserved(g.pool),
+             total - free)
+    new = list(g.graphs.values())[n:]
+    inputs = sum(-(-t.nbytes // 512) * 512 for c in new
+                 for t in c.batch.values())
+    rec = {"batch": batch, "widths": list(widths),
+           "captured": len(new), "new_outputs": len(g.outputs) - outputs,
+           "held": after[0] - before[0], "static_input_bytes": inputs,
+           "pool_reserved": [before[1], after[1]],
+           "driver_used": [before[2], after[2]],
+           "capture_s": g.capture_seconds[n:]}
+    log(f"{cfg.name} prefill at {len(widths)} more widths of batch {batch} "
+        f"({widths[0]}-{widths[-1]}): {len(new)} captured in "
+        f"{', '.join(f'{t:.3f}' for t in rec['capture_s'])} s; held "
+        f"{rec['held'] / 2**20:.3f} MiB against their static tokens' "
+        f"{inputs / 2**20:.3f} MiB (+ {PREFILL_WIDTHS_SLACK >> 20} MiB "
+        f"allowed), new static outputs {rec['new_outputs']}; the shared "
+        f"pool {before[1] / 2**20:.1f} -> {after[1] / 2**20:.1f} MiB, the "
+        f"driver's bytes in use {before[2] / 2**20:.1f} -> "
+        f"{after[2] / 2**20:.1f} MiB")
+    if len(new) != len(widths) or rec["new_outputs"] or \
+            rec["held"] > inputs + PREFILL_WIDTHS_SLACK:
+        raise AssertionError(f"{cfg.name}: {len(widths)} more prompt widths "
+                             f"held {rec['held']} bytes ({len(new)} captured, "
+                             f"{rec['new_outputs']} new static outputs)")
+    return rec
+
+
+def prefill_spread(cfg, server, batch, width, rounds, calls, sync):
+    """The prefill at (``batch``, ``width``) random tokens, eager (the
+    plain step) against graphed (the server's prefill graph, its width
+    captured here before the rounds, so that every graphed call replays;
+    the plain step on the CPU): ``rounds`` interleaved
+    rounds (the order alternating) of ``calls`` calls each, each call
+    timed by ``benchmarks_torch.spread``'s ``timed`` (wall ending in
+    ``sync``, and enqueue); then, on the card,
+    one traced call of each (``spread.traced``: the device time of its
+    kernels and copies), whose host share is 1 - traced / median wall.
+    The two paths' logits must be ``torch.equal``.  Returns the record by
+    path."""
+    import numpy as np
+    import torch
+    from benchmarks_torch.spread import summary, timed, traced
+    from repro_torch.models.lm import model
+    dev = server.device
+    cuda = dev.type == "cuda"
+    # the graph itself: ``server.prefill`` may be wrapped (``timed_steps``
+    # synchronises after each call)
+    graphed = server.prefill_graph
+    if cuda and graphed is None:
+        raise AssertionError(f"{cfg.name}: Server on the card has no prefill "
+                             f"graph")
+    toks = torch.randint(0, cfg.vocab, (batch, width), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(3))
+    b = {"tokens": toks}
+    plain = model.make_prefill_step(cfg, s_max=server.s_max)
+    if graphed is None:
+        graphed = plain
+    else:
+        graphed.capture(server.params, b)
+    fns = {"eager": lambda: plain(server.params, b),
+           "graphed": lambda: graphed(server.params, b)}
+    first = {name: fn()[0].clone() for name, fn in fns.items()}
+    sync()
+    if not torch.equal(first["eager"], first["graphed"]):
+        raise AssertionError(f"{cfg.name}: the graphed prefill's logits at "
+                             f"{(batch, width)} differ from the eager one's")
+    samples = {name: [] for name in fns}
+    round_medians = {name: [] for name in fns}
+    for r in range(rounds):
+        for name in (fns if r % 2 == 0 else reversed(fns)):
+            got = []
+            call = timed(fns[name], got, cuda)
+            for _ in range(calls):
+                call()
+            samples[name] += got
+            round_medians[name].append(float(np.median(got, axis=0)[0]) * 1e3)
+    out = {"batch": batch, "width": width, "rounds": rounds, "calls": calls,
+           "logits_equal": True}
+    for name, fn in fns.items():
+        wall = summary([w * 1e3 for w, _ in samples[name]])
+        meds = round_medians[name]
+        rec = {"wall_ms": wall,
+               "enqueue_ms": summary([e * 1e3 for _, e in samples[name]]),
+               "round_medians_ms": meds,
+               "round_max_over_min": max(meds) / min(meds)}
+        if cuda:
+            device_ms = []
+            traced(fn, device_ms)()
+            rec["traced_device_ms"] = device_ms[0]
+            rec["host_share"] = 1 - device_ms[0] / wall["median"]
+        out[name] = rec
+        log(f"{cfg.name} prefill ({batch}, {width}) {name}: wall n "
+            f"{wall['n']} median {wall['median']:.3f} ms, IQR/median "
+            f"{wall['iqr_over_median']:.4f}; round medians max/min "
+            f"{rec['round_max_over_min']:.4f}; enqueue median "
+            f"{rec['enqueue_ms']['median']:.3f} ms"
+            + (f"; traced device {rec['traced_device_ms']:.3f} ms, host "
+               f"share {100 * rec['host_share']:.1f}%" if cuda else ""))
+    return out
 
 
 def profile_serving(cfg, params, dev, B, S, top=6):
@@ -2746,6 +3203,8 @@ def families_train(dev):
 def other_families(dev, detail, sync, account):
     """Phases 13-16, each timed by ``account``.  Returns the main path's
     flash launches and its flash timings for the ``kernels`` line."""
+    import gc
+
     import torch
     from repro_torch.configs import get_config
     with account.phase("13", "the families at cut depth, card against CPU"):
@@ -2760,6 +3219,11 @@ def other_families(dev, detail, sync, account):
         detail["granite_graph_fault"] = graph_against_plain(
             granite, server, prompts, SERVE_MAX_NEW, sync,
             fault_at=GRAPH_FAULT_STEP)
+        detail["granite_prefill_spread"] = prefill_spread(
+            granite, server, PATH_B, PATH_S, PREFILL_SPREAD_ROUNDS,
+            PREFILL_SPREAD_CALLS, sync)
+        detail["granite_prefill_widths"] = prefill_widths_memory(
+            granite, server, PATH_B, PREFILL_MORE_WIDTHS, sync)
         detail["granite_profile"] = profile_serving(granite, server.params,
                                                     dev, PATH_B, PATH_S)
         detail["granite_flash"] = flash_timings(dev, granite)
@@ -2772,12 +3236,18 @@ def other_families(dev, detail, sync, account):
             server, rec, _ = serve_counted(cfg, dev, n, lens, max_new,
                                            SERVE_MAX_BATCH, per_prefill, sync)
             detail[f"serve_{arch}"] = rec
-            detail[f"profile_{arch}"] = profile_serving(cfg, server.params, dev,
+            # the eager profile without the server's graph pools (falcon-
+            # mamba's prefill pool alone takes ~36 GiB)
+            params = server.params
+            del server
+            gc.collect()
+            torch.cuda.empty_cache()
+            detail[f"profile_{arch}"] = profile_serving(cfg, params, dev,
                                                         PATH_B, lens[1])
             if per_prefill:
                 detail[f"flash_{arch}"] = flash_timings(dev, cfg, PATH_B,
                                                         lens[1])
-            del server
+            del params
             torch.cuda.empty_cache()
         for arch, batch, prompt, steps, frames, layers, per_prefill in \
                 FAMILY_STEPS:
@@ -3302,6 +3772,9 @@ SPREAD_TIMEOUT_S = 300
 #: the eager granite decode step's traced device ms, least and most of
 #: earlier spread runs on an H100 80GB HBM3 at 700 W (PERF.md, section 7)
 EAGER_DECODE_DEVICE_MS = (19.17, 19.27)
+#: the eager granite prefill's (4 x 2,048) traced device ms, least and most
+#: of the spread runs before its graph (PERF.md, section 7)
+EAGER_PREFILL_DEVICE_MS = (140.0, 140.9)
 
 
 def spread_on_card():
@@ -3343,6 +3816,13 @@ def spread_on_card():
         f"{rec['decode_device_vs_eager']:.3f}); host {dec['host_ms']:.4g} ms, "
         f"{100 * dec['host_share']:.1f}% of the wall median "
         f"{dec['wall_ms_median']:.4g} ms")
+    pre = rec["traced"]["ttft"]
+    lo, hi = EAGER_PREFILL_DEVICE_MS
+    log(f"spread: the traced round's granite prefill, replayed from its "
+        f"graph, sums {pre['device_ms']['median']:.4g} ms of device time "
+        f"against the eager prefill's {lo}-{hi} ms; host "
+        f"{pre['host_ms']:.4g} ms, {100 * pre['host_share']:.1f}% of the wall "
+        f"median {pre['wall_ms_median']:.4g} ms")
     return rec
 
 
@@ -3735,6 +4215,11 @@ def run_phases(dryruns, gloo, host_job, baselines, account) -> int:
         server, detail["serve"], _ = serve_counted(
             gemma, dev, SERVE_REQUESTS, SERVE_LENS, SERVE_MAX_NEW, SERVE_MAX_BATCH,
             gemma.n_layers, torch.cuda.synchronize)
+        detail["serve"]["prefill_spread"] = prefill_spread(
+            gemma, server, PATH_B, PATH_S, PREFILL_SPREAD_ROUNDS,
+            PREFILL_SPREAD_CALLS, torch.cuda.synchronize)
+        detail["serve"]["prefill_widths"] = prefill_widths_memory(
+            gemma, server, PATH_B, PREFILL_MORE_WIDTHS, torch.cuda.synchronize)
 
     with account.phase("9", "flash timings and the LM profile"):
         detail["flash_attention"] = flash_timings(dev, gemma)

@@ -42,7 +42,7 @@ import torch
 from repro_torch.core.graph import Graph, OpKind
 
 from .. import quant
-from ...kernels import conv2d, ops
+from ...kernels import conv2d, counts, ops
 from ...kernels.conv2d import imc_conv2d
 from ...kernels.imc_mvm import imc_mvm
 from ...tree import tree_leaves
@@ -163,26 +163,21 @@ def execute(g: Graph, params: Dict, x: torch.Tensor, mode: str = "float",
 # the request as one captured program
 # ---------------------------------------------------------------------------
 
-_COUNTED = (imc_conv2d, imc_mvm)
+_COUNTED = ((imc_conv2d, "launches_by_instance"),
+            (imc_mvm, "launches_by_instance"))
 
 
 def _launch_counts() -> tuple:
     """The INT8 wrappers' counts: (launches, launches by instance) of
     ``imc_conv2d`` and of ``imc_mvm``."""
-    return tuple((fn.launches, dict(fn.launches_by_instance))
-                 for fn in _COUNTED)
+    return counts.snapshot(_COUNTED)
 
 
-def _count_delta(after: tuple, before: tuple) -> tuple:
-    return tuple((a - b, {k: n - bi.get(k, 0) for k, n in ai.items()})
-                 for (a, ai), (b, bi) in zip(after, before))
+_count_delta = counts.delta
 
 
 def _add_counts(delta: tuple, sign: int) -> None:
-    for fn, (n, by) in zip(_COUNTED, delta):
-        fn.launches += sign * n
-        for k, v in by.items():
-            fn.launches_by_instance[k] += sign * v
+    counts.add(_COUNTED, delta, sign)
 
 
 def _card_of(params) -> torch.device:

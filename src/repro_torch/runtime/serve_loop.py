@@ -11,11 +11,12 @@ for the live slots with everything generated so far (caches are
 reconstructible state, never durable).  The server runs on the device of
 the parameters it is given.
 
-The reference compiles its decode step with ``jax.jit``.  The port's
-counterpart on the card is ``GraphedDecode``: the step captured into a
-CUDA graph once per input shapes and replayed.  On the CPU, and with
-parameters that are DTensors (under a mesh), the server runs the plain
-step.
+The reference compiles both of its steps with ``jax.jit``.  The port's
+counterparts on the card are ``GraphedPrefill`` and ``GraphedDecode``:
+each step captured into a CUDA graph once per input shapes (the prefill
+once per batch and prompt width, the decode step once per batch and
+``s_max``) and replayed.  On the CPU, and with parameters that are
+DTensors (under a mesh), the server runs both plain steps.
 """
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import LMConfig
+from ..kernels import counts
+from ..kernels.flash_attention import flash_attention
 from ..models.lm import model, sharding
 from ..models.lm.transformer import ServeCache
 from ..tree import tree_leaves, tree_map
@@ -132,6 +135,129 @@ class GraphedDecode:
         return g.logits, g.cache
 
 
+#: the wrappers a prefill counts: (wrapper, name of its by-instance dict)
+_COUNTED = ((flash_attention, "instance_launches"),)
+
+
+def _shapes(tree) -> tuple:
+    return tuple((tuple(t.shape), t.dtype) for t in tree_leaves(tree))
+
+
+def _copy_into(dst, src) -> None:
+    for d, s in zip(tree_leaves(dst), tree_leaves(src), strict=True):
+        d.copy_(s)
+
+
+class _Prefill(NamedTuple):
+    graph: "torch.cuda.CUDAGraph"
+    batch: Dict[str, torch.Tensor]   # the static inputs the graph reads
+    out: tuple                       # the static (logits, cache) it writes
+    launches: tuple                  # the flash launches a replay runs
+
+
+class GraphedPrefill:
+    """``model.make_prefill_step(cfg, s_max)`` as one captured program a
+    prompt shape: the port's counterpart of the reference's ``jax.jit`` of
+    the step, with its signature ``(params, batch) -> (logits, cache)``.
+
+    One CUDA graph for each key of jit's cache, the names, shapes and
+    dtypes of the batch's tensors (in ``Server``, the batch and the prompt
+    width; ``s_max`` is the server's), captured from the plain step after
+    a warm-up on a side stream, over static copies of the batch.  Each
+    graph ends by copying the step's logits and cache into static outputs
+    that every width shares: their shapes are the batch's and ``s_max``'s,
+    not the width's, so there is one set a batch size.  Everything else a
+    capture allocates, the step's own outputs included, lies in one memory
+    pool shared by every capture, which holds the largest width's scratch
+    once.  So a new width adds its graph and its static inputs, and no
+    device memory beside them: the cache grows as jit's cache of
+    executables grows.
+
+    A call of a width already captured copies the batch into its static
+    inputs and replays; the call that captures a width returns what the
+    warm-up computed from the same batch, so a new width costs one plain
+    step and the recording, and the call's time includes both.  Either
+    way the call returns the static outputs: **a call's logits and cache
+    are valid until the next call of any width**.  Clone what must
+    outlive it.  (``Server`` needs nothing longer: its decode graph
+    copies a new prefill's cache into its own buffers before the next
+    prefill runs.)  The shared pool is safe because nothing a replay
+    leaves in it is read afterwards: the inputs and outputs lie outside
+    it, and replays run one at a time on the caller's stream.
+
+    The graph holds the parameters it was captured with, and a call with
+    others is refused.  A replay failure raises ``GraphError``.  The flash
+    wrapper's counts say how many launches ran: a capture takes back the
+    launches it records and every replay adds them (``kernels.counts``).
+    ``capture_seconds`` holds each capture's host seconds, warm-up
+    included."""
+
+    def __init__(self, cfg: LMConfig, params, s_max: int) -> None:
+        self.step = model.make_prefill_step(cfg, s_max=s_max)
+        self.params = params
+        self.graphs: Dict[tuple, _Prefill] = {}
+        self.outputs: Dict[tuple, tuple] = {}    # by the outputs' shapes
+        self.pool = None        # the shared pool and the side stream, made
+        self.stream = None      # at the first capture (they need the card)
+        self.capture_seconds: List[float] = []
+
+    @staticmethod
+    def key(batch: Dict[str, torch.Tensor]) -> tuple:
+        return tuple((name, tuple(t.shape), t.dtype)
+                     for name, t in sorted(batch.items()))
+
+    def capture(self, params, batch: Dict[str, torch.Tensor]) -> _Prefill:
+        """The graph of ``key(batch)``, captured if it is new; a new
+        graph's static outputs then hold the step's result for ``batch``."""
+        if params is not self.params:
+            raise ValueError("GraphedPrefill: called with parameters other "
+                             "than those it captures with")
+        key = self.key(batch)
+        if key in self.graphs:
+            return self.graphs[key]
+        t0 = time.perf_counter()
+        dev = batch["tokens"].device
+        main = torch.cuda.current_stream(dev)
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+            self.stream = torch.cuda.Stream(device=dev)
+        static = {name: t.clone() for name, t in batch.items()}
+        self.stream.wait_stream(main)
+        with torch.cuda.stream(self.stream):
+            warm = self.step(params, static)     # warm-up: it runs
+        out = self.outputs.get(_shapes(warm))
+        if out is None:
+            out = self.outputs[_shapes(warm)] = tree_map(torch.empty_like,
+                                                         warm)
+        self.stream.wait_stream(main)
+        with torch.cuda.stream(self.stream):
+            _copy_into(out, warm)
+        del warm
+        graph = torch.cuda.CUDAGraph()
+        before = counts.snapshot(_COUNTED)
+        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+            _copy_into(out, self.step(params, static))
+        launches = counts.delta(counts.snapshot(_COUNTED), before)
+        counts.add(_COUNTED, launches, -1)
+        main.wait_stream(self.stream)
+        self.graphs[key] = _Prefill(graph, static, out, launches)
+        self.capture_seconds.append(time.perf_counter() - t0)
+        return self.graphs[key]
+
+    def __call__(self, params, batch: Dict[str, torch.Tensor]):
+        new = self.key(batch) not in self.graphs
+        g = self.capture(params, batch)
+        if not new:
+            for name, t in batch.items():
+                g.batch[name].copy_(t)
+            try:
+                g.graph.replay()
+            except RuntimeError as e:
+                raise GraphError(f"prefill replay failed: {e}") from e
+            counts.add(_COUNTED, g.launches, 1)
+        return g.out
+
+
 class Server:
     def __init__(self, cfg: LMConfig, params, max_batch: int = 4,
                  s_max: int = 128, fault_hook=None) -> None:
@@ -140,13 +266,16 @@ class Server:
         self.device = params["embed"].device
         self.max_batch = max_batch
         self.s_max = s_max
-        self.prefill = model.make_prefill_step(cfg, s_max=s_max)
-        # the reference's jax.jit of the step: a CUDA graph on the card;
-        # DTensor parameters (a mesh) and the CPU take the plain step
+        # the reference's jax.jit of each step: CUDA graphs on the card;
+        # DTensor parameters (a mesh) and the CPU take the plain steps
+        self.prefill_graph: Optional[GraphedPrefill] = None
         self.graph: Optional[GraphedDecode] = None
+        self.prefill = model.make_prefill_step(cfg, s_max=s_max)
         self.decode = model.make_decode_step(cfg)
         if self.device.type == "cuda" and not sharding._is_dtensor(
                 params["embed"]):
+            self.prefill_graph = self.prefill = GraphedPrefill(cfg, params,
+                                                               s_max)
             self.graph = self.decode = GraphedDecode(cfg, params)
         self.fault_hook = fault_hook
 
@@ -155,6 +284,13 @@ class Server:
         width = max(int(p.shape[0]) for p in prompts)
         rows = [F.pad(p, (width - int(p.shape[0]), 0)) for p in prompts]
         return torch.stack(rows).to(self.device)
+
+    def _prefill(self, reqs: List[Request], stats: ServeStats):
+        # outside any try: a new width's capture, or a capture or replay
+        # error, ends up in the caller's hands, the retry's re-prefill too
+        out = self.prefill(self.params, {"tokens": self._pad_prompts(reqs)})
+        stats.prefills += 1
+        return out
 
     def serve(self, requests: List[Request]) -> ServeStats:
         t0 = time.perf_counter()
@@ -169,9 +305,7 @@ class Server:
         return stats
 
     def _run_batch(self, live: List[Request], stats: ServeStats) -> None:
-        tokens = self._pad_prompts(live)
-        logits, cache = self.prefill(self.params, {"tokens": tokens})
-        stats.prefills += 1
+        logits, cache = self._prefill(live, stats)
         cur = torch.argmax(logits[:, -1:], dim=-1)
         max_new = max(r.max_new for r in live)
         for step in range(max_new):
@@ -203,9 +337,8 @@ class Server:
                     gen = torch.tensor(r.out_tokens, dtype=torch.long,
                                        device=prompt.device)
                     ext.append(torch.cat([prompt, gen]))
-                tokens = self._pad_prompts(
-                    [Request(r.rid, e, r.max_new) for r, e in zip(live, ext)])
-                logits, cache = self.prefill(self.params, {"tokens": tokens})
-                stats.prefills += 1
+                logits, cache = self._prefill(
+                    [Request(r.rid, e, r.max_new) for r, e in zip(live, ext)],
+                    stats)
             stats.decode_steps += 1
             cur = torch.argmax(logits[:, -1:], dim=-1)

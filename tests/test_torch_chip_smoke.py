@@ -750,6 +750,221 @@ def test_graph_against_plain_fails_when_it_should(fault, monkeypatch):
                                        lambda: None)
 
 
+class _StandInPrefillGraph:
+    """A stand-in for ``GraphedPrefill`` on the CPU: it runs the plain
+    step and keeps an entry a prompt shape (or, with ``recapture``, one at
+    every capture, as a key that missed its cache would), each capture
+    taking 0.5 s, with one set of static outputs a shape of outputs (or,
+    with ``per_width``, one a prompt width, as a graph that kept each
+    width's outputs would)."""
+
+    def __init__(self, step, recapture=False, per_width=False):
+        from repro_torch.runtime import serve_loop
+        self.step, self.recapture, self.per_width = step, recapture, per_width
+        self.graphs, self.outputs, self.capture_seconds = {}, {}, []
+        self.key, self.pool = serve_loop.GraphedPrefill.key, (0, 7)
+
+    def capture(self, params, batch):
+        from repro_torch.runtime import serve_loop
+        key = len(self.graphs) if self.recapture else self.key(batch)
+        if key not in self.graphs:
+            out = self.step(params, batch)
+            shapes = (key if self.per_width else ()) + serve_loop._shapes(out)
+            out = self.outputs.setdefault(shapes, out)
+            self.graphs[key] = serve_loop._Prefill(
+                None, {k: t.clone() for k, t in batch.items()}, out,
+                ((0, {}),))
+            self.capture_seconds.append(0.5)
+        return self.graphs[key]
+
+    def __call__(self, params, batch):
+        self.capture(params, batch)
+        return self.step(params, batch)
+
+
+@pytest.fixture
+def cpu_memory(monkeypatch):
+    """``torch.cuda``'s memory figures stood in for on the CPU: the bytes
+    allocated are ``alloc[0]()``, the driver's bytes in use 3 MiB more,
+    and the one pool's segments 2 MiB."""
+    alloc = [lambda: 0]
+    monkeypatch.setattr(torch.cuda, "memory_allocated",
+                        lambda device=None: alloc[0]())
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda device=None: (1 << 30, (1 << 30) + alloc[0]()
+                                             + (3 << 20)))
+    monkeypatch.setattr(torch.cuda, "memory_snapshot", lambda: [
+        {"segment_pool_id": (0, 7), "total_size": 2 << 20},
+        {"segment_pool_id": (0, 0), "total_size": 1 << 20}])
+    return alloc
+
+
+def _prompts():
+    return [torch.arange(1, 9), torch.arange(3, 8)]
+
+
+def _prefill_check(cfg, server, max_new, captures=()):
+    """The plain side first, then the graphed side held against it, as
+    ``serve_counted`` runs them (2 flash launches a prefill: smoke depth)."""
+    plain = chip_smoke.plain_prefills(cfg, server, _prompts(), max_new,
+                                      lambda: None)
+    return chip_smoke.prefill_graph_against_plain(
+        cfg, server, _prompts(), max_new, lambda: None, 2, plain, captures)
+
+
+def test_prefill_graph_against_plain_rehearsed_on_cpu():
+    """Phases 8, 14 and 15's graphed-against-plain prefill comparison at
+    smoke width on the CPU, where ``Server`` has no prefill graph and both
+    sides run the plain step: equal tokens and outputs, 0 retries, nothing
+    captured or traced, the server's prefill and graph restored."""
+    cfg, server = _smoke_server()
+    prefill = server.prefill
+    rec = _prefill_check(cfg, server, 5)
+    assert rec["tokens_equal"] and rec["outputs_equal"] and not rec["unequal"]
+    assert rec["prefills"] == [1, 1] and rec["retries"] == [0, 0]
+    assert rec["flash_launches"] == [0, 0] and rec["graphs"] == 0
+    assert rec["plain_reproducible"] and rec["plain_run_to_run"] == []
+    assert rec["captures"] == rec["capture_s"] == []
+    assert "trace_graphed" not in rec and "trace_eager" not in rec
+    assert server.prefill is prefill and server.prefill_graph is None
+
+
+def test_prefill_graph_against_plain_records_each_capture(cpu_memory):
+    """With a prefill graph (a stand-in on the CPU) that captured the batch's
+    width before, through ``probe_prefill_captures``: no new capture, and
+    each capture's record: its shape and seconds, allocated before and
+    after, held against its static inputs' and outputs' bytes (the tokens;
+    the logits and every cache leaf), whether its outputs were new, and
+    the driver's bytes in use."""
+    from repro_torch.runtime.serve_loop import Request
+    from repro_torch.tree import tree_leaves
+    cfg, server = _smoke_server()
+    g = _StandInPrefillGraph(server.prefill)
+    server.prefill_graph = server.prefill = g
+    captures = chip_smoke.probe_prefill_captures(server)
+    cpu_memory[0] = lambda: sum(
+        t.nbytes for c in g.graphs.values()
+        for t in [*c.batch.values(), *tree_leaves(c.out)])
+    g.capture(server.params, {"tokens": server._pad_prompts(
+        [Request(0, p) for p in _prompts()])})
+    rec = _prefill_check(cfg, server, 5, captures)
+    c, = g.graphs.values()
+    static = sum(t.nbytes for t in tree_leaves(c.out))
+    assert rec["graphs"] == 1 and rec["capture_s"] == [0.5]
+    assert rec["captures"] == [{
+        "shape": [2, 8], "seconds": 0.5, "allocated_before": 0,
+        "allocated_after": static + 128, "held": static + 128,
+        "driver_used_delta": static + 128, "static_input_bytes": 128,
+        "static_output_bytes": static, "new_outputs": True}]
+    assert rec["tokens_equal"] and rec["outputs_equal"]
+    assert "pool_reserved" not in rec          # the CPU: no pool is read
+    assert server.prefill is g and server.prefill_graph is g
+
+
+@pytest.mark.parametrize("fault", ["tokens", "outputs", "captures"])
+def test_prefill_graph_against_plain_fails_when_it_should(fault, monkeypatch):
+    """Greedy tokens that differ fail the comparison; so do outputs that
+    differ where the plain prefill is bit-reproducible (here by a uniform
+    shift of the logits, which leaves every token as it was), and a prompt
+    width captured again."""
+    from repro_torch.models.lm import model
+    cfg, server = _smoke_server()
+    plain = model.make_prefill_step(cfg, s_max=server.s_max)
+    if fault == "captures":
+        g = _StandInPrefillGraph(plain, recapture=True)
+        server.prefill_graph = server.prefill = g
+        match = "captured again"
+    else:
+        sign, shift, match = ((-1.0, 0.0, "tokens differ") if fault == "tokens"
+                              else (1.0, 1.0, "outputs differ"))
+
+        def changed(params, batch):
+            logits, cache = plain(params, batch)
+            return sign * logits + shift, cache
+        monkeypatch.setattr(model, "make_prefill_step",
+                            lambda cfg, s_max: changed)
+    with pytest.raises(AssertionError, match=match):
+        _prefill_check(cfg, server, 4)
+
+
+@pytest.mark.parametrize("step,passes", [(1e-4, True), (0.1, False)])
+def test_prefill_outputs_within_tolerance_only_where_plain_varies(
+        step, passes, monkeypatch):
+    """A plain prefill whose logits move by ``step`` of their max |x| from
+    one call to the next (a uniform shift: the tokens stay) is not
+    bit-reproducible: the graphed outputs may then differ from it within
+    ``GRAPH_LOGIT_TOL`` of that max, and no further."""
+    from repro_torch.models.lm import model
+    cfg, server = _smoke_server()
+    plain, calls = model.make_prefill_step(cfg, s_max=server.s_max), []
+
+    def varying(params, batch):
+        logits, cache = plain(params, batch)
+        calls.append(1)
+        return logits + len(calls) * step * logits.abs().max(), cache
+    monkeypatch.setattr(model, "make_prefill_step",
+                        lambda cfg, s_max: varying)
+    if passes:
+        rec = _prefill_check(cfg, server, 4)
+        assert not rec["plain_reproducible"] and rec["unequal"]
+        assert rec["plain_run_to_run"][0][0] == "logits"
+        assert all(r <= chip_smoke.GRAPH_LOGIT_TOL for *_, r in rec["unequal"])
+    else:
+        with pytest.raises(AssertionError, match="outputs differ"):
+            _prefill_check(cfg, server, 4)
+
+
+def test_prefill_spread_refuses_a_card_server_without_its_graph():
+    """On the card a server without a prefill graph would time the plain
+    step against itself: ``prefill_spread`` refuses it before it runs."""
+    cfg, server = _smoke_server()
+    server.device = torch.device("cuda", 0)
+    with pytest.raises(AssertionError, match="no prefill graph"):
+        chip_smoke.prefill_spread(cfg, server, 2, 12, 2, 2, lambda: None)
+
+
+@pytest.mark.parametrize("per_width", [False, True])
+def test_prefill_widths_memory_gate(per_width, cpu_memory):
+    """Phases 8 and 14's further prompt widths, rehearsed with a stand-in
+    graph on the CPU: widths that share one set of static outputs hold
+    their static tokens alone and pass; a graph that kept each width's
+    outputs makes new ones and holds them, and fails."""
+    from repro_torch.tree import tree_leaves
+    cfg, server = _smoke_server()
+    g = _StandInPrefillGraph(server.prefill, per_width=per_width)
+    server.prefill_graph = server.prefill = g
+    g.capture(server.params, {"tokens": torch.zeros((2, 4), dtype=torch.long)})
+    cpu_memory[0] = lambda: sum(
+        t.nbytes for c in g.graphs.values() for t in c.batch.values()) + sum(
+        t.nbytes for out in g.outputs.values() for t in tree_leaves(out))
+    widths = (5, 9, 13)
+    if per_width:
+        with pytest.raises(AssertionError, match="3 more prompt widths"):
+            chip_smoke.prefill_widths_memory(cfg, server, 2, widths,
+                                             lambda: None)
+        return
+    rec = chip_smoke.prefill_widths_memory(cfg, server, 2, widths,
+                                           lambda: None)
+    assert rec["captured"] == 3 and rec["new_outputs"] == 0
+    assert rec["held"] == sum(2 * w * 8 for w in widths)
+    assert rec["static_input_bytes"] == 3 * 512
+    assert rec["pool_reserved"] == [2 << 20, 2 << 20]
+    assert rec["capture_s"] == [0.5] * 3
+
+
+def test_prefill_spread_rehearsed_on_cpu():
+    """Phases 8 and 14's eager-against-graphed prefill rounds at smoke
+    width on the CPU (both sides plain; no traced call): n, round medians
+    and enqueue for each path."""
+    cfg, server = _smoke_server()
+    out = chip_smoke.prefill_spread(cfg, server, 2, 12, 2, 2, lambda: None)
+    assert out["logits_equal"] and (out["batch"], out["width"]) == (2, 12)
+    for name in ("eager", "graphed"):
+        assert out[name]["wall_ms"]["n"] == 4
+        assert len(out[name]["round_medians_ms"]) == 2
+        assert "enqueue_ms" in out[name] and "host_share" not in out[name]
+
+
 def test_dryrun_ratios_against_the_fixture():
     """Phase 18's ratios: a port cell equal to the reference's own figures
     reads 1 on every ratio, the held peak is the reference's less its f32
