@@ -2148,6 +2148,13 @@ def nan_graph(nan_call):
     return NaNAt
 
 
+def t3_schedule():
+    """T3's schedule, the example's: lr 3e-4, 30 warmup steps, cosine to
+    ``T3_STEPS``."""
+    from repro_torch.optim import adamw
+    return adamw.AdamWConfig(lr=3e-4, warmup_steps=30, total_steps=T3_STEPS)
+
+
 def t3_loop(total, ckpt_every, opt, root, sub):
     """T3's loop config: ``total`` steps, checkpoints every ``ckpt_every``
     into ``root/sub``, no logging."""
@@ -3270,6 +3277,14 @@ def other_families(dev, detail, sync, account):
 # ---------------------------------------------------------------------------
 
 SHARD_BATCH, SHARD_PROMPT, SHARD_STEPS = 4, 2048, 32
+#: phase 17's graphed servers serve a third batch at this new prompt width
+#: (the prompts' last tokens), and time this many calls of each graph
+SHARD_NEW_WIDTH, SHARD_TIMED_CALLS = 1536, 8
+#: phase 17's sharded T3 run: its steps, a checkpoint every
+#: ``SHARD_T3_CKPT_EVERY`` (the resumed run starts from the first); its
+#: losses within ``LOOP_RTOL`` of phase 12's at the same steps
+#: (``tests/test_torch_train_loop.py``'s limit)
+SHARD_T3_STEPS, SHARD_T3_CKPT_EVERY, LOOP_RTOL = 20, 10, 1e-3
 #: phase 18's dry-run processes: (arch, shape or None for every shape);
 #: gemma2-27b's batch-1 FSDP cell and falcon-mamba-7b's prefill show the
 #: weights kept split (falcon-mamba's train_4k takes longer than the
@@ -3366,7 +3381,7 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def sharded_serving(dev, sync):
+def sharded_serving(dev, sync, t3):
     """Phase 17: granite-moe-3b-a800m at full width and depth (phase 14's
     weights, seed 0, and its first 4 prompts, left-padded to 2,048) through
     ``make_prefill_step``/``make_decode_step``, first unsharded, then on a
@@ -3375,7 +3390,10 @@ def sharded_serving(dev, sync):
     ``activation_mesh``.  One warm-up prefill, then with the counts set to
     0 the prefill (32 tensor-core flash launches, through ``local_map``)
     and 32 greedy decode steps, each fed the sharded run's own token; the
-    tokens must equal the unsharded run's."""
+    tokens must equal the unsharded run's.  Then, on the same mesh, the
+    graphed ``Server`` on the whole and on the DTensor parameters
+    (``graphed_servers``) and T3 through ``train(..., mesh=)`` held to
+    phase 12's run ``t3`` (``sharded_t3``)."""
     import torch
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
@@ -3440,6 +3458,12 @@ def sharded_serving(dev, sync):
             full = logits.full_tensor()
             d_max = max(d_max, (full - want_logits[-1]).abs().max().item())
             peak = torch.cuda.max_memory_allocated(dev)
+        del logits, cache, dbatch
+        torch.cuda.empty_cache()
+        graphed = graphed_servers(cfg, params, dparams, mesh, toks, sync)
+        del dparams
+        torch.cuda.empty_cache()
+        t3_mesh = sharded_t3(dev, mesh, t3, sync)
     finally:
         dist.destroy_process_group()
     check_flash_counts(counts, cfg.n_layers, 1, f"sharded {cfg.name}", cfg.hd)
@@ -3456,7 +3480,8 @@ def sharded_serving(dev, sync):
            "max_abs_logit": max(x.abs().max().item() for x in want_logits),
            "tokens_equal": same, "prefill_ms": prefill_s * 1e3,
            "decode_step_ms_mean": sum(secs) / len(secs) * 1e3,
-           "decode_step_ms_max": max(secs) * 1e3, "peak_bytes": peak}
+           "decode_step_ms_max": max(secs) * 1e3, "peak_bytes": peak,
+           "graphed": graphed, "t3": t3_mesh}
     log(f"sharded {cfg.name} ({cfg.n_layers} layers) on a one-rank NCCL mesh "
         f"{rec['mesh']}: prefill of ({SHARD_BATCH}, {SHARD_PROMPT}) "
         f"{rec['prefill_ms']:.1f} ms, flash launches {counts['flash']} (by "
@@ -3470,6 +3495,241 @@ def sharded_serving(dev, sync):
         raise AssertionError(f"sharded {cfg.name}: greedy tokens differ from "
                              f"the unsharded steps'")
     return rec
+
+
+def graph_timing(fn, n, sync):
+    """``n`` calls of ``fn`` timed by ``benchmarks_torch.spread``'s
+    ``timed`` (wall ending in a synchronise) and one traced by its
+    ``traced`` (the device time of its kernels and copies): the median
+    wall, the traced device ms and the host share, 1 - traced / median
+    wall, as phase 22 reads them; and the launches and flash launches of
+    one more call by ``torch.profiler`` (``prefill_trace``)."""
+    from benchmarks_torch.spread import summary, timed, traced
+    walls, device_ms = [], []
+    call = timed(fn, walls, True)
+    for _ in range(n):
+        call()
+    traced(fn, device_ms)()
+    sync()
+    wall = summary([w * 1e3 for w, _ in walls])["median"]
+    trace = prefill_trace(fn)
+    return {"wall_ms_median": wall, "traced_device_ms": device_ms[0],
+            "host_share": 1 - device_ms[0] / wall,
+            "launches": trace["launches"], "flash_by_trace": trace["flash"]}
+
+
+def locals_of(tree) -> list:
+    """Each leaf of ``tree`` as the tensor this rank holds (a DTensor's
+    local shard)."""
+    from repro_torch.models.lm import sharding
+    from repro_torch.tree import tree_leaves
+    return [sharding.local_tensor(t) for t in tree_leaves(tree)]
+
+
+def graphed_server_run(cfg, params, toks, label, sync):
+    """Phase 17: ``Server`` on ``params`` (whole, or DTensors on the
+    one-rank mesh; both must take the graphed steps) with phase 17's
+    prompts: a batch at their width (a capture), the same batch again (a
+    replay) and a batch of their last ``SHARD_NEW_WIDTH`` tokens (a
+    capture), ``SHARD_STEPS`` new tokens each, the counts set to 0 before
+    each batch (32 flash launches a prefill, the repeated width's from its
+    replay); then the repeated width's prefill graph and the decode graph
+    timed and traced (``graph_timing``).  Returns the server, its tokens a
+    batch and the record."""
+    import statistics
+    import torch
+    from repro_torch.runtime.serve_loop import Request, Server
+    server = Server(cfg, params, max_batch=SHARD_BATCH,
+                    s_max=SHARD_PROMPT + SHARD_STEPS)
+    if server.prefill_graph is None or server.graph is None:
+        raise AssertionError(f"{label}: Server on the card has no graphs")
+    rec = timed_steps(server, sync)
+    tokens = []
+    for b in (toks, toks, toks[:, -SHARD_NEW_WIDTH:]):
+        reqs = [Request(i, row, max_new=SHARD_STEPS)
+                for i, row in enumerate(b.cpu())]
+        zero_counts()
+        server.serve(reqs)
+        sync()
+        check_flash_counts(read_counts(), cfg.n_layers, 1, label, cfg.hd)
+        tokens.append([r.out_tokens for r in reqs])
+    ttft = [1e3 * s for s, _ in rec["prefill"]]
+    batch = {"tokens": server._pad_prompts(
+        [Request(i, row) for i, row in enumerate(toks.cpu())])}
+    prefill = server.prefill_graph
+    out = {"prefill_graphs": prefill_graphs(server),
+           "decode_graphs": len(server.graph.graphs),
+           "flash_a_prefill": cfg.n_layers,
+           "ttft_ms": {"new_width": ttft[0], "repeated_width": ttft[1],
+                       "second_new_width": ttft[2]},
+           "decode_step_ms_median": 1e3 * statistics.median(
+               s for s, _ in rec["decode"]),
+           "capture_s": {"prefill": list(prefill.capture_seconds),
+                         "decode": list(server.graph.capture_seconds)},
+           "prefill": graph_timing(lambda: prefill(server.params, batch),
+                                   SHARD_TIMED_CALLS, sync)}
+    logits, cache = prefill(server.params, batch)
+    state = {"tok": torch.argmax(logits[:, -1:], dim=-1), "cache": cache}
+
+    def step():
+        logits, state["cache"] = server.graph(server.params, state["tok"],
+                                              state["cache"])
+        return logits
+    out["decode"] = graph_timing(step, SHARD_TIMED_CALLS, sync)
+    if out["prefill"]["flash_by_trace"] != cfg.n_layers:
+        raise AssertionError(f"{label}: a prefill replay's trace shows "
+                             f"{out['prefill']['flash_by_trace']} flash "
+                             f"launches, want {cfg.n_layers}")
+    if out["prefill_graphs"] != 2 or out["decode_graphs"] != 1:
+        raise AssertionError(f"{label}: {out['prefill_graphs']} prefill and "
+                             f"{out['decode_graphs']} decode graphs, want 2 "
+                             f"and 1")
+    p, d = out["prefill"], out["decode"]
+    log(f"{label}: prefill graphs {out['prefill_graphs']}, decode graphs "
+        f"{out['decode_graphs']}, {cfg.n_layers} flash launches a prefill "
+        f"(the repeated width's from its replay); TTFT new width "
+        f"{ttft[0]:.1f} ms (its capture included), repeated {ttft[1]:.1f} "
+        f"ms, new width {SHARD_NEW_WIDTH} {ttft[2]:.1f} ms; decode step "
+        f"median {out['decode_step_ms_median']:.3f} ms; {SHARD_TIMED_CALLS} "
+        f"prefill replays median {p['wall_ms_median']:.3f} ms, traced "
+        f"{p['traced_device_ms']:.3f} ms, host share "
+        f"{100 * p['host_share']:.1f}%, {p['launches']} launches "
+        f"({p['flash_by_trace']} flash by the trace); decode "
+        f"replays median {d['wall_ms_median']:.3f} ms, traced "
+        f"{d['traced_device_ms']:.3f} ms, host share "
+        f"{100 * d['host_share']:.1f}%, {d['launches']} launches")
+    return server, tokens, out
+
+
+def graphed_against_eager(cfg, server, mesh, toks, sync):
+    """The sharded server's prefill graph (a replay) and decode graph
+    against the eager sharded steps on the same inputs, under
+    ``activation_mesh``: logits and caches ``torch.equal`` shard by shard.
+    Returns the unequal outputs of each (empty lists when equal)."""
+    import torch
+    from repro_torch.models.lm import model, sharding
+    from repro_torch.runtime.serve_loop import Request
+    batch = {"tokens": server._pad_prompts(
+        [Request(i, row) for i, row in enumerate(toks.cpu())])}
+    plain_prefill = model.make_prefill_step(cfg, server.s_max)
+    plain_decode = model.make_decode_step(cfg)
+    got = locals_of(server.prefill_graph(server.params, batch))
+    with sharding.activation_mesh(mesh):
+        logits, cache = plain_prefill(server.params, batch)
+    sync()
+    pre = unequal_outputs(got, locals_of((logits, cache)))
+    tok = torch.argmax(logits[:, -1:], dim=-1)
+    got = locals_of(server.graph(server.params, tok, cache))
+    with sharding.activation_mesh(mesh):
+        want = locals_of(plain_decode(server.params, tok, cache))
+    sync()
+    return pre, unequal_outputs(got, want)
+
+
+def graphed_servers(cfg, params, dparams, mesh, toks, sync):
+    """Phase 17's graphed servers on the one-rank NCCL mesh: the whole
+    parameters' (dropped, its pool with it, before the next captures),
+    then the DTensor parameters' (``graphed_server_run``), whose tokens
+    must equal the first's batch for batch, and whose graphed prefill and
+    decode step must be ``torch.equal`` to the eager sharded steps on the
+    same inputs (``graphed_against_eager``)."""
+    import gc
+    import torch
+    server, want, whole = graphed_server_run(
+        cfg, params, toks, f"graphed {cfg.name}, whole parameters", sync)
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    server, got, sharded = graphed_server_run(
+        cfg, dparams, toks, f"graphed {cfg.name}, DTensor parameters on the "
+        f"one-rank NCCL mesh", sync)
+    pre, dec = graphed_against_eager(cfg, server, mesh, toks, sync)
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    same = got == want
+    log(f"graphed {cfg.name} sharded against whole: tokens equal {same} "
+        f"(3 batches of {SHARD_BATCH}); sharded graphed against eager "
+        f"sharded: prefill {'torch.equal' if not pre else pre}, decode step "
+        f"{'torch.equal' if not dec else dec}; sharded / whole: prefill "
+        f"replay {sharded['prefill']['wall_ms_median']:.3f} / "
+        f"{whole['prefill']['wall_ms_median']:.3f} ms (traced "
+        f"{sharded['prefill']['traced_device_ms']:.3f} / "
+        f"{whole['prefill']['traced_device_ms']:.3f}), decode replay "
+        f"{sharded['decode']['wall_ms_median']:.3f} / "
+        f"{whole['decode']['wall_ms_median']:.3f} ms (traced "
+        f"{sharded['decode']['traced_device_ms']:.3f} / "
+        f"{whole['decode']['traced_device_ms']:.3f}), TTFT at a new width "
+        f"{sharded['ttft_ms']['new_width']:.1f} / "
+        f"{whole['ttft_ms']['new_width']:.1f} ms")
+    if not same:
+        raise AssertionError(f"graphed {cfg.name}: the sharded server's "
+                             f"tokens differ from the whole one's")
+    if pre or dec:
+        raise AssertionError(f"graphed {cfg.name}: sharded graphs differ from "
+                             f"the eager sharded steps: prefill {pre}, "
+                             f"decode {dec}")
+    return {"whole": whole, "sharded": sharded, "tokens_equal": same,
+            "graphed_equal_eager": True}
+
+
+def sharded_t3(dev, mesh, t3, sync):
+    """Phase 17: T3 (phase 12's model, shapes and schedule) through
+    ``train(..., mesh=mesh)`` on the one-rank NCCL mesh, in a temporary
+    directory: ``SHARD_T3_STEPS`` steps with a checkpoint every
+    ``SHARD_T3_CKPT_EVERY``, then a run to ``SHARD_T3_CKPT_EVERY`` and one
+    resumed from it to ``SHARD_T3_STEPS``.  Each run must capture one
+    graph and report no retry or rollback; the losses must lie within
+    ``LOOP_RTOL`` of phase 12's at the same steps, and the resumed run's
+    within it of the full run's."""
+    import statistics
+    import tempfile
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.runtime.train_loop import train
+    cfg = stablelm_100m()
+    shape = ShapeSpec("example", T3_SEQ, T3_BATCH, "train")
+    opt = t3_schedule()
+    stamps = []
+    with tempfile.TemporaryDirectory() as tmp:
+        def run(total, sub, hook=None):
+            rep = train(cfg, shape, t3_loop(total, SHARD_T3_CKPT_EVERY, opt,
+                                            Path(tmp), sub),
+                        fault_hook=hook, mesh=mesh, device=dev)
+            if len(rep.capture_seconds) != 1 or rep.retries or rep.rollbacks:
+                raise AssertionError(
+                    f"sharded T3 {sub} to {total}: {len(rep.capture_seconds)} "
+                    f"graphs, {rep.retries} retries, {rep.rollbacks} "
+                    f"rollbacks")
+            return rep
+        full = run(SHARD_T3_STEPS, "full",
+                   lambda step: stamps.append(time.perf_counter()))
+        first = run(SHARD_T3_CKPT_EVERY, "pair")
+        second = run(SHARD_T3_STEPS, "pair")
+    if second.resumed_from != SHARD_T3_CKPT_EVERY:
+        raise AssertionError(f"sharded T3: resumed from {second.resumed_from}")
+
+    def rel(got, want):
+        return max(abs(a - b) / abs(b) for a, b in zip(got, want, strict=True))
+    to_phase12 = rel(full.losses, t3["losses"][:SHARD_T3_STEPS])
+    resumed = rel(first.losses + second.losses, full.losses)
+    gaps = [b - a for a, b in zip(stamps, stamps[1:])]
+    out = {"steps": full.steps_run, "losses": full.losses,
+           "max_rel_to_phase12": to_phase12, "resume_max_rel": resumed,
+           "resumed_from": second.resumed_from,
+           "capture_s": [r.capture_seconds[0] for r in (full, first, second)],
+           "step_s_median": statistics.median(gaps),
+           "phase12_step_s_median": t3["step_s_median"]}
+    log(f"sharded T3 {cfg.name} through train(mesh=) on the one-rank NCCL "
+        f"mesh: {full.steps_run} steps, one graph a run (captures "
+        + ", ".join(f"{c:.3f}" for c in out["capture_s"]) + " s); losses "
+        f"against phase 12's max rel d {to_phase12:.3e} (limit {LOOP_RTOL}); "
+        f"resumed from {second.resumed_from}: max rel d {resumed:.3e}; "
+        f"graphed step {1e3 * out['step_s_median']:.2f} ms median (phase 12: "
+        f"{1e3 * t3['step_s_median']:.2f} ms)")
+    if to_phase12 > LOOP_RTOL or resumed > LOOP_RTOL:
+        raise AssertionError(f"sharded T3: losses {to_phase12:.3e} from phase "
+                             f"12's, {resumed:.3e} from the uncut run's")
+    return out
 
 
 def dryrun_cells(jobs, account):
@@ -4288,9 +4548,7 @@ def run_phases(dryruns, gloo, host_job, baselines, account) -> int:
         zero_counts()
         t3_cfg = stablelm_100m()
         t3_shape = ShapeSpec("example", T3_SEQ, T3_BATCH, "train")
-        # the example's schedule: lr 3e-4, 30 warmup steps, cosine to the end
-        t3_opt = adamw.AdamWConfig(lr=3e-4, warmup_steps=30,
-                                   total_steps=T3_STEPS)
+        t3_opt = t3_schedule()
         with tempfile.TemporaryDirectory() as tmp:
             t3 = train_example(t3_cfg, dev, T3_STEPS, T3_BATCH, T3_SEQ,
                                T3_CKPT_EVERY, t3_opt, Path(tmp),
@@ -4355,9 +4613,11 @@ def run_phases(dryruns, gloo, host_job, baselines, account) -> int:
                                                torch.cuda.synchronize, account)
 
     # ---- 17-19. launch and sharding ----------------------------------------
-    with account.phase("17", "sharded serving on a one-rank NCCL mesh"):
+    with account.phase("17", "sharded serving and training on a one-rank "
+                       "NCCL mesh"):
         torch.cuda.empty_cache()
-        detail["sharded_serving"] = sharded_serving(dev, torch.cuda.synchronize)
+        detail["sharded_serving"] = sharded_serving(dev, torch.cuda.synchronize,
+                                                    detail["train_t3"])
         torch.cuda.empty_cache()
     with account.phase("18", "the dry runs"):
         detail["dryrun"] = dryrun_cells(dryruns, account)

@@ -28,7 +28,12 @@ each ``None``, an axis name, or a tuple of axis names.  ``NamedSharding``
 is a mesh plus a spec; its ``placements`` are the DTensor placements
 that express it: ``Shard(d)`` on every mesh dim named for tensor dim
 ``d`` and ``Replicate()`` elsewhere.  ``distribute`` places a tree by
-its shardings (the counterpart of ``jax.jit(in_shardings=...)``).
+its shardings (the counterpart of ``jax.jit(in_shardings=...)``);
+``place_local`` places a tree that every rank holds whole with no
+collective (``place_batch``: a batch).  For the loops and the checkpoint,
+``placement_of``, ``local_tensor`` and ``whole`` give a DTensor's
+sharding, its local shard and its whole value (a plain tensor: None and
+itself).
 
 The activation hooks (``constrain``, ``constrain_tokens``, and the
 port's ``constrain_cache``; the reference's ``constrain_moe_slots`` is
@@ -385,6 +390,48 @@ def _is_dtensor(x) -> bool:
     import) in a process that has made none."""
     mod = sys.modules.get("torch.distributed.tensor")
     return mod is not None and isinstance(x, mod.DTensor)
+
+
+def placement_of(t):
+    """``(mesh, placements)`` of DTensor ``t``; None for a plain tensor.
+    What a key of jit's cache holds of an input beside its shape and
+    dtype: its sharding."""
+    if not _is_dtensor(t):
+        return None
+    return t.device_mesh, tuple(t.placements)
+
+
+def local_tensor(t: torch.Tensor) -> torch.Tensor:
+    """The shard of DTensor ``t`` that this rank holds, a view (writing
+    into it writes ``t``); a plain tensor itself."""
+    return t.to_local() if _is_dtensor(t) else t
+
+
+def whole(t: torch.Tensor) -> torch.Tensor:
+    """DTensor ``t`` gathered whole on every rank (``full_tensor``), as the
+    reference's ``jax.device_get`` gathers an array; a plain tensor
+    itself."""
+    return t.full_tensor() if _is_dtensor(t) else t
+
+
+def place_local(tree, shardings):
+    """``distribute(tree, shardings)`` for a tree that every rank holds
+    whole and the same (made from one seed, one step counter, the same
+    prompts or one checkpoint): each rank keeps its own shard of its own
+    copy and no collective runs, so placing it leaves no collective in
+    flight when a captured step follows."""
+    from torch.distributed.tensor import distribute_tensor
+
+    def put(t, s):
+        if not isinstance(t, torch.Tensor):
+            return t
+        return distribute_tensor(t, s.mesh, s.placements, src_data_rank=None)
+    return tree_map(put, tree, shardings)
+
+
+def place_batch(mesh, batch: Dict[str, torch.Tensor]):
+    """``batch`` placed by ``batch_shardings`` with ``place_local``."""
+    return place_local(batch, batch_shardings(mesh, batch))
 
 
 def splits_dim(x, dim: int) -> bool:
@@ -864,7 +911,8 @@ def _local_offset(t, dim: int) -> int:
 def write_slot(dst: torch.Tensor, src: torch.Tensor, dim: int,
                index: torch.Tensor) -> None:
     """``dst.narrow(dim, index, 1).copy_(src)``, in place, for ``index`` a
-    () integer tensor in range, never read on the host: an indexed copy.
+    () integer tensor in range, never read on the host: an indexed copy
+    (into each rank's shard of a DTensor whose ``dim`` is whole).
     Also when ``dst`` is a DTensor sharded along ``dim`` (a KV cache whose
     sequence is split over the model axis): each rank writes its own
     shard where ``index`` falls in it, and writes back the slot it holds
@@ -877,6 +925,12 @@ def write_slot(dst: torch.Tensor, src: torch.Tensor, dim: int,
                    else pl for pl in dst.placements)
     local = dst.to_local()
     new = src.redistribute(dst.device_mesh, src_pl).to_local()
+    if not splits_dim(dst, dim):
+        # every rank holds all of ``dim``: the plain indexed copy, with no
+        # kernels spent on choosing the slot (a decode step writes 2 a
+        # layer)
+        local.index_copy_(dim, index.reshape(1).long(), new)
+        return
     n = local.shape[dim]
     at = index.long() - _local_offset(dst, dim)
     held = (at >= 0) & (at < n)

@@ -11,12 +11,21 @@ for the live slots with everything generated so far (caches are
 reconstructible state, never durable).  The server runs on the device of
 the parameters it is given.
 
+Parameters that are DTensors (placed on a mesh by
+``sharding.param_shardings``) are served sharded, as the reference serves
+parameters that ``jax.device_put`` placed: the server reads the mesh from
+the embedding table, places each padded batch by
+``sharding.batch_shardings``, runs both steps under
+``sharding.activation_mesh``, feeds the decode step the cache as the
+sharded prefill returns it, and reads each token on the host whole.
+
 The reference compiles both of its steps with ``jax.jit``.  The port's
 counterparts on the card are ``GraphedPrefill`` and ``GraphedDecode``:
-each step captured into a CUDA graph once per input shapes (the prefill
-once per batch and prompt width, the decode step once per batch and
-``s_max``) and replayed.  On the CPU, and with parameters that are
-DTensors (under a mesh), the server runs both plain steps.
+each step captured into a CUDA graph once per key of jit's cache (the
+prefill once per batch and prompt width, the decode step once per batch
+and ``s_max``; under a mesh the inputs' placements too) and replayed, with
+sharded parameters as with whole ones.  On the CPU (a gloo mesh
+included) the server runs both plain steps.
 """
 
 from __future__ import annotations
@@ -55,6 +64,29 @@ class ServeStats:
     wall_seconds: float = 0.0
 
 
+def _mesh_of(params):
+    """The mesh of sharded parameters (the embedding table's); None for
+    whole ones."""
+    return getattr(params["embed"], "device_mesh", None)
+
+
+def _leaf_key(t: torch.Tensor) -> tuple:
+    """A leaf's part of jit's cache key: its shape, dtype and sharding."""
+    return tuple(t.shape), t.dtype, sharding.placement_of(t)
+
+
+def _copy_into(dst, src) -> None:
+    """Copy each leaf of ``src`` into the leaf of ``dst``, shard by shard.
+    A DTensor's placements must be its destination's: a copy never
+    redistributes, so a capture records no collective."""
+    for d, s in zip(tree_leaves(dst), tree_leaves(src), strict=True):
+        if sharding.placement_of(d) != sharding.placement_of(s):
+            raise ValueError(f"copy between placements "
+                             f"{sharding.placement_of(s)} and "
+                             f"{sharding.placement_of(d)}")
+        sharding.local_tensor(d).copy_(sharding.local_tensor(s))
+
+
 class GraphError(Exception):
     """A CUDA graph's replay failed.  Not a ``RuntimeError``, so that
     ``Server`` ends the run on it instead of re-prefilling (a capture runs
@@ -73,27 +105,32 @@ class GraphedDecode:
     counterpart of the reference's ``jax.jit`` of the step, with its
     signature ``(params, token, cache) -> (logits, cache)``.
 
-    One CUDA graph for each key of jit's cache, the shapes and dtypes of
-    the token and of every cache leaf (in ``Server``, the batch and
-    ``s_max``), captured from the plain step after a warm-up on a side
-    stream, over static copies of the token and the cache.  A call copies
-    the token, and the cache's entries and ``cur_pos`` unless the cache is
-    the static one a previous call returned, into the static buffers,
-    replays, and returns the static logits and cache: the logits are
-    overwritten by the next call.  The step never reads the position on
-    the host, so a replay advances it on the card.  The graph holds the
-    parameters it was captured with, and a call with others is refused."""
+    One CUDA graph for each key of jit's cache, the shapes, dtypes and
+    placements of the token and of every cache leaf (in ``Server``, the
+    batch and ``s_max``), captured from the plain step after a warm-up on
+    a side stream, over static copies of the token and the cache.  A call
+    copies the token, and the cache's entries and ``cur_pos`` unless the
+    cache is the static one a previous call returned, into the static
+    buffers, replays, and returns the static logits and cache: the logits
+    are overwritten by the next call.  The step never reads the position
+    on the host, so a replay advances it on the card.  The graph holds the
+    parameters it was captured with, and a call with others is refused.
+
+    Sharded parameters are captured as whole ones: the static buffers are
+    DTensors with the inputs' placements, the warm-up and the recording
+    run under ``sharding.activation_mesh``, and a call copies into the
+    static DTensors' local shards."""
 
     def __init__(self, cfg: LMConfig, params) -> None:
         self.step = model.make_decode_step(cfg)
         self.params = params
+        self.mesh = _mesh_of(params)
         self.graphs: Dict[tuple, _Captured] = {}
         self.capture_seconds: List[float] = []   # host clock, warm-up included
 
     @staticmethod
     def key(token: torch.Tensor, cache: ServeCache) -> tuple:
-        return tuple((tuple(t.shape), t.dtype)
-                     for t in (token, *tree_leaves(cache)))
+        return tuple(_leaf_key(t) for t in (token, *tree_leaves(cache)))
 
     def capture(self, params, token: torch.Tensor,
                 cache: ServeCache) -> _Captured:
@@ -110,12 +147,13 @@ class GraphedDecode:
         stream = torch.cuda.Stream(device=token.device)
         stream.wait_stream(torch.cuda.current_stream(token.device))
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(stream):
-            # the warm-up updates the static copies, which every call
-            # overwrites before it replays
-            self.step(params, static_token, static_cache)
-        with torch.cuda.graph(graph, stream=stream):
-            logits, _ = self.step(params, static_token, static_cache)
+        with sharding.activation_mesh(self.mesh):
+            with torch.cuda.stream(stream):
+                # the warm-up updates the static copies, which every call
+                # overwrites before it replays
+                self.step(params, static_token, static_cache)
+            with torch.cuda.graph(graph, stream=stream):
+                logits, _ = self.step(params, static_token, static_cache)
         torch.cuda.current_stream(token.device).wait_stream(stream)
         self.graphs[key] = _Captured(graph, static_token, static_cache, logits)
         self.capture_seconds.append(time.perf_counter() - t0)
@@ -123,11 +161,10 @@ class GraphedDecode:
 
     def __call__(self, params, token: torch.Tensor, cache: ServeCache):
         g = self.capture(params, token, cache)
-        g.token.copy_(token)
-        src, dst = tree_leaves(cache), tree_leaves(g.cache)
-        if any(a is not b for a, b in zip(src, dst, strict=True)):
-            for a, b in zip(src, dst):
-                b.copy_(a)              # a new prefill's cache
+        _copy_into(g.token, token)
+        if any(a is not b for a, b in zip(tree_leaves(cache),
+                                          tree_leaves(g.cache), strict=True)):
+            _copy_into(g.cache, cache)  # a new prefill's cache
         try:
             g.graph.replay()
         except RuntimeError as e:
@@ -140,12 +177,7 @@ _COUNTED = ((flash_attention, "instance_launches"),)
 
 
 def _shapes(tree) -> tuple:
-    return tuple((tuple(t.shape), t.dtype) for t in tree_leaves(tree))
-
-
-def _copy_into(dst, src) -> None:
-    for d, s in zip(tree_leaves(dst), tree_leaves(src), strict=True):
-        d.copy_(s)
+    return tuple(_leaf_key(t) for t in tree_leaves(tree))
 
 
 class _Prefill(NamedTuple):
@@ -160,10 +192,11 @@ class GraphedPrefill:
     prompt shape: the port's counterpart of the reference's ``jax.jit`` of
     the step, with its signature ``(params, batch) -> (logits, cache)``.
 
-    One CUDA graph for each key of jit's cache, the names, shapes and
-    dtypes of the batch's tensors (in ``Server``, the batch and the prompt
-    width; ``s_max`` is the server's), captured from the plain step after
-    a warm-up on a side stream, over static copies of the batch.  Each
+    One CUDA graph for each key of jit's cache, the names, shapes, dtypes
+    and placements of the batch's tensors (in ``Server``, the batch and
+    the prompt width; ``s_max`` is the server's), captured from the plain
+    step after a warm-up on a side stream, over static copies of the
+    batch.  Each
     graph ends by copying the step's logits and cache into static outputs
     that every width shares: their shapes are the batch's and ``s_max``'s,
     not the width's, so there is one set a batch size.  Everything else a
@@ -190,11 +223,13 @@ class GraphedPrefill:
     wrapper's counts say how many launches ran: a capture takes back the
     launches it records and every replay adds them (``kernels.counts``).
     ``capture_seconds`` holds each capture's host seconds, warm-up
-    included."""
+    included.  Sharded parameters are captured as ``GraphedDecode``
+    captures them; the static outputs take the step's placements."""
 
     def __init__(self, cfg: LMConfig, params, s_max: int) -> None:
         self.step = model.make_prefill_step(cfg, s_max=s_max)
         self.params = params
+        self.mesh = _mesh_of(params)
         self.graphs: Dict[tuple, _Prefill] = {}
         self.outputs: Dict[tuple, tuple] = {}    # by the outputs' shapes
         self.pool = None        # the shared pool and the side stream, made
@@ -203,7 +238,7 @@ class GraphedPrefill:
 
     @staticmethod
     def key(batch: Dict[str, torch.Tensor]) -> tuple:
-        return tuple((name, tuple(t.shape), t.dtype)
+        return tuple((name, *_leaf_key(t))
                      for name, t in sorted(batch.items()))
 
     def capture(self, params, batch: Dict[str, torch.Tensor]) -> _Prefill:
@@ -222,21 +257,22 @@ class GraphedPrefill:
             self.pool = torch.cuda.graph_pool_handle()
             self.stream = torch.cuda.Stream(device=dev)
         static = {name: t.clone() for name, t in batch.items()}
-        self.stream.wait_stream(main)
-        with torch.cuda.stream(self.stream):
-            warm = self.step(params, static)     # warm-up: it runs
-        out = self.outputs.get(_shapes(warm))
-        if out is None:
-            out = self.outputs[_shapes(warm)] = tree_map(torch.empty_like,
-                                                         warm)
-        self.stream.wait_stream(main)
-        with torch.cuda.stream(self.stream):
-            _copy_into(out, warm)
-        del warm
-        graph = torch.cuda.CUDAGraph()
-        before = counts.snapshot(_COUNTED)
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
-            _copy_into(out, self.step(params, static))
+        with sharding.activation_mesh(self.mesh):
+            self.stream.wait_stream(main)
+            with torch.cuda.stream(self.stream):
+                warm = self.step(params, static)     # warm-up: it runs
+            out = self.outputs.get(_shapes(warm))
+            if out is None:
+                out = self.outputs[_shapes(warm)] = tree_map(
+                    torch.empty_like, warm)
+            self.stream.wait_stream(main)
+            with torch.cuda.stream(self.stream):
+                _copy_into(out, warm)
+            del warm
+            graph = torch.cuda.CUDAGraph()
+            before = counts.snapshot(_COUNTED)
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+                _copy_into(out, self.step(params, static))
         launches = counts.delta(counts.snapshot(_COUNTED), before)
         counts.add(_COUNTED, launches, -1)
         main.wait_stream(self.stream)
@@ -248,8 +284,7 @@ class GraphedPrefill:
         new = self.key(batch) not in self.graphs
         g = self.capture(params, batch)
         if not new:
-            for name, t in batch.items():
-                g.batch[name].copy_(t)
+            _copy_into(g.batch, batch)
             try:
                 g.graph.replay()
             except RuntimeError as e:
@@ -264,16 +299,17 @@ class Server:
         self.cfg = cfg
         self.params = params
         self.device = params["embed"].device
+        self.mesh = _mesh_of(params)
         self.max_batch = max_batch
         self.s_max = s_max
-        # the reference's jax.jit of each step: CUDA graphs on the card;
-        # DTensor parameters (a mesh) and the CPU take the plain steps
+        # the reference's jax.jit of each step: CUDA graphs on the card,
+        # for whole and sharded parameters alike; the CPU takes the plain
+        # steps
         self.prefill_graph: Optional[GraphedPrefill] = None
         self.graph: Optional[GraphedDecode] = None
         self.prefill = model.make_prefill_step(cfg, s_max=s_max)
         self.decode = model.make_decode_step(cfg)
-        if self.device.type == "cuda" and not sharding._is_dtensor(
-                params["embed"]):
+        if self.device.type == "cuda":
             self.prefill_graph = self.prefill = GraphedPrefill(cfg, params,
                                                                s_max)
             self.graph = self.decode = GraphedDecode(cfg, params)
@@ -283,7 +319,10 @@ class Server:
         prompts = [torch.as_tensor(r.prompt, dtype=torch.long) for r in reqs]
         width = max(int(p.shape[0]) for p in prompts)
         rows = [F.pad(p, (width - int(p.shape[0]), 0)) for p in prompts]
-        return torch.stack(rows).to(self.device)
+        tokens = torch.stack(rows).to(self.device)
+        if self.mesh is None:
+            return tokens
+        return sharding.place_batch(self.mesh, {"tokens": tokens})["tokens"]
 
     def _prefill(self, reqs: List[Request], stats: ServeStats):
         # outside any try: a new width's capture, or a capture or replay
@@ -299,7 +338,8 @@ class Server:
         while queue:
             live = queue[: self.max_batch]
             queue = queue[self.max_batch:]
-            self._run_batch(live, stats)
+            with sharding.activation_mesh(self.mesh):
+                self._run_batch(live, stats)
             stats.served += len(live)
         stats.wall_seconds = time.perf_counter() - t0
         return stats
@@ -309,7 +349,7 @@ class Server:
         cur = torch.argmax(logits[:, -1:], dim=-1)
         max_new = max(r.max_new for r in live)
         for step in range(max_new):
-            host = cur[:, 0].tolist()
+            host = sharding.whole(cur)[:, 0].tolist()
             for i, r in enumerate(live):
                 if not r.done and len(r.out_tokens) < r.max_new:
                     tok = host[i]

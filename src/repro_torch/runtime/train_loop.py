@@ -15,7 +15,12 @@ contract:
 
 The loop runs on ``device`` (the card unless the caller asks for the
 CPU); initial parameters are drawn from ``torch.Generator(device)``
-seeded 0.
+seeded 0.  With a ``mesh`` (a ``DeviceMesh`` over ``device``), as the
+reference's loop takes one, the parameters and AdamW state are placed by
+``sharding.param_shardings`` and ``opt_shardings``, each batch by
+``batch_shardings``, and the step is ``model.make_train_step(cfg, tcfg,
+mesh=mesh)`` under ``sharding.activation_mesh``; checkpoints hold the
+whole tree (``ckpt``), and a resume or a rollback places it again.
 
 The reference compiles its train step with ``jax.jit``.  The port's
 counterpart on the card is ``GraphedTrainStep``: the step captured into
@@ -26,7 +31,9 @@ loop still never sees half-updated state.  A fault before the replay
 leaves the state as it was (retry; a persistent fault saves it), a
 replay failure (``serve_loop.GraphError``) ends the run with no save, and
 a non-finite loss restores the newest checkpoint, which the next call
-copies into the static buffers.  On the CPU the loop runs the plain step.
+copies into the static buffers.  Under a mesh the graph is captured over
+sharded state as over whole state.  On the CPU (a gloo mesh included) the
+loop runs the plain step.
 """
 
 from __future__ import annotations
@@ -43,10 +50,10 @@ import torch
 from ..checkpoint import ckpt
 from ..configs.base import LMConfig, ShapeSpec
 from ..data.pipeline import DataConfig, DataIterator
-from ..models.lm import model, transformer
+from ..models.lm import model, sharding, transformer
 from ..optim import adamw
 from ..tree import tree_flatten_with_names, tree_leaves, tree_map
-from .serve_loop import GraphError
+from .serve_loop import GraphError, _copy_into, _leaf_key
 
 
 def _default_ckpt_dir() -> str:
@@ -82,17 +89,31 @@ def step_and_commit(step: Callable, params, opt_state: adamw.AdamWState,
     opt_state, batch)``, then the new parameters and optimizer state
     written over ``params`` and ``opt_state``; returns the step's metrics.
     Every new leaf is computed before the first write, so no part of the
-    update reads a leaf already overwritten."""
+    update reads a leaf already overwritten; a sharded leaf is written
+    shard by shard (``serve_loop._copy_into``)."""
     new_params, new_opt, metrics = step(params, opt_state, batch)
-    for dst, src in zip(tree_leaves((params, opt_state)),
-                        tree_leaves((new_params, new_opt)), strict=True):
-        dst.copy_(src)
+    _copy_into((params, opt_state), (new_params, new_opt))
     return metrics
 
 
 def _signature(tree) -> tuple:
-    return tuple((name, tuple(t.shape), t.dtype)
+    return tuple((name, *_leaf_key(t))
                  for name, t in tree_flatten_with_names(tree))
+
+
+def _model_signature(cfg: LMConfig, mesh) -> tuple:
+    """``_signature`` of ``cfg``'s parameters and AdamW state as ``train``
+    makes them: placed on ``mesh`` by ``param_shardings`` and
+    ``opt_shardings`` when there is one."""
+    meta = transformer.init_params(cfg, torch.Generator(), device="meta")
+    state = (meta, adamw.init(meta))
+    if mesh is None:
+        return _signature(state)
+    shardings = (sharding.param_shardings(cfg, mesh, meta),
+                 sharding.opt_shardings(cfg, mesh, state[1], meta))
+    return tuple((name, tuple(t.shape), t.dtype, (mesh, s.placements))
+                 for (name, t), s in zip(tree_flatten_with_names(state),
+                                         tree_leaves(shardings), strict=True))
 
 
 class _Captured(NamedTuple):
@@ -109,31 +130,37 @@ class GraphedTrainStep:
     signature ``(params, opt_state, batch) -> (params, opt_state,
     metrics)``.
 
-    One CUDA graph for each key of jit's cache, the shapes and dtypes of
-    the batch's, the parameters' and the state's leaves (in ``train``, one
-    for the run), captured from :func:`step_and_commit` after a warm-up on
-    a side stream, over static copies of the parameters, the state and the
-    batch.  A call copies the batch in, and the parameters and state
-    unless they are the static ones a previous call returned (a fresh
+    One CUDA graph for each key of jit's cache, the shapes, dtypes and
+    placements of the batch's, the parameters' and the state's leaves (in
+    ``train``, one for the run), captured from :func:`step_and_commit`
+    after a warm-up on a side stream, over static copies of the
+    parameters, the state and the batch.  A call copies the batch in, and
+    the parameters and state unless they are the static ones a previous
+    call returned (a fresh
     start, a resume, a rollback's restore); replays; and returns the
     static parameters, state and metrics (loss, grad norm, lr as device
     tensors), which the next call overwrites.  The step reads no value on
-    the host.  Parameters or state of other shapes than ``cfg``'s model
-    are refused, and so are parameters off the card.  A capture error
-    raises as PyTorch raises it, a replay error as ``GraphError``; nothing
-    falls back to the eager step."""
+    the host.  Parameters or state of other shapes than ``cfg``'s model,
+    or placed otherwise than ``mesh``'s rules place them (whole without a
+    mesh), are refused, and so are parameters off the card.  With a
+    ``mesh`` the step is ``make_train_step(..., mesh=mesh)``, the warm-up
+    and the recording run under ``sharding.activation_mesh``, and the
+    copies in go shard by shard.  A capture error raises as PyTorch
+    raises it, a replay error as ``GraphError``; nothing falls back to
+    the eager step."""
 
     def __init__(self, cfg: LMConfig,
-                 tcfg: Optional[model.TrainStepConfig] = None) -> None:
-        self.step = model.make_train_step(cfg, tcfg)
-        meta = transformer.init_params(cfg, torch.Generator(), device="meta")
-        self.signature = _signature((meta, adamw.init(meta)))
+                 tcfg: Optional[model.TrainStepConfig] = None,
+                 mesh=None) -> None:
+        self.step = model.make_train_step(cfg, tcfg, mesh=mesh)
+        self.mesh = mesh
+        self.signature = _model_signature(cfg, mesh)
         self.graphs: Dict[tuple, _Captured] = {}
         self.capture_seconds: List[float] = []   # host clock, warm-up included
 
     @staticmethod
     def key(params, opt_state, batch) -> tuple:
-        return tuple((tuple(t.shape), t.dtype)
+        return tuple(_leaf_key(t)
                      for t in tree_leaves((batch, params, opt_state)))
 
     def capture(self, params, opt_state: adamw.AdamWState,
@@ -142,7 +169,8 @@ class GraphedTrainStep:
         is new."""
         if _signature((params, opt_state)) != self.signature:
             raise ValueError("GraphedTrainStep: parameters or optimizer "
-                             "state of other shapes than the model's")
+                             "state of other shapes or placements than the "
+                             "model's")
         key = self.key(params, opt_state, batch)
         if key in self.graphs:
             return self.graphs[key]
@@ -164,13 +192,14 @@ class GraphedTrainStep:
                              f"runs the plain step)")
         stream = torch.cuda.Stream(device=dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream):
-            # the warm-up commits into the static copies, which the first
-            # call overwrites before it replays
-            step_and_commit(self.step, params, opt_state, batch)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=stream):
-            metrics = step_and_commit(self.step, params, opt_state, batch)
+        with sharding.activation_mesh(self.mesh):
+            with torch.cuda.stream(stream):
+                # the warm-up commits into the static copies, which the
+                # first call overwrites before it replays
+                step_and_commit(self.step, params, opt_state, batch)
+            with torch.cuda.graph(graph, stream=stream):
+                metrics = step_and_commit(self.step, params, opt_state, batch)
         torch.cuda.current_stream(dev).wait_stream(stream)
         return graph, metrics
 
@@ -178,14 +207,12 @@ class GraphedTrainStep:
              batch: Dict[str, torch.Tensor]) -> None:
         """Copy a call's inputs into ``g``'s static buffers: the batch
         always, the parameters and state unless they are the static ones."""
-        for dst, src in zip(tree_leaves(g.batch), tree_leaves(batch),
-                            strict=True):
-            dst.copy_(src)
-        src = tree_leaves((params, opt_state))
-        dst = tree_leaves((g.params, g.opt))
-        if any(a is not b for a, b in zip(src, dst, strict=True)):
-            for a, b in zip(src, dst):
-                b.copy_(a)
+        _copy_into(g.batch, batch)
+        state = (params, opt_state)
+        if any(a is not b for a, b in zip(tree_leaves(state),
+                                          tree_leaves((g.params, g.opt)),
+                                          strict=True)):
+            _copy_into((g.params, g.opt), state)
 
     def __call__(self, params, opt_state: adamw.AdamWState,
                  batch: Dict[str, torch.Tensor]):
@@ -198,23 +225,31 @@ class GraphedTrainStep:
         return g.params, g.opt, g.metrics
 
 
-def step_for_device(cfg: LMConfig, tcfg: model.TrainStepConfig, device):
-    """The train step as ``train`` runs it on ``device``: a
-    :class:`GraphedTrainStep` on the card, the plain step elsewhere."""
+def step_for_device(cfg: LMConfig, tcfg: model.TrainStepConfig, device,
+                    mesh=None):
+    """The train step as ``train`` runs it on ``device`` (under ``mesh``
+    if one is given): a :class:`GraphedTrainStep` on the card, the plain
+    step elsewhere."""
     if torch.device(device).type == "cuda":
-        return GraphedTrainStep(cfg, tcfg)
-    return model.make_train_step(cfg, tcfg)
+        return GraphedTrainStep(cfg, tcfg, mesh)
+    return model.make_train_step(cfg, tcfg, mesh=mesh)
 
 
 def train(cfg: LMConfig, shape: ShapeSpec, loop: TrainLoopConfig,
           data_cfg: Optional[DataConfig] = None,
           fault_hook: Optional[Callable[[int], None]] = None,
-          device="cuda") -> TrainReport:
+          mesh=None, device="cuda") -> TrainReport:
     """Run (or resume) training; returns a report for tests/examples."""
     t0 = time.time()
     params = transformer.init_params(
         cfg, torch.Generator(device).manual_seed(0), device=device)
     opt_state = adamw.init(params)
+    if mesh is not None:
+        # every rank draws the same parameters from the seed
+        opt_state = sharding.place_local(opt_state, sharding.opt_shardings(
+            cfg, mesh, opt_state, params))
+        params = sharding.place_local(params, sharding.param_shardings(
+            cfg, mesh, params))
 
     state_like = {"params": params, "opt": opt_state}
     resumed_from = None
@@ -225,8 +260,11 @@ def train(cfg: LMConfig, shape: ShapeSpec, loop: TrainLoopConfig,
         params, opt_state = state["params"], state["opt"]
         resumed_from = start_step
 
-    step_fn = step_for_device(cfg, model.TrainStepConfig(opt=loop.opt),
-                              device)
+    tcfg = model.TrainStepConfig(opt=loop.opt)
+    # the mesh is passed only when there is one, so that a maker of the
+    # unsharded loop's signature (cfg, tcfg, device) still makes its step
+    step_fn = (step_for_device(cfg, tcfg, device) if mesh is None
+               else step_for_device(cfg, tcfg, device, mesh))
     graph = step_fn if isinstance(step_fn, GraphedTrainStep) else None
 
     data = DataIterator(cfg, shape, start_step=start_step, dcfg=data_cfg,
@@ -246,6 +284,8 @@ def train(cfg: LMConfig, shape: ShapeSpec, loop: TrainLoopConfig,
     try:
         while step < loop.total_steps:
             batch = next(data)
+            if mesh is not None:
+                batch = sharding.place_batch(mesh, batch)
             if graph is not None:
                 # outside the retry below: a capture error ends the run
                 graph.capture(params, opt_state, batch)
@@ -254,9 +294,10 @@ def train(cfg: LMConfig, shape: ShapeSpec, loop: TrainLoopConfig,
                 try:
                     if fault_hook is not None:
                         fault_hook(step)
-                    new_params, new_opt, metrics = step_fn(params, opt_state,
-                                                           batch)
-                    loss = float(metrics["loss"])
+                    with sharding.activation_mesh(mesh):
+                        new_params, new_opt, metrics = step_fn(
+                            params, opt_state, batch)
+                    loss = float(sharding.whole(metrics["loss"]))
                     if not math.isfinite(loss):
                         raise FloatingPointError(f"non-finite loss at {step}")
                     params, opt_state = new_params, new_opt
