@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Sequence
 
@@ -31,6 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[str, ctypes._CFuncPtr] = {}
+build_seconds = 0.0   # wall seconds this process has spent in nvcc
 
 
 def nvcc_path() -> str:
@@ -69,10 +71,13 @@ def build(names: Iterable[str] = ()) -> Dict[str, Path]:
     """Compile every named source (all of ``csrc/`` if none are named)
     whose library is missing, one ``nvcc`` per source, all at once.
     Returns name -> library path.  ``-Xptxas -v`` output (registers,
-    shared memory, spills) is kept in ``<library>.log``."""
+    shared memory, spills) is kept in ``<library>.log``.  The wall seconds
+    of the compiles are added to ``build_seconds``."""
+    global build_seconds
     names = list(names) or sources()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     libs = {n: library_path(n) for n in names}
+    t0 = time.perf_counter()
     procs = []
     for n, lib in libs.items():
         if lib.exists():
@@ -92,6 +97,8 @@ def build(names: Iterable[str] = ()) -> Dict[str, Path]:
                       if "error" in line]
             failed.append(f"{n} (nvcc exit {rc}, see {lib}.log):\n"
                           + "\n".join(errors[:20]))
+    if procs:
+        build_seconds += time.perf_counter() - t0
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return libs

@@ -34,8 +34,7 @@ Supported node kinds cover the ResNet graphs.
 
 from __future__ import annotations
 
-import time
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import torch
 
@@ -45,6 +44,7 @@ from .. import quant
 from ...kernels import conv2d, counts, ops
 from ...kernels.conv2d import imc_conv2d
 from ...kernels.imc_mvm import imc_mvm
+from ...spans import RequestSpans
 from ...tree import tree_leaves
 from . import layers as L
 
@@ -215,8 +215,13 @@ class GraphedExecute:
     The wrappers' launch counts move where a kernel is launched, and a
     capture records launches without running them: the capture takes its
     counts back, and every replay adds them, so the counts keep saying how
-    many launches ran.  ``capture_seconds`` holds each capture's host
-    seconds, warm-up included."""
+    many launches ran.  ``spans`` (a :class:`repro_torch.spans.RequestSpans`)
+    records each request: its id, its call's time on the host clock, the
+    host seconds of its input copy, replay and output copy, and on every
+    ``spans.sample_every``-th request its device span; and each capture's
+    parts (the input's copy, the warm-up with its seconds in ``nvcc``, the
+    recording).  ``capture_seconds`` holds each capture's host seconds,
+    warm-up included, read from ``spans.captures``."""
 
     def __init__(self, g: Graph, params: Dict,
                  act_scales: Optional[Dict[str, float]] = None) -> None:
@@ -226,7 +231,11 @@ class GraphedExecute:
         self.device = device
         self.state = program_int8(g, params, act_scales)
         self.graphs: Dict[tuple, _Captured] = {}
-        self.capture_seconds = []
+        self.spans = RequestSpans(self.device)
+
+    @property
+    def capture_seconds(self) -> List[float]:
+        return self.spans.capture_seconds
 
     @staticmethod
     def key(x: torch.Tensor) -> tuple:
@@ -240,30 +249,32 @@ class GraphedExecute:
         key = self.key(x)
         if key in self.graphs:
             return self.graphs[key]
-        t0 = time.perf_counter()
         dev = self.device
-        static_x = x.to(dev, copy=True)
-        stream = torch.cuda.Stream(device=dev)
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream):
-            run_int8(self.g, self.state, static_x)      # warm-up: it runs
-        graph = torch.cuda.CUDAGraph()
-        before = _launch_counts()
-        with torch.cuda.graph(graph, stream=stream):
-            out = run_int8(self.g, self.state, static_x)
-        launches = _count_delta(_launch_counts(), before)
-        _add_counts(launches, -1)
-        torch.cuda.current_stream(dev).wait_stream(stream)
-        self.graphs[key] = _Captured(graph, static_x, out, launches)
-        self.capture_seconds.append(time.perf_counter() - t0)
+        with self.spans.capture(key) as parts:
+            static_x = x.to(dev, copy=True)
+            with parts.warmup():
+                stream = torch.cuda.Stream(device=dev)
+                stream.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(stream):
+                    run_int8(self.g, self.state, static_x)      # it runs
+            with parts.record():
+                graph = torch.cuda.CUDAGraph()
+                before = _launch_counts()
+                with torch.cuda.graph(graph, stream=stream):
+                    out = run_int8(self.g, self.state, static_x)
+                launches = _count_delta(_launch_counts(), before)
+                _add_counts(launches, -1)
+                torch.cuda.current_stream(dev).wait_stream(stream)
+                self.graphs[key] = _Captured(graph, static_x, out, launches)
         return self.graphs[key]
 
     def __call__(self, params, x: torch.Tensor) -> torch.Tensor:
         c = self.capture(params, x)
-        c.x.copy_(x)
-        c.graph.replay()
-        _add_counts(c.launches, 1)
-        return c.out.clone()
+
+        def replay():
+            c.graph.replay()
+            _add_counts(c.launches, 1)
+        return self.spans.request(c.x, x, replay, c.out.clone)
 
 
 def int8_request(g: Graph, params: Dict,

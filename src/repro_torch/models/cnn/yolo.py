@@ -22,11 +22,11 @@ is.  The reference does not jit ``forward``; the graph adds no feature.
 
 from __future__ import annotations
 
-import time
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 
+from ...spans import RequestSpans
 from ...tree import tree_leaves
 from . import layers as L
 
@@ -322,15 +322,24 @@ class GraphedForward:
     of several requests.  The graph holds the parameters it was
     programmed with, and a call with others is refused; parameters off
     the card are refused too.  A capture or replay error raises.
+    ``spans`` (a :class:`repro_torch.spans.RequestSpans`) records each
+    request: its id, its call's time on the host clock, the host seconds of
+    its input copy, replay and output copy, and on every
+    ``spans.sample_every``-th request its device span; and each capture's
+    parts (the input's copy, the warm-up, the recording).
     ``capture_seconds`` holds each capture's host seconds, warm-up
-    included."""
+    included, read from ``spans.captures``."""
 
     def __init__(self, params, image_hw) -> None:
         self.device = _card_of(params)
         self.params = params
         self.state = program(params, image_hw)
         self.graphs: Dict[tuple, _Captured] = {}
-        self.capture_seconds = []
+        self.spans = RequestSpans(self.device)
+
+    @property
+    def capture_seconds(self) -> List[float]:
+        return self.spans.capture_seconds
 
     def _run(self, x):
         raw = forward_programmed(self.state, x, decode=False)
@@ -344,26 +353,26 @@ class GraphedForward:
         key = (tuple(x.shape), x.dtype)
         if key in self.graphs:
             return self.graphs[key]
-        t0 = time.perf_counter()
         dev = self.device
-        static_x = x.to(dev, copy=True)
-        stream = torch.cuda.Stream(device=dev)
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream):
-            self._run(static_x)                  # warm-up: it runs
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=stream):
-            raw, out = self._run(static_x)
-        torch.cuda.current_stream(dev).wait_stream(stream)
-        self.graphs[key] = _Captured(graph, static_x, raw, out)
-        self.capture_seconds.append(time.perf_counter() - t0)
+        with self.spans.capture(key) as parts:
+            static_x = x.to(dev, copy=True)
+            with parts.warmup():
+                stream = torch.cuda.Stream(device=dev)
+                stream.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(stream):
+                    self._run(static_x)                  # it runs
+            with parts.record():
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, stream=stream):
+                    raw, out = self._run(static_x)
+                torch.cuda.current_stream(dev).wait_stream(stream)
+                self.graphs[key] = _Captured(graph, static_x, raw, out)
         return self.graphs[key]
 
     def __call__(self, params, x: torch.Tensor, decode: bool = True):
         c = self.capture(params, x)
-        c.x.copy_(x)
-        c.graph.replay()
-        return c.out.clone() if decode else [r.clone() for r in c.raw]
+        copy_out = c.out.clone if decode else (lambda: [r.clone() for r in c.raw])
+        return self.spans.request(c.x, x, c.graph.replay, copy_out)
 
 
 def request(params, image_hw):
